@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's parameter pytree, as numpy, into the
-port's parameters.
+port's parameters, and back (``params_to_numpy``).
 
 The caller turns the JAX tree into numpy (``jax.tree_util.tree_map(
 np.asarray, params)``); this module imports no JAX and recognizes a
@@ -17,6 +17,7 @@ np.asarray, params)``); this module imports no JAX and recognizes a
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -88,5 +89,64 @@ def unstack_layers(stacked: dict) -> list:
 def params_from_numpy(tree: dict[str, Any], device: torch.device | str = "cpu",
                       dtype: torch.dtype = torch.float32) -> dict[str, Any]:
     """Convert a numpy copy of a JAX parameter tree (any model of the
-    slice: the llama decoder alone or the whole llama_ens5 tree)."""
+    slice: the llama decoder alone or the whole llama_ens5 tree, with or
+    without a ``"lora"`` adapter tree, whose stacked ``layers`` become
+    per-layer lists like the decoder's)."""
     return {k: _convert_child(k, v, device, dtype) for k, v in tree.items()}
+
+
+def _to_numpy(x, key, stack: bool = False):
+    """``stack``: turn a ``"layers"`` list in this subtree into arrays
+    stacked on axis 0."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        out = {k: _to_numpy(v, k, stack) for k, v in x.items()}
+        if stack and isinstance(x.get("layers"), list):
+            out["layers"] = stack_layers(out["layers"])
+        return out
+    if isinstance(x, (list, tuple)):
+        return [_to_numpy(v, None, stack) for v in x]
+    if isinstance(x, QuantizedWeight):
+        return SimpleNamespace(q=_to_numpy(x.q, None),
+                               scale=_to_numpy(x.scale, None), bits=x.bits,
+                               group=x.group, in_dim=x.in_dim)
+    t = x.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    if key == "kernel" and t.dim() == 4:
+        t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    return t.numpy().copy()
+
+
+def stack_layers(layers: list) -> Any:
+    """A list of per-layer numpy trees stacked on a new axis 0 (the inverse
+    of ``unstack_layers``)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
+    if first is None:
+        return None
+    if isinstance(first, SimpleNamespace):
+        return SimpleNamespace(
+            q=np.stack([lp.q for lp in layers]),
+            scale=np.stack([lp.scale for lp in layers]), bits=first.bits,
+            group=first.group, in_dim=first.in_dim)
+    return np.stack(layers)
+
+
+def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
+    """The port's tree back in the JAX package's layout, as numpy: the
+    ``layers`` lists of the decoder and its adapters (top-level ``llama``
+    and ``lora``, or a bare decoder tree's own) stacked on axis 0, conv
+    kernels HWIO, bf16 as float32, int4 weights as objects with
+    ``q``/``scale``/``bits``/``group``/``in_dim`` (which
+    ``params_from_numpy`` reads back). Other lists of layers (the
+    Q-Former's, which are not alike) stay lists, as in the JAX tree. For
+    comparing gradients and parameters with the JAX package leaf by
+    leaf."""
+    out = {k: _to_numpy(v, k, stack=k in ("llama", "lora"))
+           for k, v in tree.items()}
+    if isinstance(tree.get("layers"), list):
+        out["layers"] = stack_layers(out["layers"])
+    return out

@@ -11,6 +11,10 @@
 // Masked scores are -inf; a row that has seen no visible key keeps p = 0,
 // and a row with no visible key at all writes zeros (its sum stays 0 and is
 // replaced by 1), the l == 0 guard of the TPU kernels.
+//
+// With a non-null ``lse`` the block also writes each row's natural-log
+// log-sum-exp of the scaled scores, m * ln 2 + ln(l) (m is the base-2 max),
+// which the backward kernels consume; a row with no visible key writes -inf.
 
 #pragma once
 
@@ -25,6 +29,8 @@ constexpr int AT_RPW = 2;                 // query rows per warp
 constexpr int AT_BQ = AT_WARPS * AT_RPW;  // query rows per block
 constexpr int AT_BK = 32;                 // keys per tile
 constexpr int AT_DMAX = 128;              // largest head dim
+constexpr float AT_LN2 = 0.6931471805599453f;
+constexpr float AT_LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -41,13 +47,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 // q, o point at row 0 of this (batch, head); rows are row_stride elements
 // apart. Query row r may see key c iff c < kv_len and, when causal,
 // c <= r + offset (right-aligned: offset = kv_len - q_len). NC = ceil(D/32).
+// ``lse``, when not null, points at row 0's entry; rows are contiguous.
 template <int NC>
 __device__ void attention_block(const __nv_bfloat16* __restrict__ q, long q_stride,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v, long kv_stride,
                                 __nv_bfloat16* __restrict__ o, long o_stride,
                                 int q0, int n_rows, int kv_len, int D,
-                                float scale_log2, bool causal, int offset) {
+                                float scale_log2, bool causal, int offset,
+                                float* __restrict__ lse = nullptr) {
   __shared__ float qs[AT_BQ][AT_DMAX];
   __shared__ float ks[AT_BK][AT_DMAX + 1];
   __shared__ float vs[AT_BK][AT_DMAX];
@@ -133,6 +141,8 @@ __device__ void attention_block(const __nv_bfloat16* __restrict__ q, long q_stri
       const int d = lane + 32 * cc;
       if (d < D) o[(long)r * o_stride + d] = __float2bfloat16_rn(acc[rr][cc] * inv);
     }
+    if (lse != nullptr && lane == 0)
+      lse[r] = l_i[rr] == 0.f ? -INFINITY : m_i[rr] * AT_LN2 + logf(l_i[rr]);
   }
 }
 

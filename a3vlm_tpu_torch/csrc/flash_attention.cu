@@ -14,8 +14,13 @@
 // block per (b, h, 16-row query tile), a loop over 32-key tiles that stops
 // at the causal limit of the tile's last row, an f32 online softmax in base
 // 2, and ragged Sq/Skv masked in the kernel so no caller pads. mma.sync or
-// wgmma for the two products is later work. The log-sum-exp output the TPU
-// kernel can return for training is not produced.
+// wgmma for the two products is later work.
+//
+// Training also asks for the natural-log log-sum-exp of each row's scaled
+// scores (the TPU kernel's ``return_lse``, flash_attention.py:184-187),
+// which the backward kernels (flash_attention_bwd.cu) consume: ``lse``
+// [B, Hq, Sq] f32, written when the pointer is not null. Serving passes
+// null and writes nothing more.
 
 #include "attention_tile.cuh"
 
@@ -26,43 +31,48 @@ __global__ void __launch_bounds__(a3::AT_WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
-                 int Skv, int D, int sq_actual, int skv_actual,
-                 float scale_log2, int causal) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Hq, int Hkv, int Sq, int Skv, int D, int sq_actual,
+                 int skv_actual, float scale_log2, int causal) {
   const int b = blockIdx.z, h = blockIdx.y;
   const int kvh = h / (Hq / Hkv);
-  const long qoff = ((long)b * Hq + h) * Sq * D;
+  const long row0 = ((long)b * Hq + h) * Sq;
+  const long qoff = row0 * D;
   const long kvoff = ((long)b * Hkv + kvh) * Skv * D;
   a3::attention_block<NC>(q + qoff, D, k + kvoff, v + kvoff, D, o + qoff, D,
                           blockIdx.x * a3::AT_BQ, Sq, skv_actual, D,
-                          scale_log2, causal != 0, skv_actual - sq_actual);
+                          scale_log2, causal != 0, skv_actual - sq_actual,
+                          lse == nullptr ? nullptr : lse + row0);
 }
 
 template <int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, int D, int sq_actual,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Hq, int Hkv, int Sq, int Skv, int D, int sq_actual,
            int skv_actual, float scale_log2, int causal, cudaStream_t s) {
   dim3 grid((Sq + a3::AT_BQ - 1) / a3::AT_BQ, Hq, B);
   flash_fwd_kernel<NC><<<grid, a3::AT_WARPS * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq,
-      Hkv, Sq, Skv, D, sq_actual, skv_actual, scale_log2, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Hq, Hkv, Sq, Skv, D, sq_actual, skv_actual,
+      scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// ``lse`` may be null (serving); otherwise [B, Hq, Sq] f32.
 extern "C" int a3_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                            int D, int sq_actual, int skv_actual,
-                            float scale_log2, int causal, void* stream) {
+                            void* o, void* lse, int B, int Hq, int Hkv,
+                            int Sq, int Skv, int D, int sq_actual,
+                            int skv_actual, float scale_log2, int causal,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch<2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, sq_actual, skv_actual,
-                     scale_log2, causal, s);
+    return launch<2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, sq_actual,
+                     skv_actual, scale_log2, causal, s);
   if (D <= 96)
-    return launch<3>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, sq_actual, skv_actual,
-                     scale_log2, causal, s);
-  return launch<4>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, sq_actual, skv_actual,
-                   scale_log2, causal, s);
+    return launch<3>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, sq_actual,
+                     skv_actual, scale_log2, causal, s);
+  return launch<4>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, sq_actual,
+                   skv_actual, scale_log2, causal, s);
 }

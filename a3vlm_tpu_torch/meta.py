@@ -1,6 +1,6 @@
 """MetaModel for ``llama_type="llama_ens5"`` (counterpart of
 a3vlm_tpu/meta.py): parameters, optional tokenizer, int4 quantization,
-image encoding and generation.
+image encoding, generation and the training loss.
 
 Without a tokenizer the model is driven with token ids
 (``generate_tokens``); with one, ``generate`` takes and returns text."""
@@ -17,6 +17,7 @@ from a3vlm_tpu_torch.config import Ens5Config, ModelArgs
 from a3vlm_tpu_torch.generation import Generator, synchronize
 from a3vlm_tpu_torch.models import ens5 as ens5_mod
 from a3vlm_tpu_torch.quant import quantize_params
+from a3vlm_tpu_torch.train.losses import next_token_loss
 
 
 class MetaModel:
@@ -84,6 +85,22 @@ class MetaModel:
             return None
         return ens5_mod.build_image_tokens(self.params, self.cfg, images,
                                            impl)
+
+    def get_image_words(self) -> int:
+        return self.image_words
+
+    def get_trainable_params(self) -> dict:
+        """The trainable mask (meta.py:720): towers frozen."""
+        return ens5_mod.trainable_mask(self.params)
+
+    def forward(self, examples: torch.Tensor, labels: torch.Tensor,
+                images: Optional[torch.Tensor] = None,
+                impl: str = "auto") -> torch.Tensor:
+        """Training loss (meta.py:464): next-token cross-entropy of the
+        text positions, label 0 ignored, padded vocab masked."""
+        logits = ens5_mod.forward(self.params, self.cfg, examples,
+                                  image=images, impl=impl)
+        return next_token_loss(logits, labels, vocab_size=self.true_vocab)
 
     def _get_generator(self) -> Generator:
         if self._generator is None:

@@ -19,6 +19,7 @@ from a3vlm_tpu_torch.models import llama, qformer, vit
 from a3vlm_tpu_torch.models._init import trunc_normal
 from a3vlm_tpu_torch.ops.norms import layer_norm
 from a3vlm_tpu_torch.ops.resize import resize
+from a3vlm_tpu_torch.quant import tree_map
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -26,6 +27,13 @@ DINOV2_MEAN = (0.485, 0.456, 0.406)
 DINOV2_STD = (0.229, 0.224, 0.225)
 
 FROZEN_PREFIXES = ("clip", "blip2_vision", "qformer", "convnext", "dinov2")
+
+
+def trainable_mask(params: dict) -> dict:
+    """True = trainable (ens5.py:156): the four towers are frozen; the
+    projectors, image tags and decoder train."""
+    return {k: tree_map(lambda _: k not in FROZEN_PREFIXES, v)
+            for k, v in params.items()}
 
 
 def quant_blocklist() -> tuple[str, ...]:
@@ -84,10 +92,13 @@ def five_crop(image: torch.Tensor, crop: int) -> torch.Tensor:
     return torch.cat([down] + parts, dim=0)
 
 
+@torch.no_grad()
 def encode_image_features(params: dict, cfg: Ens5Config,
                           image: torch.Tensor, impl: str = "auto") -> dict:
     """Towers only (ens5.py:245): image [B, 448, 448, 3] -> {"q": Q-Former
-    queries [5B, nq, 768], "ens": [5B, 257, 5632]}."""
+    queries [5B, nq, 768], "ens": [5B, 257, 5632]}. The towers are frozen
+    and run without recording a gradient (the JAX ``stop_gradient`` at
+    ens5.py:289-292)."""
     crops = five_crop(image, cfg.crop_size)
 
     blip = vit.vit_forward(params["blip2_vision"], cfg.blip2_vision, crops,
@@ -122,13 +133,19 @@ def project_image_features(params: dict, cfg: Ens5Config,
     return list(torch.cat([q_feats, ens], dim=1).chunk(5, dim=0))
 
 
-def build_image_tokens(params: dict, cfg: Ens5Config, image: torch.Tensor,
-                       impl: str = "auto") -> torch.Tensor:
+def build_image_tokens(params: dict, cfg: Ens5Config,
+                       image: Optional[torch.Tensor] = None,
+                       impl: str = "auto",
+                       image_features: Optional[dict] = None) -> torch.Tensor:
     """Encode and wrap each crop in the start/end tags -> [B, image_words,
-    D] (ens5.py:324)."""
-    crops = project_image_features(
-        params, cfg, encode_image_features(params, cfg, image, impl))
-    B = image.shape[0]
+    D] (ens5.py:324). Pass ``image`` to run the towers, or their output
+    (``encode_image_features``) as ``image_features``."""
+    if (image is None) == (image_features is None):
+        raise ValueError("pass exactly one of image and image_features")
+    if image_features is None:
+        image_features = encode_image_features(params, cfg, image, impl)
+    crops = project_image_features(params, cfg, image_features)
+    B = crops[0].shape[0]
     start = params["start_img"].expand(B, 1, cfg.llama.dim)
     end = params["end_img"].expand(B, 1, cfg.llama.dim)
     tokens = torch.cat(
@@ -137,6 +154,24 @@ def build_image_tokens(params: dict, cfg: Ens5Config, image: torch.Tensor,
         raise ValueError(f"{tokens.shape[1]} image tokens, want "
                          f"{cfg.image_words}")
     return tokens
+
+
+def forward(params: dict, cfg: Ens5Config, examples: torch.Tensor,
+            image: Optional[torch.Tensor] = None, remat: bool = False,
+            impl: str = "auto",
+            image_features: Optional[dict] = None) -> torch.Tensor:
+    """Training forward (ens5.py:351): logits for the text positions,
+    [B, S_text, V]. The towers run without gradient; the projectors and
+    tags carry it. The towers take ``impl`` only as "plain" or "auto", as
+    the JAX forward leaves them at their default."""
+    image_tokens = None
+    if image is not None or image_features is not None:
+        tower_impl = "plain" if impl == "plain" else "auto"
+        image_tokens = build_image_tokens(params, cfg, image, tower_impl,
+                                          image_features=image_features)
+    return llama.forward_train(params["llama"], cfg.llama, examples,
+                               image_tokens=image_tokens, remat=remat,
+                               impl=impl)
 
 
 def prefill(params: dict, cfg: Ens5Config, cache: llama.KVCache,

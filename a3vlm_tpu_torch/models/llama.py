@@ -1,11 +1,14 @@
-"""LLaMA-2 decoder, inference path (counterpart of a3vlm_tpu/models/llama.py).
+"""LLaMA-2 decoder (counterpart of a3vlm_tpu/models/llama.py): inference
+over a KV cache, and the cache-free training forward.
 
 Parameters are the JAX package's tree as tensors (``checkpoint/bridge.py``):
-linear weights ``[in, out]`` or int4 ``QuantizedWeight``, and ``"layers"`` a
-list of per-layer dicts (the decode layout). The KV cache is layered, one
-[B, Hkv, S, D] tensor per layer for k and for v, written IN PLACE where the
-JAX package donates its buffers. ``impl="plain"`` runs every op through its
-plain PyTorch version; ``"auto"`` sends kernel-eligible ops to the kernels.
+linear weights ``[in, out]``, int4 ``QuantizedWeight`` or ``LoraWeight``,
+and ``"layers"`` a list of per-layer dicts (the decode layout). The KV cache
+is layered, one [B, Hkv, S, D] tensor per layer for k and for v, written IN
+PLACE where the JAX package donates its buffers. ``impl="plain"`` runs
+every op through its plain PyTorch version; ``"auto"`` sends
+kernel-eligible ops to the kernels; ``"flash"`` also sends every causal
+attention to the flash op, whatever its dtype.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from a3vlm_tpu_torch.config import ModelArgs
 from a3vlm_tpu_torch.ops.attention import attention
@@ -109,7 +113,10 @@ def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
     xv = qmat(x, lp["wv"]["weight"], impl).reshape(B, S, Hkv, hd)
     xq, xk = apply_rotary_emb(xq, xk, freqs_cis)
 
-    if attend_cache:
+    if cache_k is None:
+        # training: no cache, attention over this call's own k/v
+        out = attention(xq, xk, xv, mask=mask, impl=impl)
+    elif attend_cache:
         out = update_and_attend_decode_cache(
             xq, cache_k, cache_v, xk, xv, write_pos, kv_valid_len,
             mask=mask, impl=impl,
@@ -167,6 +174,35 @@ def forward_hidden(params: Params, args: ModelArgs, h: torch.Tensor,
         h = _block(h, lp, args, freqs_cis, mask, cache.k[i], cache.v[i],
                    write_pos, kv_valid_len, impl, attend_cache=attend_cache)
     return h, cache
+
+
+def forward_train(params: Params, args: ModelArgs, examples: torch.Tensor,
+                  image_tokens: Optional[torch.Tensor] = None,
+                  remat: bool = False, impl: str = "auto") -> torch.Tensor:
+    """Training forward (llama.py:455): embed ``examples`` [B, S_text],
+    splice ``image_tokens`` after BOS, run the causal blocks without a
+    cache, and return logits for the text positions only, [B, S_text, V].
+    ``remat`` recomputes each block's activations in the backward pass
+    (``jax.checkpoint`` per block at llama.py:417-418)."""
+    h = embed_tokens(params, examples)
+    image_words = 0
+    if image_tokens is not None:
+        image_words = image_tokens.shape[1]
+        h = torch.cat([h[:, :1], image_tokens.to(h.dtype), h[:, 1:]], dim=1)
+    freqs_cis = freqs_for_positions(args, torch.arange(h.shape[1],
+                                                       device=h.device))
+
+    def block(hc, lp):
+        return _block(hc, lp, args, freqs_cis, "causal", None, None, 0, None,
+                      impl)
+
+    for lp in params["layers"]:
+        if remat:
+            h = checkpoint(block, h, lp, use_reentrant=False)
+        else:
+            h = block(h, lp)
+    h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
+    return qmat(h[:, image_words:, :], params["output"]["weight"], impl)
 
 
 def prefill(params: Params, args: ModelArgs, cache: KVCache,

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every source under ``a3vlm_tpu_torch/csrc``
-into one shared library with a plain C interface for ``sm_90a``, which is
-loaded with ``ctypes``. The library lands in ``a3vlm_tpu_torch/_build/``
+for ``sm_90a``, one process per ``.cu`` file, all started together, and
+links the objects into one shared library with a plain C interface, which
+is loaded with ``ctypes``. The library lands in ``a3vlm_tpu_torch/_build/``
 (git-ignored) under a name that carries the hash of the sources and flags,
 so an edited source is rebuilt and an unchanged one is reused. Nothing here
 runs at import time: the CPU tests import every module.
@@ -28,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,8 +37,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "a3_int4_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "a3_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                     _P],
+    "a3_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                     _I, _P],
+    "a3_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    "a3_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "a3_decode_partials": [_I],
     "a3_decode_update_attend": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _P],
@@ -73,29 +76,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"liba3vlm_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(commands, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the library if no build of these exact sources exists."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [s for s in sources() if s.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                  for s, o in zip(cu, objs)])
+        so = str(Path(tmp) / "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+        os.replace(so, target)
     return target
 
 

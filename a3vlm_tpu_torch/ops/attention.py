@@ -79,11 +79,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | str | None = None,
               kv_valid_len: torch.Tensor | None = None,
               impl: str = "auto") -> torch.Tensor:
-    """Dispatching attention (attention.py:163): the causal flash kernel
-    for eligible bf16 inputs under ``impl="auto"``, the plain path for
-    everything else and for ``impl="plain"``."""
-    if impl == "auto" and flash_eligible(q, mask, kv_valid_len):
+    """Dispatching attention (attention.py:163): the differentiable flash
+    op (kernels on CUDA tensors, their plain versions on CPU ones) for
+    eligible bf16 inputs under ``impl="auto"`` and for any causal or
+    unmasked input under ``impl="flash"``; the plain path for everything
+    else and for ``impl="plain"``."""
+    is_causal = isinstance(mask, str) and mask == "causal"
+    if impl == "flash" and (kv_valid_len is not None
+                            or not (is_causal or mask is None)):
+        raise ValueError("impl='flash' takes a causal or no mask and no "
+                         "kv_valid_len")
+    if impl == "flash" or (impl == "auto"
+                           and flash_eligible(q, mask, kv_valid_len)):
         from a3vlm_tpu_torch.ops.flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=is_causal)
     return sdpa_reference(q, k, v, mask=mask, kv_valid_len=kv_valid_len)

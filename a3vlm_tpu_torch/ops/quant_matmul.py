@@ -12,7 +12,12 @@ import torch
 import torch.nn.functional as F
 
 from a3vlm_tpu_torch.ops import _kernels
-from a3vlm_tpu_torch.quant import QuantizedWeight, unpack_int4
+from a3vlm_tpu_torch.quant import (
+    LoraWeight,
+    QuantizedWeight,
+    _dequantize_leaf,
+    unpack_int4,
+)
 
 GEMV_MAX_M = 32
 _GEMV_KS = 128  # packed rows per split, csrc/int4_matmul.cu GV_KS
@@ -88,9 +93,38 @@ def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto"):
     return out.reshape(*lead, out.shape[-1])
 
 
+class _QmatQuant(torch.autograd.Function):
+    """Differentiable int4 linear over a frozen packed base
+    (quant_matmul.py:1177-1206): the forward is ``int4_matmul`` (the kernel
+    on CUDA tensors); the backward is ``g @ dequant(W)^T`` in g's dtype,
+    the product of the dense weight's first ``in_dim`` rows, so the
+    gradient has x's unpadded shape. The packed ints and scales get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, group: int, in_dim: int, impl: str):
+        ctx.save_for_backward(q, scale)
+        ctx.group, ctx.in_dim = group, in_dim
+        return int4_matmul(x, QuantizedWeight(q, scale, group=group,
+                                              in_dim=in_dim), impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        w = _dequantize_leaf(QuantizedWeight(q, scale, group=ctx.group,
+                                             in_dim=ctx.in_dim), g.dtype)
+        return g @ w.transpose(-1, -2), None, None, None, None, None
+
+
 def qmat(x, w, impl: str = "auto"):
     """Quantization-aware linear (quant_matmul.py:1209): ``x @ w`` for a
-    dense ``w``, the int4 dequant-matmul for a ``QuantizedWeight``."""
+    dense ``w``, the differentiable int4 dequant-matmul for a
+    ``QuantizedWeight``, and for a ``LoraWeight`` the base product plus
+    the rank-r side path ``(x @ a) @ b`` in x's dtype."""
+    if isinstance(w, LoraWeight):
+        return qmat(x, w.w, impl) + (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype)
     if isinstance(w, QuantizedWeight):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _QmatQuant.apply(x, w.q, w.scale, w.group, w.in_dim, impl)
         return int4_matmul(x, w, impl)
     return x @ w

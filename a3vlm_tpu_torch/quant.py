@@ -38,6 +38,25 @@ class QuantizedWeight:
                                self.group, self.in_dim)
 
 
+class LoraWeight:
+    """A base weight (dense tensor or ``QuantizedWeight``) with a rank-r
+    adapter: the effective weight is ``w + a @ b`` (quant.py:72). ``qmat``
+    runs the base product in its own form and adds ``(x @ a) @ b``."""
+
+    def __init__(self, w, a: torch.Tensor, b: torch.Tensor):
+        self.w = w
+        self.a = a
+        self.b = b
+
+
+def freeze_quantized_mask(params: dict, mask: dict) -> dict:
+    """The trainable mask with False at every ``QuantizedWeight``
+    (quant.py:354): packed bases are frozen by construction."""
+    return tree_map(
+        lambda p, m: False if isinstance(p, QuantizedWeight) else m,
+        params, mask)
+
+
 def int4_geometry(in_dim: int) -> tuple[int, int]:
     """(padded_in_dim, group) for an int4 weight (quant.py:120)."""
     pad_in = in_dim
@@ -133,13 +152,16 @@ def quantize_params(params: dict, bits: int = 4,
     return params
 
 
-def tree_map(fn, tree: Any) -> Any:
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` to every tensor or QuantizedWeight leaf of a tree of
-    dicts and lists."""
+    dicts and lists (``None`` stays ``None``); with ``rest``, trees of the
+    same structure whose matching leaves are passed alongside."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     if tree is None:
         return None
-    return fn(tree)
+    return fn(tree, *rest)

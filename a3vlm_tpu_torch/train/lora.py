@@ -1,0 +1,90 @@
+"""LoRA adapters for the decoder (counterpart of a3vlm_tpu/train/lora.py):
+``out = W x + B(A x)``, A trunc-normal(0.02), B zeros, no extra scaling.
+
+The adapters are a tree of their own, ``{"layers": [per-layer {group:
+{name: {"a": [in, r], "b": [r, out]}}}]}``, the decode layout of the
+JAX package's stacked ``[L, in, r]`` / ``[L, r, out]`` tree; ``attach_lora``
+wraps each targeted base weight in a ``LoraWeight`` for the forward."""
+
+from __future__ import annotations
+
+import torch
+
+from a3vlm_tpu_torch.models._init import trunc_normal
+from a3vlm_tpu_torch.quant import LoraWeight, QuantizedWeight, tree_map
+
+DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+GROUPS = ("attention", "feed_forward")
+
+
+def _weight_geometry(w) -> tuple[int, int]:
+    """(in, out) of a base weight: a packed int4 base's adapter spans its
+    original input dim and the output dim of its packed ints
+    (lora.py:56-68)."""
+    if isinstance(w, QuantizedWeight):
+        return w.in_dim, w.q.shape[-1]
+    return w.shape[-2], w.shape[-1]
+
+
+def init_lora_params(generator: torch.Generator, llama_params: dict,
+                     rank: int = 16, targets: tuple[str, ...] = DEFAULT_TARGETS,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """Adapters for every targeted linear of every layer (lora.py:26), made
+    on the base weights' device from ``generator``."""
+    layers = []
+    for lp in llama_params["layers"]:
+        layer: dict = {}
+        for group in GROUPS:
+            for name, wp in lp[group].items():
+                if name not in targets:
+                    continue
+                w = wp["weight"]
+                in_dim, out_dim = _weight_geometry(w)
+                device = (w.q if isinstance(w, QuantizedWeight) else w).device
+                layer.setdefault(group, {})[name] = {
+                    "a": trunc_normal((in_dim, rank), dtype, device,
+                                      generator),
+                    "b": torch.zeros((rank, out_dim), dtype=dtype,
+                                     device=device),
+                }
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def attach_lora(llama_params: dict, lora: dict) -> dict:
+    """A new decoder tree whose targeted ``weight`` leaves are
+    ``LoraWeight(w, a, b)`` (lora.py:71); the input tree is unchanged."""
+    layers = []
+    for lp, ab_layer in zip(llama_params["layers"], lora["layers"]):
+        lp = dict(lp)
+        for group, items in ab_layer.items():
+            lp[group] = dict(lp[group])
+            for name, ab in items.items():
+                lp[group][name] = {"weight": LoraWeight(
+                    lp[group][name]["weight"], ab["a"], ab["b"])}
+        layers.append(lp)
+    return {**llama_params, "layers": layers}
+
+
+def attach_lora_into_model(params: dict, lora: dict,
+                           llama_key: str = "llama") -> dict:
+    """For wrapped models (ens5): attach into the decoder subtree."""
+    return {**params, llama_key: attach_lora(params[llama_key], lora)}
+
+
+def lora_base_trainable_mask(decoder_params: dict) -> dict:
+    """Decoder trainability under LoRA (lora.py:116): only leaves on a path
+    through a norm, an ``ln*`` scope or named ``bias`` train; linear
+    weights, packed bases, embeddings and the head freeze."""
+
+    def walk(node, names):
+        if isinstance(node, dict):
+            return {k: walk(v, names + [k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, names) for v in node]
+        return tree_map(lambda _: (
+            "norm" in "/".join(names)
+            or (bool(names) and names[-1] == "bias")
+            or any(n.startswith("ln") for n in names)), node)
+
+    return walk(decoder_params, [])

@@ -9,21 +9,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc and prints the build time.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times.
-4. main path: ``MetaModel`` for llama_ens5 at the full width of
+4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
    448x448 image and a prompt of token ids each) go through
-   ``MetaModel.generate_tokens``; every kernel must have launched there.
-   Then the prefill logits of the kernel path are held against the
-   plain-PyTorch path on the same weights.
+   ``MetaModel.generate_tokens``; every serving kernel must have launched
+   there, the flash forward without its log-sum-exp. Then the prefill
+   logits of the kernel path are held against the plain-PyTorch path on
+   the same weights.
+5. training path: the same model trained as ``main_finetune`` trains it
+   with ``--quant --quant_bits 4 --lora_rank 16 --checkpointing`` (the
+   int4 base frozen, rank-16 adapters, bf16 compute over float32 masters,
+   AdamW with clip 8) for 4 steps on one batch of 2 images and 593 text
+   ids each (sequence 2048); every training kernel must have launched
+   there and the loss must fall. Then one forward and backward of the
+   kernel path is held against the plain path at the same parameters.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON (``launches`` sums
+the serving and training runs, ``launches_by_path`` splits them); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -38,6 +48,10 @@ from a3vlm_tpu_torch.ops.decode_attention import (
 from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bhsd,
     flash_attention_bhsd_plain,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
 )
 from a3vlm_tpu_torch.ops.quant_matmul import (
     int4_matmul,
@@ -59,6 +73,16 @@ ATOL_FRAC = 1e-3
 # residual stream by about one bf16 rounding (~0.4%); 5% bounds that with
 # room for the random weights' spread.
 LOGITS_REL_TOL = 5e-2
+# Training, kernel path against plain path, one forward and backward at the
+# same parameters (bf16 compute over f32 masters): the loss is a mean over
+# 1184 tokens of the same logits the serving check bounds at 5e-2, and a
+# mean is steadier than its terms, so 2e-2 relative; the flattened
+# gradients of all trainable leaves must point the same way, cosine >= 0.99
+# (bf16 rounding of p and ds in the backward kernels and of the activations
+# perturbs each gradient by about 1%, which costs far less than 0.01 of
+# cosine).
+TRAIN_LOSS_REL_TOL = 2e-2
+TRAIN_GRAD_COS_MIN = 0.99
 
 KERNELS = {
     "int4_matmul": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
@@ -71,7 +95,17 @@ KERNELS = {
                          decode_attention_update),
     "vit_attention": ("a3vlm_tpu_torch/csrc/vit_attention.cu",
                       "a3vlm_tpu/ops/vit_attention.py:31", vit_attention),
+    "flash_attention_bwd_dq": ("a3vlm_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "a3vlm_tpu/ops/flash_attention.py:358",
+                               flash_attention_bwd_dq),
+    "flash_attention_bwd_dkv": ("a3vlm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "a3vlm_tpu/ops/flash_attention.py:414",
+                                flash_attention_bwd_dkv),
 }
+SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
+                 "vit_attention")
+TRAIN_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "vit_attention")
 
 
 def device_line() -> str:
@@ -168,6 +202,48 @@ def check_flash(gen, results):
                         err, ms, plain))
 
 
+def check_flash_bwd(gen, results):
+    """K2 with its lse and K9a/K9b at the training shapes (B 2, S 2048),
+    GQA and right-aligned; both backward sides get the kernel's output and
+    lse."""
+    for B, Hq, Hkv, Sq, Skv in ((2, 40, 40, 2048, 2048),
+                                (2, 40, 8, 2048, 2048),
+                                (2, 40, 40, 512, 2048)):
+        D = 128
+        case = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}"
+        q = randn(B, Hq, Sq, D, gen=gen)
+        k = randn(B, Hkv, Skv, D, gen=gen)
+        v = randn(B, Hkv, Skv, D, gen=gen)
+        do = randn(B, Hq, Sq, D, gen=gen)
+        out, lse = flash_attention_bhsd(q, k, v, True, return_lse=True)
+        _, want_lse = flash_attention_bhsd_plain(q, k, v, True,
+                                                 return_lse=True)
+        err = compare(f"flash lse {case}", lse, want_lse)
+        ms = timed_ms(lambda: flash_attention_bhsd(q, k, v, True,
+                                                   return_lse=True))
+        plain = timed_ms(lambda: flash_attention_bhsd_plain(
+            q, k, v, True, return_lse=True), reps=3)
+        results.append(("flash_attention", f"lse {case}", err, ms, plain))
+
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, True)
+        err = compare(f"bwd dq {case}", flash_attention_bwd_dq(*args),
+                      flash_attention_bwd_dq_plain(*args))
+        ms = timed_ms(lambda: flash_attention_bwd_dq(*args))
+        plain = timed_ms(lambda: flash_attention_bwd_dq_plain(*args), reps=3)
+        results.append(("flash_attention_bwd_dq", case, err, ms, plain))
+
+        got = flash_attention_bwd_dkv(*args)
+        want = flash_attention_bwd_dkv_plain(*args)
+        err = max(compare(f"bwd dk {case}", got[0], want[0]),
+                  compare(f"bwd dv {case}", got[1], want[1]))
+        del got, want
+        ms = timed_ms(lambda: flash_attention_bwd_dkv(*args))
+        plain = timed_ms(lambda: flash_attention_bwd_dkv_plain(*args),
+                         reps=3)
+        results.append(("flash_attention_bwd_dkv", case, err, ms, plain))
+
+
 def check_decode(gen, results):
     B, Hkv, G, S, D = 4, 40, 1, 1544, 128
     q = randn(B, Hkv, G, D, gen=gen)
@@ -213,8 +289,24 @@ def check_vit(gen, results):
                         ms, plain))
 
 
-def run_main_path(card: str) -> dict:
-    """Phase 4; returns the kernels' launch counts from the generate run."""
+def reset_launches() -> None:
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+    flash_attention_bhsd.lse_launches = 0
+
+
+def require_launched(names, path: str) -> dict:
+    launches = {n: KERNELS[n][2].launches for n in names}
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: "
+                             f"{missing}")
+    return launches
+
+
+def run_main_path(card: str):
+    """Phase 4; returns the model and the serving kernels' launch counts
+    from the generate run."""
     from a3vlm_tpu_torch.config import Ens5Config
     from a3vlm_tpu_torch.meta import MetaModel
     from a3vlm_tpu_torch.models import ens5
@@ -247,18 +339,15 @@ def run_main_path(card: str) -> dict:
     # warm-up request: library handles, cuDNN plans and the allocator are
     # set up here, so the stage times below are those of a served request
     model.generate_tokens(prompts, images=images, max_gen_len=2)
-    for name, (_, _, wrapper) in KERNELS.items():
-        wrapper.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     outs = model.generate_tokens(prompts, images=images, max_gen_len=32,
                                  temperature=0.0)
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, (_, _, w) in KERNELS.items()}
-    print(f"[{card}] launches in the main path: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    launches = require_launched(SERVE_KERNELS, "serving")
+    print(f"[{card}] launches in the serving path: {launches}")
+    if flash_attention_bhsd.lse_launches:
+        raise AssertionError("serving launched the flash forward with lse")
     total = 32 + max(lengths)  # rows with shorter prompts run longer
     if len(outs) != 4 or any(len(o) > total - n
                              for o, n in zip(outs, lengths)):
@@ -305,6 +394,105 @@ def run_main_path(card: str) -> dict:
     if rel > LOGITS_REL_TOL:
         raise AssertionError(f"prefill logits rel err {rel:.3e} > "
                              f"{LOGITS_REL_TOL}")
+    return model, launches
+
+
+def run_training(card: str, model) -> dict:
+    """Phase 5 on phase 4's model; returns the training kernels' launch
+    counts from the 4 train steps."""
+    from a3vlm_tpu_torch.main_finetune import (
+        make_loss_fn,
+        qlora_trainable_mask,
+    )
+    from a3vlm_tpu_torch.models import ens5
+    from a3vlm_tpu_torch.train.lora import init_lora_params
+    from a3vlm_tpu_torch.train.step import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        partition_params,
+        tree_leaves,
+        value_and_grad,
+    )
+    from a3vlm_tpu_torch.utils.tensor_type import mixed_precision_policy
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    lora = init_lora_params(gen, model.params["llama"], rank=16)
+    mask = qlora_trainable_mask(model, lora, quant=True)
+    model.params = mixed_precision_policy(model.params, mask, torch.bfloat16)
+    params = {**model.params, "lora": lora}
+    n_train = sum(t.numel() for t in
+                  tree_leaves(partition_params(params, mask)[0]))
+    optimizer = make_optimizer(1e-3, max_grad_norm=8.0, weight_decay=0.0)
+    step = make_train_step(make_loss_fn(model, torch.bfloat16, remat=True),
+                           optimizer, accum_steps=1, trainable_mask=mask)
+    state = TrainState.create(params, optimizer, mask)
+
+    mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
+    std = torch.tensor(ens5.CLIP_STD, device="cuda")
+    pixels = torch.rand(2, 448, 448, 3, generator=gen, device="cuda")
+    text = 2048 - model.cfg.image_words  # 593 with BOS
+    examples = torch.randint(3, 32000, (2, text), generator=gen,
+                             device="cuda")
+    examples[:, 0] = 1
+    labels = examples.clone()
+    labels[:, :64] = 0  # the prompt
+    batch = {"examples": examples, "labels": labels,
+             "image": ((pixels - mean) / std).to(torch.bfloat16)}
+    tokens = examples.numel() + 2 * model.cfg.image_words
+    print(f"[{card}] training: {n_train} trainable parameters (LoRA rank "
+          f"16 on 7 decoder linears x 40 layers, norms, projectors, tags); "
+          f"batch 2 x {text + model.cfg.image_words} tokens")
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        print(f"[{card}] train step {i}: {ms:.1f} ms, "
+              f"{tokens / ms * 1e3:.1f} tokens/s, loss {loss:.6f}, "
+              f"grad_norm {gnorm:.6f}")
+    print(f"[{card}] train max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = require_launched(TRAIN_KERNELS, "training")
+    lse = flash_attention_bhsd.lse_launches
+    print(f"[{card}] launches in the 4 train steps (the forward kernels "
+          f"count each block's recompute too): {launches}; flash forward "
+          f"with lse {lse}")
+    if lse != launches["flash_attention"]:
+        raise AssertionError("a training flash forward ran without lse")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+
+    # kernel path against plain path: one forward and backward, same params
+    trainable, frozen = partition_params(state.params, mask)
+    got = {}
+    for impl in ("auto", "plain"):
+        loss, grads = value_and_grad(
+            make_loss_fn(model, torch.bfloat16, remat=True, impl=impl),
+            trainable, frozen, batch)
+        got[impl] = (float(loss), torch.cat([g.float().flatten()
+                                             for g in tree_leaves(grads)]))
+        del grads
+    (lk, gk), (lp, gp) = got["auto"], got["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+    print(f"[{card}] training kernel vs plain: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {rel:.3e}, limit {TRAIN_LOSS_REL_TOL}); gradient cosine "
+          f"{cos:.6f} (min {TRAIN_GRAD_COS_MIN}), grad norms "
+          f"{float(gk.norm()):.4f} vs {float(gp.norm()):.4f}")
+    if not all(math.isfinite(x) for x in (lk, lp)) or rel > TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"training loss kernel vs plain: {lk} vs {lp}")
+    if not cos >= TRAIN_GRAD_COS_MIN:
+        raise AssertionError(f"gradient cosine {cos} < {TRAIN_GRAD_COS_MIN}")
     return launches
 
 
@@ -332,23 +520,27 @@ def main() -> int:
     with torch.inference_mode():
         check_int4(gen, results)
         check_flash(gen, results)
+        check_flash_bwd(gen, results)
         check_decode(gen, results)
         check_vit(gen, results)
     for name, case, err, ms, plain in results:
-        print(f"[{card}] {name:17s} {case:40s} max_abs_err {err:.3e} "
+        print(f"[{card}] {name:23s} {case:44s} max_abs_err {err:.3e} "
               f"kernel {ms:.4f} ms plain {plain:.4f} ms")
     if FAILURES:
         raise AssertionError("kernel checks failed:\n" + "\n".join(FAILURES))
 
-    # 4. main path
-    launches = run_main_path(card)
+    # 4. serving path, 5. training path
+    model, serve = run_main_path(card)
+    train = run_training(card, model)
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in results if r[0] == name]
+        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
         table.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r[2] for r in mine),
             "ms": mine[0][3], "plain_ms": mine[0][4],
         })

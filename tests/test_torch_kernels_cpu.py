@@ -4,10 +4,13 @@ against the JAX package's plain path, on the same numpy inputs in float32.
 
 Tolerances: int4 1e-4 (the weights below are exact in bf16, so the kernel's
 bf16 weight rounding is lossless and only summation order differs over
-K=1024); flash 2e-3 (the Pallas kernel works in the base-2 exp domain, as
-tests/test_flash_attention.py allows); decode and ViT 1e-5 (f32 softmax on
-both sides)."""
+K=1024); flash forward and lse 2e-3 (the Pallas kernel works in the base-2
+exp domain, as tests/test_flash_attention.py allows); flash gradients 5e-3
+as that file's gradient tests, and 2e-4 against the Pallas backward
+kernels fed the same lse (only the score rounding differs); decode and ViT
+1e-5 (f32 softmax on both sides)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +27,14 @@ from a3vlm_tpu_torch.ops.decode_attention import (
     decode_attention_update_plain,
 )
 from a3vlm_tpu_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_bhsd,
     flash_attention_bhsd_plain,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_bwd_plain,
 )
 from a3vlm_tpu_torch.ops.quant_matmul import (
     int4_matmul_2d,
@@ -97,6 +106,106 @@ def test_flash_plain_matches_pallas_and_sdpa(hq, hkv, sq, skv):
         _assert_close(got[:, :, :sq], plain, 1e-5)
 
 
+def test_flash_lse_plain_matches_pallas():
+    """K2's log-sum-exp output, ragged and GQA (the TPU layout's trailing
+    8 copies are dropped)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, hq, hkv, D, S, sq, skv = 1, 4, 2, 32, 256, 100, 200
+    q, k, v = (_normal((B, hq, S, D), 20), _normal((B, hkv, S, D), 21),
+               _normal((B, hkv, S, D), 22))
+    with pltpu.force_tpu_interpret_mode():
+        _, lse = jfa.flash_attention_bhsd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+            block_q=128, block_k=128, sq_actual=sq, skv_actual=skv,
+            return_lse=True)
+    tq, tk, tv = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    for fn in (flash_attention_bhsd_plain, flash_attention_bhsd):
+        out, got = fn(tq, tk, tv, True, sq, skv, return_lse=True)
+        assert got.shape == (B, hq, S) and got.dtype == torch.float32
+        _assert_close(got[:, :, :sq], np.asarray(lse)[:, :, :sq, 0], 2e-3)
+        _assert_close(out, fn(tq, tk, tv, True, sq, skv), 0)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv", [
+    (4, 2, 256, 256),      # GQA
+    (2, 2, 200, 200),      # ragged
+    (2, 2, 128, 384),      # right-aligned unequal
+    (2, 1, 100, 300),      # GQA + ragged + unequal
+])
+def test_flash_backward_matches_jax_grad(hq, hkv, sq, skv):
+    """The plain backward and the CPU ``FlashAttention`` op against
+    ``jax.grad`` through the Pallas forward and K9 backward kernels and
+    through ``sdpa_reference`` (the variants of
+    tests/test_flash_attention.py:122-127), to 5e-3 as there."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, D = 1, 32
+    q, k, v = (_normal((B, sq, hq, D), 30), _normal((B, skv, hkv, D), 31),
+               _normal((B, skv, hkv, D), 32))
+    w = _normal((B, sq, hq, D), 33)
+
+    def j_loss(attn):
+        return lambda q, k, v: jnp.sum(attn(q, k, v) * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        pallas = jax.grad(j_loss(lambda q, k, v: jfa.flash_attention(
+            q, k, v, True, 128, 128)), argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = jax.grad(j_loss(lambda q, k, v: j_sdpa(q, k, v, "causal")),
+                   argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v))
+
+    bhsd = [torch.tensor(x).transpose(1, 2).contiguous() for x in (q, k, v)]
+    tw = torch.tensor(w).transpose(1, 2).contiguous()
+    out, lse = flash_attention_bhsd_plain(*bhsd, True, return_lse=True)
+    plain = [g.transpose(1, 2)
+             for g in flash_attention_bwd_plain(*bhsd, out, lse, tw)]
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    op = torch.autograd.grad(
+        (flash_attention(*leaves) * torch.tensor(w)).sum(), leaves)
+    for got in (plain, op):
+        for g, p_, r in zip(got, pallas, ref):
+            _assert_close(g, p_, 5e-3)
+            _assert_close(g, r, 5e-3)
+
+
+def test_flash_backward_plain_matches_pallas_kernels_padded():
+    """The K9a/K9b plain versions on right-padded arrays with actual
+    lengths, against the Pallas backward kernels themselves
+    (_flash_backward_bhsd) on the same padded inputs: padded rows carry a
+    zero ``do``, padded keys get zero gradient, and the GQA group is summed
+    (the Pallas kernels leave that sum to their caller)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, hq, hkv, D, S, sq, skv = 1, 4, 2, 32, 256, 100, 200
+    q, k, v = (_normal((B, hq, S, D), 40), _normal((B, hkv, S, D), 41),
+               _normal((B, hkv, S, D), 42))
+    do = _normal((B, hq, S, D), 43)
+    do[:, :, sq:] = 0.0
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    out, lse = flash_attention_bhsd_plain(tq, tk, tv, True, sq, skv,
+                                          return_lse=True)
+    delta = (tdo * out).sum(-1)
+    rows = lambda x: jnp.broadcast_to(jnp.asarray(x.numpy())[..., None],
+                                      (*x.shape, 8))
+    with pltpu.force_tpu_interpret_mode():
+        dq, dk_h, dv_h = jfa._flash_backward_bhsd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(do),
+            rows(lse), rows(delta), True, 128, 128, sq, skv)
+    dk = np.asarray(dk_h).reshape(B, hkv, hq // hkv, S, D).sum(2)
+    dv = np.asarray(dv_h).reshape(B, hkv, hq // hkv, S, D).sum(2)
+    want = (dq, dk, dv)
+    for fn_dq, fn_dkv in ((flash_attention_bwd_dq_plain,
+                           flash_attention_bwd_dkv_plain),
+                          (flash_attention_bwd_dq, flash_attention_bwd_dkv)):
+        got = (fn_dq(tq, tk, tv, tdo, lse, delta, True, sq, skv),
+               *fn_dkv(tq, tk, tv, tdo, lse, delta, True, sq, skv))
+        for g, w_ in zip(got, want):
+            _assert_close(g, w_, 2e-4)
+        assert float(got[1][:, :, skv:].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("S", [64, 520])
 def test_decode_plain_matches_pallas_and_two_step(S):
     """S=64 runs the single-panel TPU kernel, S=520 the blocked one. The
@@ -149,14 +258,18 @@ def test_vit_plain_matches_pallas_and_sdpa(H, D):
 def test_wrappers_count_no_cpu_launches():
     """On CPU tensors the wrappers take the plain version and count no
     kernel launch."""
-    before = (int4_matmul_2d.launches, flash_attention_bhsd.launches,
-              decode_attention_update.launches, vit_attention.launches)
+    counted = (int4_matmul_2d, flash_attention_bhsd, flash_attention_bwd_dq,
+               flash_attention_bwd_dkv, decode_attention_update,
+               vit_attention)
+    before = [f.launches for f in counted]
     x = torch.zeros(2, 128)
     int4_matmul_2d(x, torch.zeros(64, 16, dtype=torch.int8),
                    torch.ones(2, 16), 64)
     t = torch.zeros(1, 2, 8, 32)
+    rows = torch.zeros(1, 2, 8)
     flash_attention_bhsd(t, t, t)
+    flash_attention_bwd_dq(t, t, t, t, rows, rows)
+    flash_attention_bwd_dkv(t, t, t, t, rows, rows)
     vit_attention(t, t, t)
-    after = (int4_matmul_2d.launches, flash_attention_bhsd.launches,
-             decode_attention_update.launches, vit_attention.launches)
+    after = [f.launches for f in counted]
     assert before == after

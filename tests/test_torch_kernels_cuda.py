@@ -18,8 +18,13 @@ from a3vlm_tpu_torch.ops.decode_attention import (
     decode_attention_update_plain,
 )
 from a3vlm_tpu_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_bhsd,
     flash_attention_bhsd_plain,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
 )
 from a3vlm_tpu_torch.ops.quant_matmul import int4_matmul, int4_matmul_2d
 from a3vlm_tpu_torch.ops.vit_attention import (
@@ -97,3 +102,57 @@ def test_decode_attention_cuda(gen):
 def test_vit_attention_cuda(gen, H, D):
     q, k, v = (_randn(20, 257, H, D, gen=gen) for _ in range(3))
     _check(vit_attention(q, k, v), vit_attention_plain(q, k, v))
+
+
+# hq, hkv, sq, skv, D: equal, GQA, right-aligned unequal, more rows than
+# keys (rows with no visible key), ragged lengths, head dims 64 and 88
+_BWD_CASES = [(4, 4, 256, 256, 128), (8, 2, 300, 300, 128),
+              (4, 4, 100, 333, 64), (4, 2, 200, 77, 88), (2, 1, 45, 45, 128)]
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,D", _BWD_CASES)
+def test_flash_lse_and_backward_kernels_cuda(gen, hq, hkv, sq, skv, D):
+    """K2's lse and K9a/K9b against their plain versions on the same
+    inputs (the kernel's output and lse feed both backward sides)."""
+    q = _randn(2, hq, sq, D, gen=gen)
+    k = _randn(2, hkv, skv, D, gen=gen)
+    v = _randn(2, hkv, skv, D, gen=gen)
+    do = _randn(2, hq, sq, D, gen=gen)
+    out, lse = flash_attention_bhsd(q, k, v, causal=True, return_lse=True)
+    want_out, want_lse = flash_attention_bhsd_plain(q, k, v, True,
+                                                    return_lse=True)
+    _check(out, want_out)
+    empty = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert (lse[~empty] - want_lse[~empty]).abs().max() < 1e-4
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _check(g, w)
+
+
+def test_flash_attention_function_grads_cuda(gen):
+    """FlashAttention's gradients against autograd through the plain
+    forward. The kernels round p and ds to bf16 before their products and
+    autograd does not, which adds about one bf16 ulp per term; the bound is
+    4x the kernel-twin one for that."""
+    B, S, Hq, Hkv, D = 2, 200, 8, 2, 128
+    q, k, v = (_randn(B, S, h, D, gen=gen).requires_grad_()
+               for h in (Hq, Hkv, Hkv))
+    w = _randn(B, S, Hq, D, gen=gen)
+    got = torch.autograd.grad((flash_attention(q, k, v) * w).float().sum(),
+                              (q, k, v))
+    ref = flash_attention_bhsd_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2)).transpose(1, 2)
+    want = torch.autograd.grad((ref * w).float().sum(), (q, k, v))
+    for g, r in zip(got, want):
+        g, r = g.float(), r.float()
+        bound = 4 * (RTOL * r.abs() + 1e-3 * r.abs().max())
+        assert bool(((g - r).abs() <= bound).all()), float(
+            (g - r).abs().max())
