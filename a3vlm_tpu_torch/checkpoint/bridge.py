@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's parameter pytree, as numpy, into the
-port's parameters, and back (``params_to_numpy``).
+port's parameters, and back (``params_to_numpy``); and a layered decode
+cache, as numpy, into the port's ``KVCache`` (``kv_cache_from_numpy``).
 
 The caller turns the JAX tree into numpy (``jax.tree_util.tree_map(
 np.asarray, params)``); this module imports no JAX and recognizes a
@@ -150,3 +151,24 @@ def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
     if isinstance(tree.get("layers"), list):
         out["layers"] = stack_layers(out["layers"])
     return out
+
+
+def kv_cache_from_numpy(k_layers, v_layers,
+                        device: torch.device | str = "cpu",
+                        dtype: torch.dtype = torch.float32):
+    """A layered JAX ``KVCache`` (its ``k`` and ``v`` tuples, every leaf
+    turned into numpy) as the port's ``KVCache``. A dense layer
+    [B, Hkv, S, D] becomes a ``dtype`` tensor; an int8 layer, a
+    ``(qv, scale)`` pair, becomes a ``QuantizedKV`` with the int8 values and
+    float32 scales as they are. Every leaf is copied."""
+    from a3vlm_tpu_torch.models.llama import KVCache
+    from a3vlm_tpu_torch.ops.decode_attention import QuantizedKV
+
+    def layer(x):
+        if isinstance(x, (tuple, list)):
+            qv, scale = x
+            return QuantizedKV(_tensor(qv, device, torch.int8),
+                               _tensor(scale, device, torch.float32))
+        return _tensor(x, device, dtype)
+
+    return KVCache([layer(x) for x in k_layers], [layer(x) for x in v_layers])

@@ -1,19 +1,78 @@
-"""Model configurations of the port (counterparts of the config dataclasses
-in a3vlm_tpu/models/{vit,qformer,convnext,ens5}.py, which live in modules
-that import JAX). ``ModelArgs`` imports no framework and is shared."""
+"""Model configurations of the port: ``ModelArgs`` and its JSON loader
+(counterparts of a3vlm_tpu/config.py) and the tower config dataclasses
+(counterparts of those in a3vlm_tpu/models/{vit,qformer,convnext,ens5}.py).
+The port keeps its own copy of each."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional
-
-from a3vlm_tpu.config import ModelArgs
+from pathlib import Path
+from typing import Any, Optional, Sequence
 
 __all__ = [
-    "ModelArgs", "ViTConfig", "QFormerConfig", "ConvNeXtConfig",
+    "ModelArgs", "load_config_union", "model_args_from_json", "ViTConfig", "QFormerConfig", "ConvNeXtConfig",
     "Ens5Config", "CLIP_VIT_L14", "BLIP2_VIT_G14", "DINOV2_VIT_G14",
     "BLIP2_QFORMER", "CONVNEXT_XXLARGE", "tiny_ens5_config",
 ]
+
+
+@dataclass(frozen=True)
+class ModelArgs:
+    """Decoder hyper-params; defaults are LLaMA-2-13B like the reference
+    (llama_ens5.py:34-50)."""
+
+    dim: int = 5120
+    n_layers: int = 40
+    n_heads: int = 40
+    n_kv_heads: Optional[int] = None
+    vocab_size: int = -1  # set from the tokenizer
+    multiple_of: int = 256
+    ffn_dim_multiplier: Optional[float] = None
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    max_batch_size: int = 32
+    max_seq_len: int = 2048
+    rope_scaling: Optional[float] = None
+    load_pretrained_visual_encoder: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_heads if self.n_kv_heads is None else self.n_kv_heads
+
+    @property
+    def ffn_hidden_dim(self) -> int:
+        """SwiGLU hidden size (llama_ens5.py:195-200)."""
+        hidden = int(2 * (4 * self.dim) / 3)
+        if self.ffn_dim_multiplier is not None:
+            hidden = int(self.ffn_dim_multiplier * hidden)
+        return self.multiple_of * ((hidden + self.multiple_of - 1) // self.multiple_of)
+
+    def replace(self, **kw) -> "ModelArgs":
+        return dataclasses.replace(self, **kw)
+
+
+def load_config_union(paths: Sequence[str | Path]) -> dict[str, Any]:
+    """Union of JSON config files, later files win (meta.py:34-40)."""
+    merged: dict[str, Any] = {}
+    for p in paths:
+        with open(p) as f:
+            merged.update(json.load(f))
+    return merged
+
+
+def model_args_from_json(
+    paths: Sequence[str | Path], **overrides
+) -> ModelArgs:
+    cfg = load_config_union(paths)
+    cfg.update(overrides)
+    fields = {f.name for f in dataclasses.fields(ModelArgs)}
+    return ModelArgs(**{k: v for k, v in cfg.items() if k in fields})
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,16 @@
-// Fused decode-cache write + single-query attention for Hopper (sm_90a).
+// Single-query attention over the bf16 decode cache for Hopper (sm_90a),
+// with and without the fused cache write.
 //
 // Replaces a3vlm_tpu/ops/decode_attention.py::_decode_kernel_fused and
-// _decode_kernel_blocked_fused (reached through decode_attention_update).
+// _decode_kernel_blocked_fused (reached through decode_attention_update)
+// and, with the write switched off (null pos), ::_decode_kernel and
+// _decode_kernel_blocked (reached through decode_attention).
 // q [B, Hkv, G, D], caches [B, Hkv, S, D] bf16, new k/v [B, Hkv, D],
 // pos/valid [B] int32. Row pos[b] of both caches is overwritten in place
 // with the new k/v, then each of the G query heads of a kv head attends over
-// cache rows [0, valid[b]).
+// cache rows [0, valid[b]). Without the write the arithmetic is the same
+// instruction for instruction, so on a cache that already holds the row the
+// two forms give the same bits.
 //
 // What bounds it on an H100: reading the cache, 4 * B * Hkv * S * D bytes
 // per layer and step, against a few FLOPs per byte. The design is
@@ -19,28 +24,9 @@
 // row another block is writing. Rows of a fully masked query divide by 1.
 // Requires D == 128.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
-
-constexpr int DC_WARPS = 4;
-constexpr int DC_CHUNK = 256;                  // cache rows per block
-constexpr int DC_SUB = DC_CHUNK / DC_WARPS;    // rows per warp
-constexpr int DC_D = 128;
-constexpr int DC_UNROLL = 4;
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  out[0] = __low2float(a);
-  out[1] = __high2float(a);
-  out[2] = __low2float(b);
-  out[3] = __high2float(b);
-}
 
 __global__ void __launch_bounds__(DC_WARPS * 32)
 decode_update_attend_kernel(const __nv_bfloat16* __restrict__ q,
@@ -57,16 +43,16 @@ decode_update_attend_kernel(const __nv_bfloat16* __restrict__ q,
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long bh = (long)b * Hkv + h;
-  const int p_b = pos[b];
+  const int p_b = pos ? pos[b] : -1;  // null pos: attend only, no write
   const int v_b = min(valid[b], S);
   __nv_bfloat16* ckb = ck + bh * S * DC_D;
   __nv_bfloat16* cvb = cv + bh * S * DC_D;
-  const __nv_bfloat16* nkb = nk + bh * DC_D;
-  const __nv_bfloat16* nvb = nv + bh * DC_D;
+  const __nv_bfloat16* nkb = pos ? nk + bh * DC_D : nullptr;
+  const __nv_bfloat16* nvb = pos ? nv + bh * DC_D : nullptr;
   const int c0 = split * DC_CHUNK;
   const int c1 = min(S, c0 + DC_CHUNK);
 
-  if (p_b >= c0 && p_b < c1) {
+  if (p_b >= c0 && p_b < c1) {  // c0 >= 0, so never without a write
     for (int i = tid; i < DC_D; i += DC_WARPS * 32) {
       ckb[(long)p_b * DC_D + i] = nkb[i];
       cvb[(long)p_b * DC_D + i] = nvb[i];
@@ -136,25 +122,6 @@ decode_update_attend_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      __nv_bfloat16* __restrict__ out, int P) {
-  const long row = blockIdx.x;
-  const int d = threadIdx.x;
-  float mx = -INFINITY;
-  for (int p = 0; p < P; ++p) mx = fmaxf(mx, part_m[row * P + p]);
-  float L = 0.f, A = 0.f;
-  if (mx != -INFINITY) {
-    for (int p = 0; p < P; ++p) {
-      const float w = exp2f(part_m[row * P + p] - mx);
-      L += w * part_l[row * P + p];
-      A += w * part_acc[(row * P + p) * DC_D + d];
-    }
-  }
-  out[row * DC_D + d] = __float2bfloat16_rn(A / (L == 0.f ? 1.f : L));
-}
-
 }  // namespace
 
 // Number of per-(b, h, g) partials the wrapper must allocate scratch for.
@@ -162,6 +129,7 @@ extern "C" int a3_decode_partials(int S) {
   return ((S + DC_CHUNK - 1) / DC_CHUNK) * DC_WARPS;
 }
 
+// pos, nk and nv null: attention only (the caches are not written).
 extern "C" int a3_decode_update_attend(const void* q, void* ck, void* cv,
                                        const void* nk, const void* nv,
                                        const void* pos, const void* valid,

@@ -129,8 +129,12 @@ def _refuse_unported(args) -> None:
 
 
 def build_model(args, tokenizer):
-    from a3vlm_tpu.config import model_args_from_json
-    from a3vlm_tpu_torch.config import Ens5Config, ModelArgs, tiny_ens5_config
+    from a3vlm_tpu_torch.config import (
+        Ens5Config,
+        ModelArgs,
+        model_args_from_json,
+        tiny_ens5_config,
+    )
     from a3vlm_tpu_torch.meta import MetaModel
 
     if args.tiny_random_model:
@@ -201,12 +205,12 @@ def batch_to_device(batch: dict, device, image_dtype: torch.dtype) -> dict:
 
 
 def main(argv=None):
-    from a3vlm_tpu.data.alpaca import FinetuneDataset
-    from a3vlm_tpu.data.dialog import FinetuneDialogDataset
-    from a3vlm_tpu.data.loader import DataLoader
-    from a3vlm_tpu.data.sampler import FinetuneDistSampler
-    from a3vlm_tpu.data.transforms import get_transform
-    from a3vlm_tpu.tokenizer import Tokenizer
+    from a3vlm_tpu_torch.data.alpaca import FinetuneDataset
+    from a3vlm_tpu_torch.data.dialog import FinetuneDialogDataset
+    from a3vlm_tpu_torch.data.loader import DataLoader
+    from a3vlm_tpu_torch.data.sampler import FinetuneDistSampler
+    from a3vlm_tpu_torch.data.transforms import get_transform
+    from a3vlm_tpu_torch.tokenizer import Tokenizer
     from a3vlm_tpu_torch.train.engine import train_one_epoch
     from a3vlm_tpu_torch.train.lr_sched import make_epoch_schedule
     from a3vlm_tpu_torch.train.step import (

@@ -68,8 +68,12 @@ class MetaModel:
             params = ens5_mod.init_ens5_params(model_cfg, dtype, device, gen)
         self.params = params
         self._generator: Optional[Generator] = None
+        self._kv_cache_bits: Optional[int] = None
+        self._prefill_chunk: Optional[int] = None
         # wall times (ms) of the last generate call, synchronized on CUDA
         self.last_stats: dict = {}
+        # emitted tokens and verify rounds of the last draft_k request
+        self.last_spec_stats: Optional[dict] = None
 
     def quantize(self, bits: int = 4) -> None:
         """Weight-only int4 of the decoder (meta.py:302); towers and
@@ -102,11 +106,40 @@ class MetaModel:
                                   image=images, impl=impl)
         return next_token_loss(logits, labels, vocab_size=self.true_vocab)
 
+    @property
+    def kv_cache_bits(self) -> Optional[int]:
+        """8 -> int8 KV cache (meta.py:487). Setting it drops the cached
+        Generator, so the change takes effect on the next generate call."""
+        return self._kv_cache_bits
+
+    @kv_cache_bits.setter
+    def kv_cache_bits(self, value: Optional[int]) -> None:
+        if value not in (None, 8):
+            raise ValueError(f"kv_cache_bits {value}: want None or 8")
+        if value != self._kv_cache_bits:
+            self._kv_cache_bits = value
+            self._generator = None
+
+    @property
+    def prefill_chunk(self) -> Optional[int]:
+        """Chunk length of the memory-bounded prefill
+        (``llama.prefill_chunked``; meta.py:501), None for one piece. Same
+        invalidation as ``kv_cache_bits``."""
+        return self._prefill_chunk
+
+    @prefill_chunk.setter
+    def prefill_chunk(self, value: Optional[int]) -> None:
+        if value != self._prefill_chunk:
+            self._prefill_chunk = value
+            self._generator = None
+
     def _get_generator(self) -> Generator:
         if self._generator is None:
             self._generator = Generator(
                 self.params["llama"], self.args, self.tokenizer,
                 image_words=self.image_words, vocab_limit=self.true_vocab,
+                kv_cache_bits=self._kv_cache_bits,
+                prefill_chunk=self._prefill_chunk,
             )
         return self._generator
 
@@ -120,9 +153,15 @@ class MetaModel:
         stop_tokens: Sequence[Sequence[int]] = ((2,),),
         seed: int = 0,
         impl: str = "auto",
+        fsm=None,
+        draft_k: int = 0,
+        lookup_max_n: int = 4,
     ) -> list[list[int]]:
         """Token ids in (BOS included), generated ids out; the entry that
-        needs no tokenizer. The default stop is LLaMA's EOS id 2."""
+        needs no tokenizer. The default stop is LLaMA's EOS id 2. ``fsm``
+        masks every generated token to a grammar; ``draft_k`` sends a
+        batch-1 request through prompt-lookup speculative decoding
+        (``Generator.generate_tokens``)."""
         gen = self._get_generator()
         device = self.params["llama"]["norm"]["weight"].device
         t0 = time.perf_counter()
@@ -132,9 +171,11 @@ class MetaModel:
         out = gen.generate_tokens(
             prompt_tokens, image_tokens=image_tokens, max_gen_len=max_gen_len,
             temperature=temperature, top_p=top_p, stop_tokens=stop_tokens,
-            seed=seed, impl=impl,
+            seed=seed, impl=impl, fsm=fsm, draft_k=draft_k,
+            lookup_max_n=lookup_max_n,
         )
         self.last_stats = {"towers_ms": towers_ms, **gen.last_stats}
+        self.last_spec_stats = gen.last_spec_stats
         return out
 
     def generate(
@@ -147,15 +188,20 @@ class MetaModel:
         additional_stop_symbols: Iterable[str] = (),
         seed: int = 0,
         impl: str = "auto",
+        fsm=None,
+        draft_k: int = 0,
+        lookup_max_n: int = 4,
     ) -> list[str]:
         """Text prompts in, text out (meta.py:540); needs a tokenizer."""
         if self.tokenizer is None:
             raise ValueError("generate needs a tokenizer; use generate_tokens")
         gen = self._get_generator()
         image_tokens = self.encode_images(images, impl)
-        return gen.generate(
+        out = gen.generate(
             prompts, image_tokens=image_tokens, max_gen_len=max_gen_len,
             temperature=temperature, top_p=top_p,
             additional_stop_symbols=additional_stop_symbols, seed=seed,
-            impl=impl,
+            impl=impl, fsm=fsm, draft_k=draft_k, lookup_max_n=lookup_max_n,
         )
+        self.last_spec_stats = gen.last_spec_stats
+        return out

@@ -4,8 +4,9 @@ over a KV cache, and the cache-free training forward.
 Parameters are the JAX package's tree as tensors (``checkpoint/bridge.py``):
 linear weights ``[in, out]``, int4 ``QuantizedWeight`` or ``LoraWeight``,
 and ``"layers"`` a list of per-layer dicts (the decode layout). The KV cache
-is layered, one [B, Hkv, S, D] tensor per layer for k and for v, written IN
-PLACE where the JAX package donates its buffers. ``impl="plain"`` runs
+is layered, one [B, Hkv, S, D] tensor (or int8 ``QuantizedKV``) per layer
+for k and for v, written IN PLACE where the JAX package donates its
+buffers. ``impl="plain"`` runs
 every op through its plain PyTorch version; ``"auto"`` sends
 kernel-eligible ops to the kernels; ``"flash"`` also sends every causal
 attention to the flash op, whatever its dtype.
@@ -23,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from a3vlm_tpu_torch.config import ModelArgs
 from a3vlm_tpu_torch.ops.attention import attention
 from a3vlm_tpu_torch.ops.decode_attention import (
+    make_quantized_kv,
     update_and_attend_decode_cache,
     update_decode_cache,
 )
@@ -36,9 +38,10 @@ Params = dict
 class KVCache:
     """Layered decode cache (llama.py:56-107): lists ``k`` and ``v`` of
     per-layer [batch, n_kv_heads, S, head_dim] tensors, S rounded up to a
-    multiple of 8 as in the JAX package."""
+    multiple of 8 as in the JAX package. ``dtype=torch.int8`` makes each
+    layer a ``QuantizedKV`` (int8 values, float32 per-row scales)."""
 
-    def __init__(self, k: list[torch.Tensor], v: list[torch.Tensor]):
+    def __init__(self, k: list, v: list):
         self.k = k
         self.v = v
 
@@ -52,6 +55,9 @@ class KVCache:
         shape = (batch_size, args.kv_heads, S, args.head_dim)
 
         def make():
+            if dtype == torch.int8:
+                return [make_quantized_kv(*shape, device=device)
+                        for _ in range(args.n_layers)]
             return [torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(args.n_layers)]
 
@@ -104,8 +110,8 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
-                        cache_v, write_pos: int, kv_valid_len, impl: str,
-                        attend_cache: bool = True):
+                        cache_v, write_pos, kv_valid_len, impl: str,
+                        attend_cache: bool = True, attend_valid_static=None):
     B, S, _ = x.shape
     H, Hkv, hd = args.n_heads, args.kv_heads, args.head_dim
     xq = qmat(x, lp["wq"]["weight"], impl).reshape(B, S, H, hd)
@@ -119,7 +125,7 @@ def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
     elif attend_cache:
         out = update_and_attend_decode_cache(
             xq, cache_k, cache_v, xk, xv, write_pos, kv_valid_len,
-            mask=mask, impl=impl,
+            mask=mask, impl=impl, valid_static=attend_valid_static,
         )
     else:
         # prefill: this call's k/v are the whole visible history
@@ -135,12 +141,13 @@ def _ffn_sublayer(x, lp, impl: str):
 
 
 def _block(h, lp, args: ModelArgs, freqs_cis, mask, cache_k, cache_v,
-           write_pos: int, kv_valid_len, impl: str,
-           attend_cache: bool = True):
+           write_pos, kv_valid_len, impl: str, attend_cache: bool = True,
+           attend_valid_static=None):
     h = h + _attention_sublayer(
         rms_norm(h, lp["attention_norm"]["weight"], args.norm_eps),
         lp["attention"], args, freqs_cis, mask, cache_k, cache_v, write_pos,
         kv_valid_len, impl, attend_cache=attend_cache,
+        attend_valid_static=attend_valid_static,
     )
     ffn_in = rms_norm(h, lp["ffn_norm"]["weight"], args.norm_eps)
     return h + _ffn_sublayer(ffn_in, lp["feed_forward"], impl)
@@ -154,8 +161,9 @@ def _rope_table(head_dim: int, end: int, theta: float,
 
 
 def freqs_for_positions(args: ModelArgs, positions: torch.Tensor):
-    """RoPE rows for absolute positions [S] -> [S, hd//2, 2]; the table has
-    ``max_seq_len * 2`` rows (llama.py:371)."""
+    """RoPE rows for absolute positions [S] -> [S, hd//2, 2], or per-row
+    positions [B, S] -> [B, S, hd//2, 2]; the table has ``max_seq_len * 2``
+    rows (llama.py:371)."""
     table = _rope_table(args.head_dim, args.max_seq_len * 2, args.rope_theta,
                         args.rope_scaling, str(positions.device))
     return table[positions]
@@ -163,16 +171,20 @@ def freqs_for_positions(args: ModelArgs, positions: torch.Tensor):
 
 def forward_hidden(params: Params, args: ModelArgs, h: torch.Tensor,
                    positions: torch.Tensor, mask, cache: KVCache,
-                   write_pos: int = 0, kv_valid_len=None,
-                   impl: str = "auto", attend_cache: bool = True):
-    """All decoder blocks over a layered cache (llama.py:422-439): k/v of
-    this call are written at ``write_pos``; attention runs over the cache
-    prefix ``kv_valid_len`` when ``attend_cache``, else over this call's
-    own k/v (prefill). Returns (h, cache)."""
+                   write_pos=0, kv_valid_len=None,
+                   impl: str = "auto", attend_cache: bool = True,
+                   attend_valid_static=None):
+    """All decoder blocks over a layered cache (llama.py:385-439).
+    ``positions`` [S], or [B, S] for per-row positions; k/v of this call are
+    written at ``write_pos`` (an int, or [B] for per-row writes); attention
+    runs over the cache prefix ``kv_valid_len`` when ``attend_cache``, else
+    over this call's own k/v (prefill). ``attend_valid_static`` is the
+    chunked-prefill extent (``attend_decode_cache``). Returns (h, cache)."""
     freqs_cis = freqs_for_positions(args, positions)
     for i, lp in enumerate(params["layers"]):
         h = _block(h, lp, args, freqs_cis, mask, cache.k[i], cache.v[i],
-                   write_pos, kv_valid_len, impl, attend_cache=attend_cache)
+                   write_pos, kv_valid_len, impl, attend_cache=attend_cache,
+                   attend_valid_static=attend_valid_static)
     return h, cache
 
 
@@ -221,6 +233,35 @@ def prefill(params: Params, args: ModelArgs, cache: KVCache,
                               impl=impl)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
     logits = qmat(h[:, -1, :], params["output"]["weight"], impl)
+    return logits.float(), cache, S
+
+
+def prefill_chunked(params: Params, args: ModelArgs, cache: KVCache,
+                    tokens: torch.Tensor,
+                    image_tokens: Optional[torch.Tensor] = None,
+                    chunk: int = 512, impl: str = "auto"):
+    """Memory-bounded prefill (llama.py:521): the spliced sequence goes
+    through the decoder in ``chunk``-token pieces, each writing its cache
+    rows and attending over the populated prefix, right-aligned causal, so
+    activation temporaries are O(chunk) instead of O(sequence). On bf16
+    CUDA tensors the cache attention of each piece is the flash kernel with
+    Sq < Skv. Same return contract as ``prefill``."""
+    h = embed_tokens(params, tokens)
+    if image_tokens is not None:
+        h = torch.cat([h[:, :1], image_tokens.to(h.dtype), h[:, 1:]], dim=1)
+    B, S, _ = h.shape
+    for start in range(0, S, chunk):
+        end = min(start + chunk, S)
+        out, cache = forward_hidden(
+            params, args, h[:, start:end],
+            torch.arange(start, end, device=h.device), "causal", cache=cache,
+            write_pos=start,
+            kv_valid_len=torch.full((B,), end, dtype=torch.int32,
+                                    device=h.device),
+            attend_cache=True, impl=impl, attend_valid_static=end,
+        )
+    h_last = rms_norm(out[:, -1, :], params["norm"]["weight"], args.norm_eps)
+    logits = qmat(h_last, params["output"]["weight"], impl)
     return logits.float(), cache, S
 
 

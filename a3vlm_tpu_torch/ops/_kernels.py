@@ -44,6 +44,11 @@ _SIGNATURES = {
     "a3_decode_partials": [_I],
     "a3_decode_update_attend": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _P],
+    "a3_decode_attend_q8": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    "a3_decode_update_attend_q8": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
+    "a3_verify_partials": [_I],
+    "a3_verify_attend": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P],
+    "a3_verify_attend_q8": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
     "a3_vit_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 

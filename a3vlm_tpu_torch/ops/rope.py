@@ -24,10 +24,15 @@ def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0,
 def apply_rotary_emb(xq: torch.Tensor, xk: torch.Tensor,
                      freqs_cis: torch.Tensor):
     """Rotate ``xq`` [B, S, Hq, D] and ``xk`` [B, S, Hk, D] by
-    ``freqs_cis`` [S, D//2, 2] in float32, as adjacent (even, odd) pairs,
-    and cast back (rope.py:40-70)."""
-    cos = freqs_cis[..., 0][None, :, None, :]
-    sin = freqs_cis[..., 1][None, :, None, :]
+    ``freqs_cis`` [S, D//2, 2], or [B, S, D//2, 2] for per-row positions,
+    in float32, as adjacent (even, odd) pairs, and cast back
+    (rope.py:40-70)."""
+    if freqs_cis.dim() == 4:
+        cos = freqs_cis[..., 0][:, :, None, :]
+        sin = freqs_cis[..., 1][:, :, None, :]
+    else:
+        cos = freqs_cis[..., 0][None, :, None, :]
+        sin = freqs_cis[..., 1][None, :, None, :]
 
     def rot(x):
         xf = x.float()

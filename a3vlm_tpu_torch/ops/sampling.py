@@ -41,9 +41,11 @@ def sample_top_p(probs: torch.Tensor, p: float,
 
 
 def sample_token(logits: torch.Tensor, temperature: float, top_p: float,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """Greedy when ``temperature <= 0`` (sampling.py:26), else top-p."""
+                 generator: torch.Generator | None = None,
+                 uniform: torch.Tensor | None = None) -> torch.Tensor:
+    """Greedy when ``temperature <= 0`` (sampling.py:26), else top-p with
+    one uniform per row (``uniform`` [B], else drawn from ``generator``)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return sample_top_p(probs, top_p, generator)
+    return sample_top_p(probs, top_p, generator, uniform)

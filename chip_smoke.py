@@ -25,9 +25,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    there and the loss must fall. Then one forward and backward of the
    kernel path is held against the plain path at the same parameters.
 
+6. latency path (run between 4 and 5, on phase 4's weights): one request
+   (a 448x448 image, 45 prompt ids, 32 new tokens, greedy) through
+   ``MetaModel.generate_tokens`` in each single-request mode: vanilla with
+   the bf16 cache; the same with the fused write switched off (the
+   attend-only decode kernel, ids equal to the fused run's); the int8 cache
+   fused and two-step; prompt-lookup speculation with ``draft_k = 8`` over
+   the bf16 and the int8 cache (the verify kernels); ``prefill_chunk = 512``
+   (the flash kernel with fewer queries than keys); a grammar-constrained
+   run, vanilla and with lookup, whose every id must be legal in its DFA
+   state. Each kernel must have launched the expected number of times.
+   Then one decode or verify step of the kernel path is held against the
+   plain path on a copy of the same cache, and the chunked prefill's logits
+   against the one-shot prefill's.
+
 The line before the last is the kernel table as JSON (``launches`` sums
-the serving and training runs, ``launches_by_path`` splits them); the last
-line is ``{"ok": true, "device": {...}}``.
+the serving, latency and training runs, ``launches_by_path`` splits them;
+``bound_ms`` is the larger of the bytes the call must move over 3.35 TB/s
+and its operations over 989 TFLOP/s, ``library_ms`` one PyTorch library
+call on the same inputs, timed here and used nowhere in the port); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -39,11 +56,26 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from a3vlm_tpu_torch.ops import _kernels
+from a3vlm_tpu_torch.ops import decode_attention as dec
 from a3vlm_tpu_torch.ops.decode_attention import (
+    QuantizedKV,
+    decode_attention,
+    decode_attention_plain,
+    decode_attention_quant,
+    decode_attention_quant_plain,
     decode_attention_update,
     decode_attention_update_plain,
+    decode_attention_update_quant,
+    decode_attention_update_quant_plain,
+    dequantize_kv,
+    quantize_kv_tokens,
+    verify_attention,
+    verify_attention_plain,
+    verify_attention_quant,
+    verify_attention_quant_plain,
 )
 from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bhsd,
@@ -59,7 +91,7 @@ from a3vlm_tpu_torch.ops.quant_matmul import (
     int4_matmul_2d_plain,
 )
 from a3vlm_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
-from a3vlm_tpu_torch.quant import _quantize_leaf_int4
+from a3vlm_tpu_torch.quant import _dequantize_leaf, _quantize_leaf_int4
 
 # Kernel against plain version, both bf16 out of f32 accumulation: each side
 # rounds once to bf16 (2^-8 relative each, so 2^-7 between them) and the
@@ -83,6 +115,19 @@ LOGITS_REL_TOL = 5e-2
 # cosine).
 TRAIN_LOSS_REL_TOL = 2e-2
 TRAIN_GRAD_COS_MIN = 0.99
+# Latency path, one decode or verify step, kernel path against plain path
+# on copies of one cache: LOGITS_REL_TOL as for the prefill. It holds for
+# the int8 cache too, because both paths read the SAME int8 values and
+# scales (the quantization error is common to both and cancels): the
+# kernel folds the scales in at score level in f32, the plain path rounds
+# the dequantized panels to bf16 (2^-9 relative per element, averaged down
+# by the 128-term dot products), so a layer still differs by about one bf16
+# rounding of its output, as with the bf16 cache.
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and dense bf16 tensor-core rate, for ``bound_ms``.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS_PER_S = 989e12
 
 KERNELS = {
     "int4_matmul": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
@@ -101,9 +146,29 @@ KERNELS = {
     "flash_attention_bwd_dkv": ("a3vlm_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "a3vlm_tpu/ops/flash_attention.py:414",
                                 flash_attention_bwd_dkv),
+    "decode_attention_attend": ("a3vlm_tpu_torch/csrc/decode_attention.cu",
+                                "a3vlm_tpu/ops/decode_attention.py:164",
+                                decode_attention),
+    "decode_attention_q8": ("a3vlm_tpu_torch/csrc/decode_attention_q8.cu",
+                            "a3vlm_tpu/ops/decode_attention.py:326",
+                            decode_attention_quant),
+    "decode_attention_q8_fused": (
+        "a3vlm_tpu_torch/csrc/decode_attention_q8.cu",
+        "a3vlm_tpu/ops/decode_attention.py:1331",
+        decode_attention_update_quant),
+    "verify_attention": ("a3vlm_tpu_torch/csrc/verify_attention.cu",
+                         "a3vlm_tpu/ops/decode_attention.py:635",
+                         verify_attention),
+    "verify_attention_q8": ("a3vlm_tpu_torch/csrc/verify_attention.cu",
+                            "a3vlm_tpu/ops/decode_attention.py:731",
+                            verify_attention_quant),
 }
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
+LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
+                   "vit_attention", "decode_attention_attend",
+                   "decode_attention_q8", "decode_attention_q8_fused",
+                   "verify_attention", "verify_attention_q8")
 TRAIN_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "vit_attention")
 
@@ -158,6 +223,64 @@ def randn(*shape, gen, dtype=torch.bfloat16):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def record(results, name, case, err, ms, plain, bytes_moved, flops,
+           library_ms) -> None:
+    """One phase-3 row. ``bound_ms``: the larger of ``bytes_moved`` (each
+    input read once, each output written once; of a cache only the rows
+    this call's data makes visible) over the card's memory rate and
+    ``flops`` over its dense bf16 rate."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS_PER_S * 1e3
+    results.append({
+        "name": name, "case": case, "err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": library_ms,
+    })
+
+
+_SDPA_HAS_GQA = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+
+
+def sdpa_operands(q, k, v):
+    """k, v and keyword arguments that make
+    ``F.scaled_dot_product_attention`` share kv heads over the query group:
+    its own option where it has one, else expanded copies."""
+    G = q.shape[1] // k.shape[1]
+    if G == 1:
+        return k, v, {}
+    if _SDPA_HAS_GQA:
+        return k, v, {"enable_gqa": True}
+    return k.repeat_interleave(G, 1), v.repeat_interleave(G, 1), {}
+
+
+def sdpa_ms(q, k, v, mask=None, causal=False, reps=5) -> float:
+    """The library yardstick: one ``scaled_dot_product_attention`` call over
+    bhsd operands (never called by the port)."""
+    k, v, kw = sdpa_operands(q, k, v)
+    return timed_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal, **kw), reps=reps)
+
+
+def causal_pairs(Sq: int, Skv: int) -> int:
+    """(query, key) pairs a right-aligned causal mask leaves visible."""
+    return Sq * (Skv - Sq) + Sq * (Sq + 1) // 2
+
+
+def right_aligned_mask(Sq: int, Skv: int):
+    """[Sq, Skv] bool for the library call when Sq < Skv (its own causal
+    flag aligns to the top left), None when Sq == Skv."""
+    if Sq == Skv:
+        return None
+    rows = torch.arange(Sq, device="cuda")[:, None]
+    cols = torch.arange(Skv, device="cuda")[None, :]
+    return cols <= rows + (Skv - Sq)
+
+
 def check_int4(gen, results):
     cases = []
     for M in (4, 4 * 1487):
@@ -179,14 +302,19 @@ def check_int4(gen, results):
         plain = timed_ms(
             lambda: int4_matmul_2d_plain(x2, qw.q, qw.scale, qw.group),
             reps=3)
-        results.append(("int4_matmul", f"M={M} K={K}(pad {kpad}) N={N}",
-                        err, ms, plain))
+        # no single library call takes packed int4: dequantize + matmul
+        library = timed_ms(
+            lambda: x @ _dequantize_leaf(qw, torch.bfloat16), reps=3)
+        record(results, "int4_matmul", f"M={M} K={K}(pad {kpad}) N={N}", err,
+               ms, plain, nbytes(x2, qw.q, qw.scale, got), 2 * M * kpad * N,
+               library)
 
 
 def check_flash(gen, results):
     for B, Hq, Hkv, Sq, Skv in ((4, 40, 40, 1487, 1487),
                                 (4, 40, 8, 1487, 1487),
-                                (4, 40, 40, 512, 1487)):
+                                (4, 40, 40, 512, 1487),
+                                (1, 40, 40, 476, 1500)):
         D = 128
         q = randn(B, Hq, Sq, D, gen=gen)
         k = randn(B, Hkv, Skv, D, gen=gen)
@@ -197,9 +325,26 @@ def check_flash(gen, results):
                       got, want)
         ms = timed_ms(lambda: flash_attention_bhsd(q, k, v, causal=True))
         plain = timed_ms(lambda: flash_attention_bhsd_plain(q, k, v, True))
-        results.append(("flash_attention",
-                        f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}",
-                        err, ms, plain))
+        mask = right_aligned_mask(Sq, Skv)
+        library = sdpa_ms(q, k, v, mask=mask, causal=mask is None)
+        record(results, "flash_attention",
+               f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}", err, ms,
+               plain, nbytes(q, k, v, got),
+               4 * D * B * Hq * causal_pairs(Sq, Skv), library)
+
+
+def sdpa_backward_ms(q, k, v, do, mask, reps=3) -> float:
+    """The library yardstick of the backward kernels: the backward pass of
+    one ``scaled_dot_product_attention`` call (dq, dk and dv together)."""
+    with torch.inference_mode(False), torch.enable_grad():
+        q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+        do = do.clone()
+        mask = None if mask is None else mask.clone()
+        ke, ve, kw = sdpa_operands(q, k, v)
+        out = F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask, is_causal=mask is None, **kw)
+        return timed_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), do, retain_graph=True), reps=reps)
 
 
 def check_flash_bwd(gen, results):
@@ -215,6 +360,8 @@ def check_flash_bwd(gen, results):
         k = randn(B, Hkv, Skv, D, gen=gen)
         v = randn(B, Hkv, Skv, D, gen=gen)
         do = randn(B, Hq, Sq, D, gen=gen)
+        pairs = B * Hq * causal_pairs(Sq, Skv)
+        mask = right_aligned_mask(Sq, Skv)
         out, lse = flash_attention_bhsd(q, k, v, True, return_lse=True)
         _, want_lse = flash_attention_bhsd_plain(q, k, v, True,
                                                  return_lse=True)
@@ -223,25 +370,43 @@ def check_flash_bwd(gen, results):
                                                    return_lse=True))
         plain = timed_ms(lambda: flash_attention_bhsd_plain(
             q, k, v, True, return_lse=True), reps=3)
-        results.append(("flash_attention", f"lse {case}", err, ms, plain))
+        library = sdpa_ms(q, k, v, mask=mask, causal=mask is None)
+        record(results, "flash_attention", f"lse {case}", err, ms, plain,
+               nbytes(q, k, v, out, lse), 4 * D * pairs, library)
 
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, do, lse, delta, True)
-        err = compare(f"bwd dq {case}", flash_attention_bwd_dq(*args),
+        # the library's backward forms dq, dk and dv in one call, so both
+        # backward kernels are held against the same time
+        library = sdpa_backward_ms(q, k, v, do, mask)
+        dq = flash_attention_bwd_dq(*args)
+        err = compare(f"bwd dq {case}", dq,
                       flash_attention_bwd_dq_plain(*args))
         ms = timed_ms(lambda: flash_attention_bwd_dq(*args))
         plain = timed_ms(lambda: flash_attention_bwd_dq_plain(*args), reps=3)
-        results.append(("flash_attention_bwd_dq", case, err, ms, plain))
+        record(results, "flash_attention_bwd_dq", case, err, ms, plain,
+               nbytes(q, k, v, do, lse, delta, dq), 6 * D * pairs, library)
 
         got = flash_attention_bwd_dkv(*args)
         want = flash_attention_bwd_dkv_plain(*args)
         err = max(compare(f"bwd dk {case}", got[0], want[0]),
                   compare(f"bwd dv {case}", got[1], want[1]))
+        moved = nbytes(q, k, v, do, lse, delta, *got)
         del got, want
         ms = timed_ms(lambda: flash_attention_bwd_dkv(*args))
         plain = timed_ms(lambda: flash_attention_bwd_dkv_plain(*args),
                          reps=3)
-        results.append(("flash_attention_bwd_dkv", case, err, ms, plain))
+        record(results, "flash_attention_bwd_dkv", case, err, ms, plain,
+               moved, 8 * D * pairs, library)
+
+
+def valid_mask(valid, S, span: int = 1):
+    """[B, 1, span, S] bool for the library call: window row i sees columns
+    < valid[b] - span + 1 + i."""
+    thr = valid.long()[:, None] - span + 1 + torch.arange(
+        span, device="cuda")[None, :]
+    return (torch.arange(S, device="cuda")[None, None, :]
+            < thr[:, :, None])[:, None]
 
 
 def check_decode(gen, results):
@@ -270,8 +435,125 @@ def check_decode(gen, results):
                                                   valid), reps=20)
     plain = timed_ms(lambda: decode_attention_update_plain(
         q, ck2, cv2, nk, nv, pos, valid), reps=20)
-    results.append(("decode_attention",
-                    f"B={B} Hkv={Hkv} G={G} S={S} D={D}", err, ms, plain))
+    library = sdpa_ms(q, ck1, cv1, mask=valid_mask(valid, S), reps=20)
+    rows = int(valid.sum())
+    record(results, "decode_attention", f"B={B} Hkv={Hkv} G={G} S={S} D={D}",
+           err, ms, plain,
+           2 * rows * Hkv * D * 2 + nbytes(q, got) + 2 * nbytes(nk, nv),
+           4 * D * Hkv * G * rows, library)
+
+
+def check_latency_kernels(gen, results):
+    """The decode and verify kernels of the latency path against their
+    plain versions: the attend-only bf16 kernel (equal to the fused
+    kernel's output bit for bit), the int8 kernels (the fused one leaving
+    caches bit-identical to the plain version's) and the verify kernels at
+    spans 2, 8 and 16; batch 1 and 4, GQA, a cache length that is no
+    multiple of 256, ragged ``pos`` and ``valid``."""
+    D = 128
+    for B, Hkv, G, S in ((1, 40, 1, 1544), (4, 40, 1, 1544),
+                         (4, 8, 5, 1544), (2, 40, 1, 1000)):
+        Hq = Hkv * G
+        case = f"B={B} Hkv={Hkv} G={G} S={S} D={D}"
+        q = randn(B, 1, Hq, D, gen=gen)
+        ck = randn(B, Hkv, S, D, gen=gen)
+        cv = randn(B, Hkv, S, D, gen=gen)
+        xk = randn(B, 1, Hkv, D, gen=gen)
+        xv = randn(B, 1, Hkv, D, gen=gen)
+        pos = torch.randint(S - 64, S, (B,), generator=gen,
+                            device="cuda").to(torch.int32)
+        pos[0] = 1499 if S > 1500 else S - 3  # the latency request's length
+        valid = pos + 1
+        rows = int(valid.sum())
+        qb = q.transpose(1, 2)  # bhsd for the library call
+
+        # attend-only bf16: after the fused kernel wrote the row, its output
+        # must equal the fused kernel's exactly
+        c1, c2 = ck.clone(), cv.clone()
+        fused = decode_attention_update(
+            q.reshape(B, Hkv, G, D), c1, c2, xk.reshape(B, Hkv, D),
+            xv.reshape(B, Hkv, D), pos, valid)
+        got = decode_attention(q, c1, c2, valid)
+        if not torch.equal(got.reshape(B, Hkv, G, D), fused):
+            FAILURES.append(f"attend-only decode {case}: differs from the "
+                            f"fused kernel's output")
+        err = compare(f"attend-only decode {case}", got,
+                      decode_attention_plain(q, c1, c2, valid))
+        record(results, "decode_attention_attend", case, err,
+               timed_ms(lambda: decode_attention(q, c1, c2, valid), reps=20),
+               timed_ms(lambda: decode_attention_plain(q, c1, c2, valid),
+                        reps=20),
+               2 * rows * Hkv * D * 2 + nbytes(q, got),
+               4 * D * Hq * rows,
+               sdpa_ms(qb, c1, c2, mask=valid_mask(valid, S), reps=20))
+
+        # int8 cache of the same values
+        kq = QuantizedKV(*quantize_kv_tokens(ck.transpose(1, 2)))
+        vq = QuantizedKV(*quantize_kv_tokens(cv.transpose(1, 2)))
+        kd, vd = dequantize_kv(kq), dequantize_kv(vq)
+        q8_bytes = 2 * rows * Hkv * (D + 4) + nbytes(q, got)
+        got = decode_attention_quant(q, kq, vq, valid)
+        err = compare(f"int8 decode {case}", got,
+                      decode_attention_quant_plain(q, kq, vq, valid))
+        library = sdpa_ms(qb, kd, vd, mask=valid_mask(valid, S), reps=20)
+        record(results, "decode_attention_q8", case, err,
+               timed_ms(lambda: decode_attention_quant(q, kq, vq, valid),
+                        reps=20),
+               timed_ms(lambda: decode_attention_quant_plain(q, kq, vq,
+                                                             valid), reps=20),
+               q8_bytes, 4 * D * Hq * rows, library)
+
+        k1, v1, k2, v2 = (QuantizedKV(c.qv.clone(), c.scale.clone())
+                          for c in (kq, vq, kq, vq))
+        got = decode_attention_update_quant(q, k1, v1, xk, xv, pos, valid)
+        want = decode_attention_update_quant_plain(q, k2, v2, xk, xv, pos,
+                                                   valid)
+        err = compare(f"int8 fused decode {case}", got, want)
+        same = all(torch.equal(a, b) for a, b in
+                   zip((*k1, *v1), (*k2, *v2)))
+        if not same:
+            FAILURES.append(f"int8 fused decode {case}: caches or scales "
+                            f"differ from the plain version's")
+        if bool(((k1.qv != kq.qv).any(-1) | (k1.scale != kq.scale)).sum()
+                > B * Hkv):
+            FAILURES.append(f"int8 fused decode {case}: wrote rows other "
+                            f"than pos")
+        record(results, "decode_attention_q8_fused", case, err,
+               timed_ms(lambda: decode_attention_update_quant(
+                   q, k1, v1, xk, xv, pos, valid), reps=20),
+               timed_ms(lambda: decode_attention_update_quant_plain(
+                   q, k2, v2, xk, xv, pos, valid), reps=20),
+               q8_bytes + nbytes(xk, xv) + 2 * B * Hkv * (D + 4),
+               4 * D * Hq * rows, library)
+
+        for span in (8, 2, 16):  # 8 first: the latency path's draft_k
+            qs = randn(B, span, Hq, D, gen=gen)
+            qsb = qs.transpose(1, 2)
+            mask = valid_mask(valid, S, span)
+            seen = int(mask.sum())  # visible (row, column) pairs per head
+            vcase = f"span={span} {case}"
+            got = verify_attention(qs, ck, cv, valid)
+            err = compare(f"verify {vcase}", got,
+                          verify_attention_plain(qs, ck, cv, valid))
+            record(results, "verify_attention", vcase, err,
+                   timed_ms(lambda: verify_attention(qs, ck, cv, valid),
+                            reps=20),
+                   timed_ms(lambda: verify_attention_plain(qs, ck, cv, valid),
+                            reps=20),
+                   2 * rows * Hkv * D * 2 + nbytes(qs, got),
+                   4 * D * Hq * seen,
+                   sdpa_ms(qsb, ck, cv, mask=mask, reps=20))
+            got = verify_attention_quant(qs, kq, vq, valid)
+            err = compare(f"int8 verify {vcase}", got,
+                          verify_attention_quant_plain(qs, kq, vq, valid))
+            record(results, "verify_attention_q8", vcase, err,
+                   timed_ms(lambda: verify_attention_quant(qs, kq, vq, valid),
+                            reps=20),
+                   timed_ms(lambda: verify_attention_quant_plain(
+                       qs, kq, vq, valid), reps=20),
+                   2 * rows * Hkv * (D + 4) + nbytes(qs, got),
+                   4 * D * Hq * seen,
+                   sdpa_ms(qsb, kd, vd, mask=mask, reps=20))
 
 
 def check_vit(gen, results):
@@ -285,8 +567,10 @@ def check_vit(gen, results):
         err = compare(f"vit H={H} D={D}", got, want)
         ms = timed_ms(lambda: vit_attention(q, k, v), reps=20)
         plain = timed_ms(lambda: vit_attention_plain(q, k, v), reps=20)
-        results.append(("vit_attention", f"B={B} S={S} H={H} D={D}", err,
-                        ms, plain))
+        qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
+        record(results, "vit_attention", f"B={B} S={S} H={H} D={D}", err,
+               ms, plain, nbytes(q, k, v, got), 4 * B * H * S * S * D,
+               sdpa_ms(qb, kb, vb, reps=20))
 
 
 def reset_launches() -> None:
@@ -395,6 +679,216 @@ def run_main_path(card: str):
         raise AssertionError(f"prefill logits rel err {rel:.3e} > "
                              f"{LOGITS_REL_TOL}")
     return model, launches
+
+
+class _PieceTable:
+    """A synthetic tokenizer table for ``constrained.compile_grammar``: ids
+    0..2 are specials (id 2 EOS), then one piece per character the triad
+    grammars use, then every two-digit string, then pieces no grammar
+    accepts, up to ``n_words``."""
+
+    def __init__(self, n_words: int):
+        chars = "0123456789.,[]<>/- abcdefghijklmnopqrstuvwxyz_:"
+        pieces = ["", "", ""] + list(chars)
+        pieces += [f"{a}{b}" for a in "0123456789" for b in "0123456789"]
+        pieces += [f"~{i}" for i in range(n_words - len(pieces))]
+        self.pieces = pieces
+        self.n_words = n_words
+        self.eos_id = 2
+
+    def id_to_piece(self, t: int) -> str:
+        return self.pieces[t]
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def first_difference(a: list, b: list):
+    """Index where two id lists first differ, None when equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def clone_cache(cache):
+    from a3vlm_tpu_torch.models.llama import KVCache
+
+    def copy(c):
+        if isinstance(c, QuantizedKV):
+            return QuantizedKV(c.qv.clone(), c.scale.clone())
+        return c.clone()
+
+    return KVCache([copy(c) for c in cache.k], [copy(c) for c in cache.v])
+
+
+def run_latency_path(card: str, model) -> dict:
+    """Phase 6; returns the latency kernels' launch counts summed over the
+    requests of all modes (the step checks after them are not counted)."""
+    from a3vlm_tpu_torch import constrained
+    from a3vlm_tpu_torch.generation import _prefill_bucket
+    from a3vlm_tpu_torch.lookup_decode import _verify_step
+    from a3vlm_tpu_torch.models import ens5, llama
+    from a3vlm_tpu_torch.models.llama import KVCache
+    from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
+
+    cfg, args = model.cfg, model.args
+    L, W = args.n_layers, model.image_words
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
+    std = torch.tensor(ens5.CLIP_STD, device="cuda")
+    pixels = torch.rand(1, 448, 448, 3, generator=gen, device="cuda")
+    image = ((pixels - mean) / std).to(torch.bfloat16)
+    n_prompt, n_new = 45, 32
+    prompt = [[1] + torch.randint(3, 32000, (n_prompt - 1,), generator=gen,
+                                  device="cuda").tolist()]
+    t0 = time.perf_counter()
+    fsm = constrained.compile_grammar(constrained.joint_rec_grammar(),
+                                      _PieceTable(32000))
+    print(f"[{card}] grammar compiled over a 32000-piece table in "
+          f"{time.perf_counter() - t0:.1f} s: {fsm.n_states} states")
+
+    def run(label, expect, **kw):
+        """One request; ``expect`` maps kernel name -> launches per layer
+        and (decode step | verify round), checked against the run."""
+        before = {n: KERNELS[n][2].launches for n in KERNELS}
+        torch.cuda.reset_peak_memory_stats()
+        out = model.generate_tokens(prompt, images=image, max_gen_len=n_new,
+                                    temperature=0.0, **kw)[0]
+        torch.cuda.synchronize()
+        st = model.last_stats
+        delta = {n: KERNELS[n][2].launches - before[n] for n in KERNELS}
+        delta = {n: c for n, c in delta.items() if c}
+        steps = st["decode_steps"]
+        total = st["towers_ms"] + st["prefill_ms"] + st["decode_ms"]
+        print(f"[{card}] latency {label}: towers {st['towers_ms']:.1f} ms, "
+              f"prefill {st['prefill_ms']:.1f} ms, decode "
+              f"{st['decode_ms']:.1f} ms over {steps} steps "
+              f"({st['decode_ms'] / max(steps, 1):.2f} ms each), request "
+              f"{total:.1f} ms for {len(out)} ids = {total / len(out):.2f} "
+              f"ms per emitted token; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {delta}")
+        if not out or any(not (0 <= t < 32000) for t in out):
+            raise AssertionError(f"{label}: malformed ids {out}")
+        for name, per_step in expect.items():
+            if delta.get(name, 0) != per_step * L * steps:
+                raise AssertionError(
+                    f"{label}: {name} launched {delta.get(name, 0)} times, "
+                    f"want {per_step} x {L} layers x {steps} steps")
+        return out, delta
+
+    def report_ids(label, ids, ref):
+        at = first_difference(ids, ref)
+        print(f"[{card}] latency {label}: ids "
+              + ("equal the vanilla run's" if at is None
+                 else f"first differ from the vanilla run's at index {at}"))
+
+    # warm-up request: batch-1 library plans (as phase 4 does for batch 4)
+    model.generate_tokens(prompt, images=image, max_gen_len=2)
+    reset_launches()
+    # (a) vanilla, bf16 cache: the reference ids
+    ref, _ = run("(a) vanilla bf16", {"decode_attention": 1})
+    # (b) the two-step path: write, then the attend-only kernel
+    dec.FUSE_UPDATE_ATTEND = False
+    try:
+        two_step, _ = run("(b) bf16, write then attend",
+                          {"decode_attention_attend": 1,
+                           "decode_attention": 0})
+        if two_step != ref:
+            raise AssertionError("(b): ids differ from the fused run's")
+        model.kv_cache_bits = 8
+        q8_two_step, _ = run("(c2) int8 cache, write then attend",
+                             {"decode_attention_q8": 1,
+                              "decode_attention_q8_fused": 0})
+    finally:
+        dec.FUSE_UPDATE_ATTEND = True
+    # (c) int8 cache, fused quantize + write + attend
+    q8, _ = run("(c) int8 cache fused", {"decode_attention_q8_fused": 1,
+                                         "decode_attention": 0})
+    if q8 != q8_two_step:
+        raise AssertionError("(c): fused and two-step int8 ids differ")
+    report_ids("(c) int8 cache", q8, ref)
+    # (e) lookup over the int8 cache, (d) over the bf16 cache
+    spec8, _ = run("(e) draft_k=8 int8 cache", {"verify_attention_q8": 1},
+                   draft_k=8)
+    print(f"[{card}] latency (e) last_spec_stats {model.last_spec_stats}")
+    report_ids("(e) lookup int8 vs vanilla int8", spec8, q8)
+    model.kv_cache_bits = None
+    spec, _ = run("(d) draft_k=8 bf16 cache", {"verify_attention": 1},
+                  draft_k=8)
+    print(f"[{card}] latency (d) last_spec_stats {model.last_spec_stats}")
+    report_ids("(d) lookup bf16", spec, ref)
+    # (f) chunked prefill: the flash kernel with fewer queries than keys
+    model.prefill_chunk = 512
+    chunked, delta = run("(f) prefill_chunk=512", {"decode_attention": 1})
+    model.prefill_chunk = None
+    pieces = -(-(_prefill_bucket(n_prompt) + W) // 512)
+    if delta.get("flash_attention", 0) != L * pieces:
+        raise AssertionError(
+            f"(f): flash kernel launched {delta.get('flash_attention', 0)} "
+            f"times, want {L} layers x {pieces} pieces")
+    report_ids("(f) chunked prefill", chunked, ref)
+    # (g) grammar-constrained, vanilla and with lookup
+    table = fsm.next_state
+    for label, kw in (("(g) grammar", {}),
+                      ("(g) grammar draft_k=8", {"draft_k": 8})):
+        ids, _ = run(label, {}, fsm=fsm, **kw)
+        state = 0
+        for i, t in enumerate(ids):
+            if table[state, t] < 0:
+                raise AssertionError(f"{label}: id {t} at index {i} is "
+                                     f"illegal in DFA state {state}")
+            state = int(table[state, t])
+        print(f"[{card}] latency {label}: all {len(ids)} ids legal: "
+              + "".join(_PieceTable(32000).pieces[t] for t in ids))
+    launches = require_launched(LATENCY_KERNELS, "latency")
+
+    # one step of the kernel path against the plain path on copies of one
+    # cache: a decode step over the int8 cache (c), a verify step over the
+    # bf16 (d) and the int8 cache (e); and (f) chunked against one-shot
+    tokens = torch.tensor(prompt, device="cuda")
+    S = n_prompt + W
+    with torch.inference_mode():
+        img = model.encode_images(image)
+        lp = model.params["llama"]
+        draft = torch.randint(3, 32000, (8,), generator=gen, device="cuda")
+        for bits in (None, 8):
+            cache = KVCache.create(args, 1, S + 16,
+                                   dtype=kv_cache_dtype(bits, "cuda"),
+                                   device="cuda")
+            one_shot, cache, _ = llama.prefill(lp, args, cache, tokens, img)
+            checks = []
+            if bits == 8:
+                checks.append(("(c) int8 decode step", lambda c, impl:
+                               llama.decode_step(lp, args, c, draft[None, :1],
+                                                 S, impl)[0]))
+            checks.append((f"({'e' if bits else 'd'}) verify step, "
+                           f"{'int8' if bits else 'bf16'} cache",
+                           lambda c, impl: _verify_step(lp, args, c, draft, S,
+                                                        impl)[0]))
+            for label, step in checks:
+                got = step(clone_cache(cache), "auto")
+                want = step(clone_cache(cache), "plain")
+                rel = rel_err(got, want)
+                print(f"[{card}] latency {label}: logits rel err kernel vs "
+                      f"plain {rel:.3e} (limit {LOGITS_REL_TOL})")
+                if not rel <= LOGITS_REL_TOL:
+                    raise AssertionError(f"{label}: logits rel err {rel}")
+            if bits is None:
+                cache2 = KVCache.create(args, 1, S + 16, dtype=torch.bfloat16,
+                                        device="cuda")
+                chunk_lg, _, _ = llama.prefill_chunked(lp, args, cache2,
+                                                       tokens, img, 512)
+                rel = rel_err(chunk_lg, one_shot)
+                print(f"[{card}] latency (f) chunked vs one-shot prefill "
+                      f"logits rel err {rel:.3e} (limit {LOGITS_REL_TOL})")
+                if not rel <= LOGITS_REL_TOL:
+                    raise AssertionError(f"(f): logits rel err {rel}")
+                del cache2
+            del cache
+    return launches
 
 
 def run_training(card: str, model) -> dict:
@@ -522,27 +1016,37 @@ def main() -> int:
         check_flash(gen, results)
         check_flash_bwd(gen, results)
         check_decode(gen, results)
+        check_latency_kernels(gen, results)
         check_vit(gen, results)
-    for name, case, err, ms, plain in results:
-        print(f"[{card}] {name:23s} {case:44s} max_abs_err {err:.3e} "
-              f"kernel {ms:.4f} ms plain {plain:.4f} ms")
+    for r in results:
+        print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
+              f"{r['err']:.3e} kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) library {r['library_ms']:.4f} ms")
     if FAILURES:
         raise AssertionError("kernel checks failed:\n" + "\n".join(FAILURES))
 
-    # 4. serving path, 5. training path
+    # 4. serving path, 6. latency path (on phase 4's weights, which phase 5
+    # recasts), 5. training path
     model, serve = run_main_path(card)
+    latency = run_latency_path(card, model)
     train = run_training(card, model)
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
-        mine = [r for r in results if r[0] == name]
-        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
+        mine = [r for r in results if r["name"] == name]
+        by_path = {"serve": serve.get(name, 0),
+                   "latency": latency.get(name, 0),
+                   "train": train.get(name, 0)}
+        first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(r[2] for r in mine),
-            "ms": mine[0][3], "plain_ms": mine[0][4],
+            "max_abs_err": max(r["err"] for r in mine),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
         })
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,256 @@
+"""The PyTorch port stands alone: no file of ``a3vlm_tpu_torch`` nor
+``chip_smoke.py`` imports ``jax`` or the JAX package ``a3vlm_tpu``, and each
+module the port keeps its own copy of behaves as the original does on the
+same seeded input."""
+
+import ast
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "a3vlm_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "a3vlm_tpu")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    """Top-level package names of every import statement in a file, also
+    those inside functions."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax_package(path):
+    assert not _imported_roots(path) & set(FORBIDDEN), path
+
+
+def test_port_entry_points_load_neither_package():
+    code = ("import sys, a3vlm_tpu_torch.meta, a3vlm_tpu_torch.main_finetune, "
+            "a3vlm_tpu_torch.lookup_decode, a3vlm_tpu_torch.constrained, "
+            "a3vlm_tpu_torch.tokenizer, a3vlm_tpu_torch.data.dialog, "
+            "a3vlm_tpu_torch.data.alpaca, a3vlm_tpu_torch.data.loader; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'a3vlm_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.strip()
+    assert out == "[]"
+
+
+def _write_dialog_data(tmp_path, n=6, dialog=True):
+    img = tmp_path / "img.png"
+    pixels = np.random.default_rng(0).integers(0, 255, size=(48, 64, 3))
+    Image.fromarray(pixels.astype(np.uint8)).save(img)
+    if dialog:
+        records = [{"image": str(img), "conversations": [
+            {"from": "human", "value": f"Where is door {i}?"},
+            {"from": "gpt", "value": f"door {i} here"}]} for i in range(n)]
+    else:
+        records = [{"image": str(img), "instruction": f"Where is door {i}?",
+                    "input": "", "output": f"door {i} here"}
+                   for i in range(n)]
+    (tmp_path / "tasks.json").write_text(json.dumps(records))
+    cfg = tmp_path / "data.yaml"
+    cfg.write_text(f"META:\n - path: {tmp_path / 'tasks.json'}\n"
+                   "   type: image_text\n")
+    return cfg, img
+
+
+def _assert_same(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+def _case_config(tmp_path, tok_dir):
+    import a3vlm_tpu.config as orig
+    import a3vlm_tpu_torch.config as port
+
+    (tmp_path / "a.json").write_text(json.dumps(
+        {"dim": 64, "n_layers": 2, "n_heads": 4, "unknown_key": 1}))
+    (tmp_path / "b.json").write_text(json.dumps({"n_layers": 3,
+                                                 "norm_eps": 1e-6}))
+    paths = [tmp_path / "a.json", tmp_path / "b.json"]
+    got = port.model_args_from_json(paths, max_seq_len=96)
+    want = orig.model_args_from_json(paths, max_seq_len=96)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(port.ModelArgs()) == dataclasses.asdict(
+        orig.ModelArgs())
+    assert (got.head_dim, got.kv_heads, got.ffn_hidden_dim) == (
+        want.head_dim, want.kv_heads, want.ffn_hidden_dim)
+
+
+def _case_tokenizer(tmp_path, tok_dir):
+    from a3vlm_tpu.tokenizer import Tokenizer as Orig
+    from a3vlm_tpu_torch.tokenizer import Tokenizer as Port
+
+    orig, port = Orig(tok_dir), Port(tok_dir)
+    assert (port.n_words, port.bos_id, port.eos_id) == (
+        orig.n_words, orig.bos_id, orig.eos_id)
+    for text in ("### Human: provide the joint's type [0.12,0.34]",
+                 "<rb>revolute</rb>[0.12,0.34,0.56,0.78,0.90]"):
+        ids = port.encode(text, bos=True, eos=True)
+        assert ids == orig.encode(text, bos=True, eos=True)
+        assert port.decode(ids) == orig.decode(ids)
+        assert port.encode_segment(text) == orig.encode_segment(text)
+        assert (port.encode_wo_prefix_space(text)
+                == orig.encode_wo_prefix_space(text))
+    assert [port.id_to_piece(t) for t in range(40)] == [
+        orig.id_to_piece(t) for t in range(40)]
+
+
+def _case_constrained(tmp_path, tok_dir):
+    import a3vlm_tpu.constrained as orig
+    import a3vlm_tpu_torch.constrained as port
+    from a3vlm_tpu.tokenizer import Tokenizer
+
+    tok = Tokenizer(tok_dir)
+    for name in ("joint_rec_grammar", "rotated_box_grammar", "det_all_grammar",
+                 "axis_3d_grammar"):
+        got = port.compile_grammar(getattr(port, name)(), tok)
+        want = orig.compile_grammar(getattr(orig, name)(), tok)
+        np.testing.assert_array_equal(got.next_state, want.next_state)
+        assert (got.eos_id, got.n_states) == (want.eos_id, want.n_states)
+    assert (port.fsm_for_task("eval_joint_rec.json", tok).n_states
+            == orig.fsm_for_task("eval_joint_rec.json", tok).n_states)
+    assert port.fsm_for_task("free_text.json", tok) is None
+
+
+def _case_codecs_vocab(tmp_path, tok_dir):
+    import a3vlm_tpu.codecs.vocab as orig
+    import a3vlm_tpu_torch.codecs.vocab as port
+
+    names = [n for n in dir(orig) if n.isupper()]
+    assert names and names == [n for n in dir(port) if n.isupper()]
+    for n in names:
+        assert getattr(port, n) == getattr(orig, n), n
+
+
+def _case_spm_convert(tmp_path, tok_dir):
+    import a3vlm_tpu.tools.spm_convert as orig
+    import a3vlm_tpu_torch.tools.spm_convert as port
+
+    # a hand-made ModelProto: two pieces (field 1: piece, score, type)
+    def piece(text, score, kind):
+        import struct
+
+        body = (b"\x0a" + bytes([len(text)]) + text.encode()
+                + b"\x15" + struct.pack("<f", score) + b"\x18" + bytes([kind]))
+        return b"\x0a" + bytes([len(body)]) + body
+
+    blob = piece("<unk>", 0.0, 2) + piece("ab", -1.5, 1)
+    assert port.parse_model_proto(blob) == orig.parse_model_proto(blob)
+    assert port._read_varint(b"\xac\x02", 0) == orig._read_varint(
+        b"\xac\x02", 0) == (300, 2)
+
+
+def _datasets(tmp_path, tok_dir, module, cls):
+    import importlib
+
+    cfg, _ = _write_dialog_data(tmp_path, dialog=module == "dialog")
+    out = []
+    for pkg in ("a3vlm_tpu", "a3vlm_tpu_torch"):
+        data = importlib.import_module(f"{pkg}.data.{module}")
+        transforms = importlib.import_module(f"{pkg}.data.transforms")
+        tok = importlib.import_module(f"{pkg}.tokenizer").Tokenizer(tok_dir)
+        out.append(getattr(data, cls)(
+            str(cfg), transform=transforms.get_transform("padded_resize", 56),
+            max_words=96, image_words=30, tokenizer=tok))
+    return out
+
+
+def _case_data_dialog(tmp_path, tok_dir):
+    """Covers dialog, annotations, conversation and data_reader, which the
+    dialog dataset reaches."""
+    orig, port = _datasets(tmp_path, tok_dir, "dialog",
+                           "FinetuneDialogDataset")
+    assert len(port) == len(orig) == 6
+    for i in (0, 5):
+        _assert_same(port[i], orig[i])
+
+
+def _case_data_alpaca(tmp_path, tok_dir):
+    """Covers alpaca and system_prompt."""
+    orig, port = _datasets(tmp_path, tok_dir, "alpaca", "FinetuneDataset")
+    assert len(port) == len(orig)
+    _assert_same(port[1], orig[1])
+    import a3vlm_tpu.data.system_prompt as osp
+    import a3vlm_tpu_torch.data.system_prompt as psp
+
+    for d in ({"instruction": "open the door"},
+              {"instruction": "open", "input": "the door"}):
+        assert psp.format_prompt(d) == osp.format_prompt(d)
+
+
+def _case_data_sampler_loader(tmp_path, tok_dir):
+    import a3vlm_tpu.data.loader as ol
+    import a3vlm_tpu.data.sampler as osamp
+    import a3vlm_tpu_torch.data.loader as pl
+    import a3vlm_tpu_torch.data.sampler as psamp
+
+    orig, port = _datasets(tmp_path, tok_dir, "dialog",
+                           "FinetuneDialogDataset")
+    batches = []
+    for ds, samp, load in ((orig, osamp, ol), (port, psamp, pl)):
+        sampler = samp.FinetuneDistSampler(ds, num_replicas=1, rank=0,
+                                           batch_size=2, acc_grad=1, seed=3)
+        loader = load.DataLoader(ds, sampler, batch_size=2, accum_steps=1,
+                                 workers=0)
+        batches.append((list(sampler), list(loader)))
+    assert batches[0][0] == batches[1][0]
+    _assert_same(batches[1][1], batches[0][1])
+
+
+def _case_data_transforms(tmp_path, tok_dir):
+    import a3vlm_tpu.data.transforms as orig
+    import a3vlm_tpu_torch.data.transforms as port
+
+    _, img_path = _write_dialog_data(tmp_path)
+    img = Image.open(img_path).convert("RGB")
+    for kind in ("padded_resize", "resized_center_crop"):
+        np.testing.assert_array_equal(port.get_transform(kind, 56)(img),
+                                      orig.get_transform(kind, 56)(img))
+    pc = np.random.default_rng(1).normal(size=(64, 6)).astype(np.float32)
+    np.testing.assert_array_equal(port.pc_norm(pc.copy()),
+                                  orig.pc_norm(pc.copy()))
+
+
+_CASES = {
+    "config": _case_config,
+    "tokenizer": _case_tokenizer,
+    "constrained": _case_constrained,
+    "codecs.vocab": _case_codecs_vocab,
+    "tools.spm_convert": _case_spm_convert,
+    "data.dialog": _case_data_dialog,
+    "data.alpaca": _case_data_alpaca,
+    "data.sampler+loader": _case_data_sampler_loader,
+    "data.transforms": _case_data_transforms,
+}
+
+
+@pytest.mark.parametrize("module", list(_CASES))
+def test_copied_module_behaves_as_the_original(module, tmp_path,
+                                               tiny_tokenizer_dir):
+    _CASES[module](tmp_path, tiny_tokenizer_dir)

@@ -8,7 +8,11 @@ K=1024); flash forward and lse 2e-3 (the Pallas kernel works in the base-2
 exp domain, as tests/test_flash_attention.py allows); flash gradients 5e-3
 as that file's gradient tests, and 2e-4 against the Pallas backward
 kernels fed the same lse (only the score rounding differs); decode and ViT
-1e-5 (f32 softmax on both sides)."""
+1e-5 (f32 softmax on both sides). The decode and verify kernels of the
+latency path (bf16 and int8 caches): 1e-5 on float32 inputs; on bf16
+inputs 2^-6 of the largest output (the Pallas blocked kernels round the
+softmax weights to bf16 before the pv product, the plain versions keep
+them in float32); quantized values, scales and caches exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +27,21 @@ from a3vlm_tpu.ops.attention import sdpa_reference as j_sdpa
 from a3vlm_tpu.ops.vit_attention import vit_attention as j_vit_attention
 from a3vlm_tpu.quant import QuantizedWeight as JQuantizedWeight
 from a3vlm_tpu_torch.ops.decode_attention import (
+    QuantizedKV,
+    decode_attention,
+    decode_attention_plain,
+    decode_attention_quant,
+    decode_attention_quant_plain,
     decode_attention_update,
     decode_attention_update_plain,
+    decode_attention_update_quant,
+    decode_attention_update_quant_plain,
+    quantize_kv_tokens,
+    update_decode_cache,
+    verify_attention,
+    verify_attention_plain,
+    verify_attention_quant,
+    verify_attention_quant_plain,
 )
 from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -241,6 +258,187 @@ def test_decode_plain_matches_pallas_and_two_step(S):
         np.testing.assert_array_equal(tck.numpy(), np.asarray(k_ref))
 
 
+# (S, G, dtype): S=64 runs the single-panel TPU kernels, S=520 the blocked
+# ones (the verify kernels are always blocked)
+_CACHE_CASES = [(64, 1, "float32"), (64, 2, "bfloat16"),
+                (520, 2, "float32"), (520, 1, "bfloat16")]
+
+
+def _cache_inputs(S, G, dtype, seed, span=1):
+    """q [B, span, Hq, D] in ``dtype``, float32 k/v [B, S, Hkv, D] and
+    ragged valid, as (numpy, jnp dtype, torch dtype, atol factor)."""
+    B, Hkv, D = 2, 2, 128
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = _normal((B, span, Hkv * G, D), seed)
+    xk, xv = _normal((B, S, Hkv, D), seed + 1), _normal((B, S, Hkv, D),
+                                                        seed + 2)
+    valid = np.array([S - 7, S], np.int32)
+    return q, xk, xv, valid, jdt, tdt
+
+
+def _tol(want, dtype):
+    if dtype == "float32":
+        return 1e-5
+    return 2.0 ** -6 * float(np.abs(np.asarray(want, np.float32)).max())
+
+
+def _jgroup(q, Hkv):
+    """[B, Sq, Hq, D] -> the Pallas kernels' [B, Hkv, G * Sq, D]."""
+    B, Sq, Hq, D = q.shape
+    return q.transpose(0, 2, 1, 3).reshape(B, Hkv, (Hq // Hkv) * Sq, D)
+
+
+def _jungroup(out, Sq):
+    B, Hkv, R, D = out.shape
+    return (out.reshape(B, Hkv, R // Sq, Sq, D).transpose(0, 3, 1, 2, 4)
+            .reshape(B, Sq, Hkv * (R // Sq), D))
+
+
+def test_quantize_kv_tokens_equals_jax():
+    x = _normal((2, 5, 3, 128), 40) * np.float32(3.7)
+    x[0, 1, 2] = 0.0  # an all-zero row takes the 1e-8 floor
+    jq, jscale = jda.quantize_kv_tokens(jnp.asarray(x))
+    tq, tscale = quantize_kv_tokens(torch.tensor(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(tscale.numpy(), np.asarray(jscale))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_update_decode_cache_equals_jax(quant, ragged):
+    """Dense and int8 caches, an int position and per-row [B] positions:
+    the caches after the write equal JAX's exactly."""
+    B, Hkv, S, D, S_new = 2, 2, 24, 128, 3
+    xk, xv = _normal((B, S_new, Hkv, D), 41), _normal((B, S_new, Hkv, D), 42)
+    pos = np.array([4, 17], np.int32) if ragged else 5
+    if quant:
+        jk, jv = (jda.make_quantized_kv(B, Hkv, S, D) for _ in range(2))
+        tk, tv = (QuantizedKV(torch.zeros(B, Hkv, S, D, dtype=torch.int8),
+                              torch.zeros(B, Hkv, S)) for _ in range(2))
+    else:
+        ck, cv = _normal((B, Hkv, S, D), 43), _normal((B, Hkv, S, D), 44)
+        jk, jv = jnp.asarray(ck), jnp.asarray(cv)
+        tk, tv = torch.tensor(ck), torch.tensor(cv)
+    jk, jv = jda.update_decode_cache(
+        jk, jv, jnp.asarray(xk), jnp.asarray(xv),
+        jnp.asarray(pos) if ragged else pos, layout="bhsd")
+    update_decode_cache(tk, tv, torch.tensor(xk), torch.tensor(xv),
+                        torch.tensor(pos) if ragged else pos)
+    for t, j in ((tk, jk), (tv, jv)):
+        for tl, jl in zip(t if quant else (t,), j if quant else (j,)):
+            np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+
+@pytest.mark.parametrize("S,G,dtype", _CACHE_CASES)
+def test_decode_attend_plain_matches_pallas(S, G, dtype):
+    """The attend-only decode (no cache write), plain version and wrapper,
+    against ``_decode_impl`` in interpret mode."""
+    q, xk, xv, valid, jdt, tdt = _cache_inputs(S, G, dtype, 50)
+    k, v = xk.transpose(0, 2, 1, 3), xv.transpose(0, 2, 1, 3)
+    want = _jungroup(jda._decode_impl(
+        _jgroup(jnp.asarray(q, jdt), 2), jnp.asarray(k, jdt),
+        jnp.asarray(v, jdt), jnp.asarray(valid), interpret=True), 1)
+    args = (torch.tensor(q).to(tdt), torch.tensor(k.copy()).to(tdt),
+            torch.tensor(v.copy()).to(tdt), torch.tensor(valid))
+    for fn in (decode_attention_plain, decode_attention):
+        _assert_close(fn(*args).float(), want, _tol(want, dtype))
+
+
+@pytest.mark.parametrize("S,G,dtype", _CACHE_CASES)
+def test_decode_quant_plain_matches_pallas(S, G, dtype):
+    """int8 cache: attend-only against ``_decode_impl_q8``; the fused
+    quantize + write + attend against ``_decode_update_impl_q8``, the int8
+    values and scales after the write exactly equal to the write
+    ``quantize_kv_tokens`` makes."""
+    q, xk, xv, valid, jdt, tdt = _cache_inputs(S, G, dtype, 60)
+    B, Hkv, D = 2, 2, 128
+    jkq, jks = jda.quantize_kv_tokens(jnp.asarray(xk))
+    jvq, jvs = jda.quantize_kv_tokens(jnp.asarray(xv))
+    jq = _jgroup(jnp.asarray(q, jdt), Hkv)
+    want = _jungroup(jda._decode_impl_q8(jq, jkq, jvq, jks, jvs,
+                                         jnp.asarray(valid), interpret=True),
+                     1)
+
+    def caches():
+        return (QuantizedKV(*quantize_kv_tokens(torch.tensor(xk))),
+                QuantizedKV(*quantize_kv_tokens(torch.tensor(xv))))
+
+    tq, tvalid = torch.tensor(q).to(tdt), torch.tensor(valid)
+    for fn in (decode_attention_quant_plain, decode_attention_quant):
+        _assert_close(fn(tq, *caches(), tvalid).float(), want,
+                      _tol(want, dtype))
+
+    nk, nv = _normal((B, 1, Hkv, D), 63), _normal((B, 1, Hkv, D), 64)
+    pos = np.array([3, S - 1], np.int32)
+    valid = pos + 1
+    o_j, k_j, v_j, ks_j, vs_j = jda._decode_update_impl_q8(
+        jq, jkq, jvq, jks, jvs,
+        jnp.asarray(nk, jdt).transpose(0, 2, 1, 3),
+        jnp.asarray(nv, jdt).transpose(0, 2, 1, 3), jnp.asarray(pos),
+        jnp.asarray(valid), interpret=True)
+    want = _jungroup(o_j, 1)
+    # the write as quantize_kv_tokens makes it: what the caches must equal
+    rk, rv = jda._update_decode_cache_ragged(
+        jda.QuantizedKV(jkq, jks), jda.QuantizedKV(jvq, jvs),
+        jnp.asarray(nk, jdt), jnp.asarray(nv, jdt), jnp.asarray(pos))
+    for fn in (decode_attention_update_quant_plain,
+               decode_attention_update_quant):
+        kq, vq = caches()
+        out = fn(tq, kq, vq, torch.tensor(nk).to(tdt),
+                 torch.tensor(nv).to(tdt), torch.tensor(pos),
+                 torch.tensor(valid))
+        _assert_close(out.float(), want, _tol(want, dtype))
+        for t, j in ((kq.qv, rk.qv), (vq.qv, rv.qv), (kq.scale, rk.scale),
+                     (vq.scale, rv.scale)):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        # the Pallas kernel's own scales, compiled as one program, sit
+        # within an ulp of quantize_kv_tokens' (tests/test_fused_update_
+        # attend.py allows the same); on bf16 tokens x / scale often lies
+        # on a rounding tie, which that ulp can tip by one step
+        for t, j in ((kq.scale, ks_j), (vq.scale, vs_j)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-7,
+                                       rtol=1e-6)
+        for t, j in ((kq.qv, k_j), (vq.qv, v_j)):
+            diff = np.abs(t.numpy().astype(np.int32) - np.asarray(j, np.int32))
+            assert diff.max() <= 1 and (diff != 0).sum() <= 4
+
+
+@pytest.mark.parametrize("span", [2, 8])
+@pytest.mark.parametrize("S,G,dtype", _CACHE_CASES)
+def test_verify_plain_matches_pallas(S, G, dtype, span):
+    """The verify window over a dense and an int8 cache against
+    ``_verify_attention_bhgd`` and ``_verify_attention_bhgd_q8`` in
+    interpret mode, and against the right-aligned causal plain path."""
+    q, xk, xv, valid, jdt, tdt = _cache_inputs(S, G, dtype, 70, span=span)
+    Hkv = 2
+    k, v = xk.transpose(0, 2, 1, 3), xv.transpose(0, 2, 1, 3)
+    jq = _jgroup(jnp.asarray(q, jdt), Hkv)
+    want = _jungroup(jda._verify_attention_bhgd(
+        jq, jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(valid),
+        span, interpret=True), span)
+    tq, tvalid = torch.tensor(q).to(tdt), torch.tensor(valid)
+    tk, tv = torch.tensor(k.copy()).to(tdt), torch.tensor(v.copy()).to(tdt)
+    for fn in (verify_attention_plain, verify_attention):
+        _assert_close(fn(tq, tk, tv, tvalid).float(), want,
+                      _tol(want, dtype))
+    if dtype == "float32":
+        ref = j_sdpa(jnp.asarray(q), jnp.asarray(xk), jnp.asarray(xv),
+                     "causal", jnp.asarray(valid))
+        _assert_close(verify_attention_plain(tq, tk, tv, tvalid), ref, 1e-5)
+
+    jkq, jks = jda.quantize_kv_tokens(jnp.asarray(xk))
+    jvq, jvs = jda.quantize_kv_tokens(jnp.asarray(xv))
+    want = _jungroup(jda._verify_attention_bhgd_q8(
+        jq, jkq, jvq, jks, jvs, jnp.asarray(valid), span, interpret=True),
+        span)
+    kq = QuantizedKV(*quantize_kv_tokens(torch.tensor(xk)))
+    vq = QuantizedKV(*quantize_kv_tokens(torch.tensor(xv)))
+    for fn in (verify_attention_quant_plain, verify_attention_quant):
+        _assert_close(fn(tq, kq, vq, tvalid).float(), want,
+                      _tol(want, dtype))
+
+
 @pytest.mark.parametrize("H,D", [(4, 64), (2, 88)])
 def test_vit_plain_matches_pallas_and_sdpa(H, D):
     B, S = 2, 17
@@ -260,7 +458,9 @@ def test_wrappers_count_no_cpu_launches():
     kernel launch."""
     counted = (int4_matmul_2d, flash_attention_bhsd, flash_attention_bwd_dq,
                flash_attention_bwd_dkv, decode_attention_update,
-               vit_attention)
+               vit_attention, decode_attention, decode_attention_quant,
+               decode_attention_update_quant, verify_attention,
+               verify_attention_quant)
     before = [f.launches for f in counted]
     x = torch.zeros(2, 128)
     int4_matmul_2d(x, torch.zeros(64, 16, dtype=torch.int8),
@@ -271,5 +471,15 @@ def test_wrappers_count_no_cpu_launches():
     flash_attention_bwd_dq(t, t, t, t, rows, rows)
     flash_attention_bwd_dkv(t, t, t, t, rows, rows)
     vit_attention(t, t, t)
+    q1, q2 = torch.zeros(1, 1, 2, 128), torch.zeros(1, 2, 2, 128)
+    c = torch.zeros(1, 2, 8, 128)
+    valid, pos = torch.tensor([4]), torch.tensor([3])
+    decode_attention(q1, c, c, valid)
+    verify_attention(q2, c, c, valid)
+    kq = QuantizedKV(torch.zeros(1, 2, 8, 128, dtype=torch.int8),
+                     torch.ones(1, 2, 8))
+    decode_attention_quant(q1, kq, kq, valid)
+    decode_attention_update_quant(q1, kq, kq, q1, q1, pos, valid)
+    verify_attention_quant(q2, kq, kq, valid)
     after = [f.launches for f in counted]
     assert before == after

@@ -13,9 +13,12 @@ to near zero."""
 import pytest
 import torch
 
+from a3vlm_tpu_torch.ops import decode_attention as dec
 from a3vlm_tpu_torch.ops.decode_attention import (
+    QuantizedKV,
     decode_attention_update,
     decode_attention_update_plain,
+    quantize_kv_tokens,
 )
 from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -96,6 +99,100 @@ def test_decode_attention_cuda(gen):
     expect = torch.zeros_like(changed)
     expect[torch.arange(B), :, pos.long()] = True
     assert not bool((changed & ~expect).any())
+
+
+_CACHE_SHAPES = [(1, 40, 1, 1544), (4, 8, 5, 1544), (2, 40, 1, 1000)]
+
+
+def _cache_case(gen, B, Hkv, G, S, span=1):
+    """q [B, span, Hq, D], dense caches, this step's k/v, ragged pos."""
+    D = 128
+    q = _randn(B, span, Hkv * G, D, gen=gen)
+    ck, cv = _randn(B, Hkv, S, D, gen=gen), _randn(B, Hkv, S, D, gen=gen)
+    xk, xv = _randn(B, 1, Hkv, D, gen=gen), _randn(B, 1, Hkv, D, gen=gen)
+    pos = torch.randint(S - 64, S, (B,), generator=gen,
+                        device="cuda").to(torch.int32)
+    return q, ck, cv, xk, xv, pos
+
+
+def _quantized(ck, cv):
+    return (QuantizedKV(*quantize_kv_tokens(ck.transpose(1, 2))),
+            QuantizedKV(*quantize_kv_tokens(cv.transpose(1, 2))))
+
+
+@pytest.mark.parametrize("B,Hkv,G,S", _CACHE_SHAPES)
+def test_decode_attend_only_cuda(gen, B, Hkv, G, S):
+    """The attend-only kernel agrees with its plain version and, on a cache
+    the fused kernel has written, equals the fused kernel's output bit for
+    bit."""
+    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S)
+    D = 128
+    fused = decode_attention_update(
+        q.reshape(B, Hkv, G, D), ck, cv, xk.reshape(B, Hkv, D),
+        xv.reshape(B, Hkv, D), pos, pos + 1)
+    got = dec.decode_attention(q, ck, cv, pos + 1)
+    assert torch.equal(got.reshape(B, Hkv, G, D), fused)
+    _check(got, dec.decode_attention_plain(q, ck, cv, pos + 1))
+
+
+@pytest.mark.parametrize("B,Hkv,G,S", _CACHE_SHAPES)
+def test_decode_attention_int8_cuda(gen, B, Hkv, G, S):
+    """The int8 kernels: attend-only against its plain version; the fused
+    form's output, int8 rows and scales against the plain version's, the
+    caches bit for bit, rows other than pos untouched."""
+    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S)
+    kq, vq = _quantized(ck, cv)
+    _check(dec.decode_attention_quant(q, kq, vq, pos + 1),
+           dec.decode_attention_quant_plain(q, kq, vq, pos + 1))
+    k1, v1, k2, v2 = (QuantizedKV(c.qv.clone(), c.scale.clone())
+                      for c in (kq, vq, kq, vq))
+    _check(dec.decode_attention_update_quant(q, k1, v1, xk, xv, pos, pos + 1),
+           dec.decode_attention_update_quant_plain(q, k2, v2, xk, xv, pos,
+                                                   pos + 1))
+    for a, b in zip((*k1, *v1), (*k2, *v2)):
+        assert torch.equal(a, b)
+    changed = (k1.qv != kq.qv).any(-1) | (k1.scale != kq.scale)
+    expect = torch.zeros_like(changed)
+    expect[torch.arange(B), :, pos.long()] = True
+    assert not bool((changed & ~expect).any())
+
+
+@pytest.mark.parametrize("span", [2, 8, 16])
+@pytest.mark.parametrize("B,Hkv,G,S", _CACHE_SHAPES)
+def test_verify_attention_cuda(gen, B, Hkv, G, S, span):
+    """The verify kernels over the dense and the int8 cache; one row of the
+    batch has fewer valid rows than the window, so its first query rows see
+    no key and must give zeros."""
+    q, ck, cv, _, _, pos = _cache_case(gen, B, Hkv, G, S, span=span)
+    valid = pos + 1
+    valid[-1] = span - 1
+    got = dec.verify_attention(q, ck, cv, valid)
+    _check(got, dec.verify_attention_plain(q, ck, cv, valid))
+    assert float(got[-1, 0].abs().max()) == 0.0
+    kq, vq = _quantized(ck, cv)
+    _check(dec.verify_attention_quant(q, kq, vq, valid),
+           dec.verify_attention_quant_plain(q, kq, vq, valid))
+
+
+def test_cache_dispatch_routes_cuda(gen):
+    """``attend_decode_cache`` on the card takes the kernels: the counts of
+    the verify and decode wrappers move, and a float32 query takes the
+    plain path."""
+    q, ck, cv, _, _, pos = _cache_case(gen, 2, 8, 5, 520, span=4)
+    names = ("verify_attention", "verify_attention_quant",
+             "decode_attention", "decode_attention_quant")
+    before = [getattr(dec, n).launches for n in names]
+    kq, vq = _quantized(ck, cv)
+    for k, v in ((ck, cv), (kq, vq)):
+        dec.attend_decode_cache(q, k, v, mask="causal", kv_valid_len=pos + 1)
+        dec.attend_decode_cache(q[:, :1], k, v, mask=None,
+                                kv_valid_len=pos + 1)
+    assert [getattr(dec, n).launches for n in names] == [b + 1
+                                                         for b in before]
+    dec.attend_decode_cache(q.float(), ck, cv, mask="causal",
+                            kv_valid_len=pos + 1)
+    assert [getattr(dec, n).launches for n in names] == [b + 1
+                                                         for b in before]
 
 
 @pytest.mark.parametrize("H,D", [(16, 64), (16, 88), (24, 64)])

@@ -425,18 +425,19 @@ def test_finetune_cli_qlora_runs(tmp_path, tiny_tokenizer_dir):
 
 
 def test_port_training_imports_no_jax():
-    """(j) The port's training entry point imports no JAX module, neither
-    when it is imported nor with the modules ``main`` loads to run."""
+    """(j) The port's training entry point imports no JAX module and
+    nothing of the JAX package, neither when it is imported nor with the
+    modules ``main`` loads to run."""
     code = ("import sys, a3vlm_tpu_torch.main_finetune, "
-            "a3vlm_tpu.data.alpaca, a3vlm_tpu.data.dialog, "
-            "a3vlm_tpu.data.loader, a3vlm_tpu.data.sampler, "
-            "a3vlm_tpu.data.transforms, a3vlm_tpu.tokenizer, "
-            "a3vlm_tpu.config, a3vlm_tpu_torch.meta, "
+            "a3vlm_tpu_torch.data.alpaca, a3vlm_tpu_torch.data.dialog, "
+            "a3vlm_tpu_torch.data.loader, a3vlm_tpu_torch.data.sampler, "
+            "a3vlm_tpu_torch.data.transforms, a3vlm_tpu_torch.tokenizer, "
+            "a3vlm_tpu_torch.config, a3vlm_tpu_torch.meta, "
             "a3vlm_tpu_torch.train.engine, a3vlm_tpu_torch.train.step, "
             "a3vlm_tpu_torch.train.lr_sched, a3vlm_tpu_torch.utils.logging, "
             "a3vlm_tpu_torch.utils.tensor_type; "
             "print(sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith('jax.')))")
+            "if m.split('.')[0] in ('jax', 'a3vlm_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout.strip()
     assert out == "[]"
