@@ -11,8 +11,10 @@ np.asarray, params)``); this module imports no JAX and recognizes a
 - a decoder ``"layers"`` subtree stacked on axis 0 becomes a list of
   per-layer dicts (the decode layout of ``llama.unstack_layers``); an
   unstacked tuple of layers becomes a list as it is;
-- int4 ``QuantizedWeight`` leaves keep ``q``, ``scale``, ``group`` and
-  ``in_dim`` as they are (``k_chunks > 1`` is refused);
+- ``QuantizedWeight`` leaves, int4 or int8, stacked or not, keep ``q``,
+  ``scale``, ``bits``, ``group`` and ``in_dim`` as they are; a chunk-packed
+  int4 leaf (``k_chunks > 1``, the JAX package's row-parallel layout) is
+  repacked to ``k_chunks = 1`` (``repack_chunked_int4``);
 - conv ``"kernel"`` leaves turn from HWIO into torch's OIHW.
 """
 
@@ -50,21 +52,35 @@ def _convert(x, key, device, dtype):
     if isinstance(x, (list, tuple)):
         return [_convert(v, None, device, dtype) for v in x]
     if _is_quantized(x):
+        q, scale = np.asarray(x.q), np.asarray(x.scale)
         if getattr(x, "k_chunks", 1) != 1:
-            raise NotImplementedError(
-                "chunk-packed int4 (k_chunks > 1) is not bridged yet")
-        if x.bits != 4:
-            raise NotImplementedError(f"only int4 weights are ported, got "
-                                      f"bits={x.bits}")
+            q, scale = repack_chunked_int4(q, scale)
         return QuantizedWeight(
-            _tensor(x.q, device, torch.int8),
-            _tensor(x.scale, device, torch.float32),
-            bits=4, group=int(x.group), in_dim=int(x.in_dim),
+            _tensor(q, device, torch.int8),
+            _tensor(scale, device, torch.float32),
+            bits=int(x.bits), group=int(x.group), in_dim=int(x.in_dim),
         )
     t = _tensor(x, device, dtype)
     if key == "kernel" and t.dim() == 4:
         t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
     return t
+
+
+def repack_chunked_int4(q: np.ndarray, scale: np.ndarray):
+    """A chunk-packed int4 weight, q [*, c, Kc/2, N] and scale
+    [*, c, Kc/group, N] with the split-half pairing inside each chunk, as
+    the ``k_chunks = 1`` layout: q [*, Kpad/2, N] pairing row r with row
+    r + Kpad/2, scale [*, Kpad/group, N]. The nibbles only move, so the
+    dense weight is bit-identical. Within a chunk the low halves' rows come
+    before the high halves', which is the natural row order, so the scale
+    rows of all chunks in sequence are already in the order wanted."""
+    *lead, c, halfc, N = q.shape
+    lo = (q << 4).astype(np.int8) >> 4  # sign-extended low nibbles
+    hi = q >> 4
+    rows = np.concatenate([lo, hi], axis=-2).reshape(*lead, 2 * c * halfc, N)
+    half = c * halfc
+    packed = (rows[..., :half, :] & 0x0F) | ((rows[..., half:, :] & 0x0F) << 4)
+    return packed.astype(np.int8), scale.reshape(*lead, -1, N)
 
 
 def _convert_child(key, value, device, dtype):
@@ -140,7 +156,7 @@ def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
     """The port's tree back in the JAX package's layout, as numpy: the
     ``layers`` lists of the decoder and its adapters (top-level ``llama``
     and ``lora``, or a bare decoder tree's own) stacked on axis 0, conv
-    kernels HWIO, bf16 as float32, int4 weights as objects with
+    kernels HWIO, bf16 as float32, int4 and int8 weights as objects with
     ``q``/``scale``/``bits``/``group``/``in_dim`` (which
     ``params_from_numpy`` reads back). Other lists of layers (the
     Q-Former's, which are not alike) stay lists, as in the JAX tree. For

@@ -1,14 +1,27 @@
-// int4 dequant-matmul for Hopper (sm_90a).
+// int4 dequant-matmul for Hopper (sm_90a), in three modes of one pair of
+// kernels.
 //
 // Replaces a3vlm_tpu/ops/quant_matmul.py::_int4_kernel (tiled by
-// _int4_matmul_2d). Computes
+// _int4_matmul_2d), ::_int4_kernel_v3 (the same call with variant="v3")
+// and ::_int4_kernel_glu (tiled by _int4_matmul_2d_glu). Computes
 //
 //     out[M, N] = x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi)
 //
 // where byte row r of q [K/2, N] holds weight row r in its low nibble and
-// row r + K/2 in its high nibble (sign-extended), and deq(v) rounds
-// float(v) * scale[row / group, n] to bf16, as the TPU kernel does. Products
-// accumulate in f32; the output is bf16.
+// row r + K/2 in its high nibble (sign-extended). Products accumulate in
+// f32; the output is bf16. The modes differ in where the scale goes and in
+// what x is:
+//
+// - MODE_V1: deq(v) rounds float(v) * scale[row / group, n] to bf16, as the
+//   TPU kernel does.
+// - MODE_V3: the nibbles go to bf16 unscaled (exact); each run of rows
+//   inside one group is summed on its own in f32, multiplied by the group's
+//   scale, and added to the running sum (the runs are 16 rows per thread
+//   in the GEMV and 32 rows per step in the tiled form, so a 64-row group
+//   is scaled in 4 or 2 pieces; the TPU kernel scales it in one).
+// - MODE_GLU: x is formed from two inputs as bf16(sigmoid(g) * g * u) in
+//   f32, the weights are as in MODE_V1, and a residual is added in f32
+//   before the one rounding at the store: res + (silu(g) * u) @ W.
 //
 // What bounds it on an H100: at decode (M = batch <= 32) the weight stream,
 // K*N/2 bytes per call, and nothing else; at prefill (M ~ 6000) the
@@ -19,23 +32,20 @@
 //   warp streams one 128-byte row segment per step. x is staged in shared
 //   memory, group scales are reloaded only when the group changes, and the
 //   per-split f32 partials are summed in a fixed order by a second pass
-//   (splitk_reduce_kernel), so results do not change from run to run.
+//   (splitk_reduce_kernel, which also adds the GLU residual, once), so
+//   results do not change from run to run.
 // - int4_mma_kernel (large M): a 128 x 128 output tile per block; every
 //   32-row K step dequantizes a [32, 128] tile of each half into shared
 //   memory as bf16 and runs mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //   No cp.async, TMA or wgmma yet: a simple right kernel first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "matmul_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ int lo_nibble(int b) {
-  return ((int)((unsigned)b << 28)) >> 28;
-}
-
-__device__ __forceinline__ int hi_nibble(int b) { return b >> 4; }
+constexpr int MODE_V1 = 0;
+constexpr int MODE_V3 = 1;
+constexpr int MODE_GLU = 2;
 
 __device__ __forceinline__ float deq_bf16(int v, float s) {
   return __bfloat162float(__float2bfloat16_rn((float)v * s));
@@ -49,8 +59,11 @@ constexpr int GV_BN = GV_TX * GV_COLS;  // 128 columns per block
 constexpr int GV_KS = 128;              // packed rows per split
 constexpr int GV_MT = 8;                // rows of x per block
 
+// u is read in MODE_GLU only (x is then g).
+template <int MODE>
 __global__ void __launch_bounds__(GV_TX * GV_TY)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ u,
                  const int8_t* __restrict__ q,
                  const float* __restrict__ scale,
                  float* __restrict__ partial,
@@ -69,9 +82,14 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     const int m = i / GV_KS, r = i % GV_KS;
     float lo = 0.f, hi = 0.f;
     if (m0 + m < M && r0 + r < half) {
-      const __nv_bfloat16* row = x + (size_t)(m0 + m) * kpad;
-      lo = __bfloat162float(row[r0 + r]);
-      hi = __bfloat162float(row[half + r0 + r]);
+      const size_t at = (size_t)(m0 + m) * kpad + r0 + r;
+      if (MODE == MODE_GLU) {
+        lo = __bfloat162float(glu_bf16(x[at], u[at]));
+        hi = __bfloat162float(glu_bf16(x[at + half], u[at + half]));
+      } else {
+        lo = __bfloat162float(x[at]);
+        hi = __bfloat162float(x[at + half]);
+      }
     }
     xs[0][m][r] = lo;
     xs[1][m][r] = hi;
@@ -88,36 +106,66 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     const int hg = half / group;
     const int per_ty = GV_KS / GV_TY;
     int cur_g = -1;
-    float4 slo = make_float4(0.f, 0.f, 0.f, 0.f), shi = slo;
+    float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
+    // MODE_V3: unscaled sums of the current group's rows
+    float pl[GV_MT][GV_COLS], ph[GV_MT][GV_COLS];
+#pragma unroll
+    for (int m = 0; m < GV_MT; ++m)
+#pragma unroll
+      for (int c = 0; c < GV_COLS; ++c) pl[m][c] = ph[m][c] = 0.f;
+    auto flush = [&]() {
+#pragma unroll
+      for (int m = 0; m < GV_MT; ++m)
+#pragma unroll
+        for (int c = 0; c < GV_COLS; ++c) {
+          acc[m][c] += pl[m][c] * sl[c];
+          acc[m][c] += ph[m][c] * sh[c];
+          pl[m][c] = ph[m][c] = 0.f;
+        }
+    };
     for (int rr = ty * per_ty; rr < (ty + 1) * per_ty; ++rr) {
       const int r = r0 + rr;
       if (r >= half) break;
       const int gi = r / group;
       if (gi != cur_g) {
+        if (MODE == MODE_V3 && cur_g >= 0) flush();
         cur_g = gi;
-        slo = *reinterpret_cast<const float4*>(scale + (size_t)gi * N + n0);
-        shi = *reinterpret_cast<const float4*>(scale + (size_t)(hg + gi) * N + n0);
+        const float4 a =
+            *reinterpret_cast<const float4*>(scale + (size_t)gi * N + n0);
+        const float4 b = *reinterpret_cast<const float4*>(
+            scale + (size_t)(hg + gi) * N + n0);
+        sl[0] = a.x; sl[1] = a.y; sl[2] = a.z; sl[3] = a.w;
+        sh[0] = b.x; sh[1] = b.y; sh[2] = b.z; sh[3] = b.w;
       }
       const char4 b = *reinterpret_cast<const char4*>(q + (size_t)r * N + n0);
       const int bytes[4] = {b.x, b.y, b.z, b.w};
-      const float sl[4] = {slo.x, slo.y, slo.z, slo.w};
-      const float sh[4] = {shi.x, shi.y, shi.z, shi.w};
       float wl[4], wh[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        wl[c] = deq_bf16(lo_nibble(bytes[c]), sl[c]);
-        wh[c] = deq_bf16(hi_nibble(bytes[c]), sh[c]);
+        if (MODE == MODE_V3) {
+          wl[c] = (float)lo_nibble(bytes[c]);
+          wh[c] = (float)hi_nibble(bytes[c]);
+        } else {
+          wl[c] = deq_bf16(lo_nibble(bytes[c]), sl[c]);
+          wh[c] = deq_bf16(hi_nibble(bytes[c]), sh[c]);
+        }
       }
 #pragma unroll
       for (int m = 0; m < GV_MT; ++m) {
         const float xl = xs[0][m][rr], xh = xs[1][m][rr];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          acc[m][c] = fmaf(xl, wl[c], acc[m][c]);
-          acc[m][c] = fmaf(xh, wh[c], acc[m][c]);
+          if (MODE == MODE_V3) {
+            pl[m][c] = fmaf(xl, wl[c], pl[m][c]);
+            ph[m][c] = fmaf(xh, wh[c], ph[m][c]);
+          } else {
+            acc[m][c] = fmaf(xl, wl[c], acc[m][c]);
+            acc[m][c] = fmaf(xh, wh[c], acc[m][c]);
+          }
         }
       }
     }
+    if (MODE == MODE_V3 && cur_g >= 0) flush();
   }
 
 #pragma unroll
@@ -138,73 +186,33 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     __nv_bfloat16* __restrict__ out,
-                                     int splits, size_t mn) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[(size_t)k * mn + i];
-  out[i] = __float2bfloat16_rn(s);
-}
-
 // ---------------------------------------------------------------- large M
-constexpr int MM_BM = 128;
-constexpr int MM_BN = 128;
-constexpr int MM_BK = 32;   // packed rows per step (64 rows of K)
-constexpr int MM_LD = MM_BK + 8;
-
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(256)
+template <int MODE>
+__global__ void __launch_bounds__(MM_THREADS)
 int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ u,
                 const int8_t* __restrict__ q,
                 const float* __restrict__ scale,
+                const __nv_bfloat16* __restrict__ res,
                 __nv_bfloat16* __restrict__ out,
                 int M, int half, int N, int group) {
-  // xs[h][m][k]: the two K halves of x; ws[h][n][k]: dequantized weights,
-  // stored n-major so a B fragment's two k-neighbours are one 32-bit word
+  // xs[h]: the two K halves of x; ws[h]: dequantized weights, n-major
   __shared__ __align__(16) __nv_bfloat16 xs[2][MM_BM][MM_LD];
   __shared__ __align__(16) __nv_bfloat16 ws[2][MM_BN][MM_LD];
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2;  // 2 warps along M, 64 rows each
-  const int wn = warp & 3;   // 4 warps along N, 32 columns each
-  const int gid = lane >> 2, tig = lane & 3;
+  const MmLane t(tid);
   const int m_blk = blockIdx.y * MM_BM;
   const int n_blk = blockIdx.x * MM_BN;
   const size_t kpad = 2 * (size_t)half;
   const int hg = half / group;
 
   float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  mm_zero(acc);
 
   for (int k0 = 0; k0 < half; k0 += MM_BK) {
-    for (int i = tid; i < MM_BM * MM_BK / 8; i += 256) {
-      const int row = i / (MM_BK / 8);
-      const int c8 = (i % (MM_BK / 8)) * 8;
-      const int m = m_blk + row;
-      uint4 vlo = make_uint4(0, 0, 0, 0), vhi = vlo;
-      if (m < M) {
-        const __nv_bfloat16* p = x + (size_t)m * kpad + k0 + c8;
-        vlo = *reinterpret_cast<const uint4*>(p);
-        vhi = *reinterpret_cast<const uint4*>(p + half);
-      }
-      *reinterpret_cast<uint4*>(&xs[0][row][c8]) = vlo;
-      *reinterpret_cast<uint4*>(&xs[1][row][c8]) = vhi;
-    }
+    mm_load_x<MODE == MODE_GLU>(xs[0], x, u, kpad, m_blk, M, k0, half, tid);
+    mm_load_x<MODE == MODE_GLU>(xs[1], x, u, kpad, m_blk, M, half + k0,
+                                (int)kpad, tid);
     {
       const int r = tid / (MM_BN / 16);         // 0..31
       const int c16 = (tid % (MM_BN / 16)) * 16;
@@ -219,8 +227,11 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int v = bytes[j];
-          ws[0][c16 + j][r] = __float2bfloat16_rn((float)lo_nibble(v) * slo[j]);
-          ws[1][c16 + j][r] = __float2bfloat16_rn((float)hi_nibble(v) * shi[j]);
+          const float fl = (float)lo_nibble(v), fh = (float)hi_nibble(v);
+          ws[0][c16 + j][r] =
+              __float2bfloat16_rn(MODE == MODE_V3 ? fl : fl * slo[j]);
+          ws[1][c16 + j][r] =
+              __float2bfloat16_rn(MODE == MODE_V3 ? fh : fh * shi[j]);
         }
       } else {
 #pragma unroll
@@ -234,50 +245,69 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int kk = 0; kk < MM_BK; kk += 16) {
-        uint32_t af[4][4];
-        uint32_t bf[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int row = wm * 64 + mi * 16 + gid;
-          const int col = kk + tig * 2;
-          af[mi][0] = *reinterpret_cast<const uint32_t*>(&xs[h][row][col]);
-          af[mi][1] = *reinterpret_cast<const uint32_t*>(&xs[h][row + 8][col]);
-          af[mi][2] = *reinterpret_cast<const uint32_t*>(&xs[h][row][col + 8]);
-          af[mi][3] = *reinterpret_cast<const uint32_t*>(&xs[h][row + 8][col + 8]);
-        }
+      if (MODE == MODE_V3) {
+        // this step's 32 rows lie in one group (group % 32 == 0): their
+        // unscaled f32 sum, times the group's scale, into the running sum
+        float part[4][4][4];
+        mm_zero(part);
+        mm_step(part, xs[h], ws[h], t);
+        const float* srow = scale + (size_t)(h * hg + k0 / group) * N;
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          const int n = wn * 32 + ni * 8 + gid;
-          const int k = kk + tig * 2;
-          bf[ni][0] = *reinterpret_cast<const uint32_t*>(&ws[h][n][k]);
-          bf[ni][1] = *reinterpret_cast<const uint32_t*>(&ws[h][n][k + 8]);
+          const int col = n_blk + t.wn * 32 + ni * 8 + t.tig * 2;
+          const float s0 = col < N ? srow[col] : 0.f;
+          const float s1 = col < N ? srow[col + 1] : 0.f;
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            acc[mi][ni][0] += part[mi][ni][0] * s0;
+            acc[mi][ni][1] += part[mi][ni][1] * s1;
+            acc[mi][ni][2] += part[mi][ni][2] * s0;
+            acc[mi][ni][3] += part[mi][ni][3] * s1;
+          }
         }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bf[ni]);
+      } else {
+        mm_step(acc, xs[h], ws[h], t);
       }
     }
     __syncthreads();
   }
+  mm_store(acc, out, M, N, m_blk, n_blk, t, nullptr,
+           MODE == MODE_GLU ? res : nullptr);
+}
 
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = m_blk + wm * 64 + mi * 16 + gid;
-      const int col = n_blk + wn * 32 + ni * 8 + tig * 2;
-      if (col >= N) continue;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-  }
+template <int MODE>
+int launch_gemv(const void* x, const void* u, const void* q, const void* scale,
+                const void* res, void* partial, void* out, int M, int half,
+                int N, int group, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = (half + GV_KS - 1) / GV_KS;
+  dim3 grid((N + GV_BN - 1) / GV_BN, splits, (M + GV_MT - 1) / GV_MT);
+  int4_gemv_kernel<MODE><<<grid, dim3(GV_TX, GV_TY), 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(u), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<float*>(partial), M, half,
+      N, group);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_splitk_reduce(
+      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out),
+      splits, M, N, nullptr, nullptr,
+      static_cast<const __nv_bfloat16*>(res), s);
+}
+
+template <int MODE>
+int launch_mma(const void* x, const void* u, const void* q, const void* scale,
+               const void* res, void* out, int M, int half, int N, int group,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
+  int4_mma_kernel<MODE><<<grid, MM_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(u), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale),
+      static_cast<const __nv_bfloat16*>(res),
+      static_cast<__nv_bfloat16*>(out), M, half, N, group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -286,31 +316,46 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
 extern "C" int a3_int4_gemv(const void* x, const void* q, const void* scale,
                             void* partial, void* out, int M, int half, int N,
                             int group, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int splits = (half + GV_KS - 1) / GV_KS;
-  dim3 grid((N + GV_BN - 1) / GV_BN, splits, (M + GV_MT - 1) / GV_MT);
-  int4_gemv_kernel<<<grid, dim3(GV_TX, GV_TY), 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<float*>(partial), M, half,
-      N, group);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t mn = (size_t)M * N;
-  splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out),
-      splits, mn);
-  return (int)cudaGetLastError();
+  return launch_gemv<MODE_V1>(x, nullptr, q, scale, nullptr, partial, out, M,
+                              half, N, group, stream);
 }
 
-// Tensor-core tiled product for larger M. half must be a multiple of 32.
+extern "C" int a3_int4_gemv_v3(const void* x, const void* q, const void* scale,
+                               void* partial, void* out, int M, int half,
+                               int N, int group, void* stream) {
+  return launch_gemv<MODE_V3>(x, nullptr, q, scale, nullptr, partial, out, M,
+                              half, N, group, stream);
+}
+
+// res + (silu(g) * u) @ W; g, u [M, 2 * half], res and out [M, N].
+extern "C" int a3_int4_gemv_glu(const void* g, const void* u, const void* q,
+                                const void* scale, const void* res,
+                                void* partial, void* out, int M, int half,
+                                int N, int group, void* stream) {
+  return launch_gemv<MODE_GLU>(g, u, q, scale, res, partial, out, M, half, N,
+                               group, stream);
+}
+
+// Tensor-core tiled product for larger M. half must be a multiple of 32;
+// for the v3 form so must group.
 extern "C" int a3_int4_mma(const void* x, const void* q, const void* scale,
                            void* out, int M, int half, int N, int group,
                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  int4_mma_kernel<<<grid, 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M,
-      half, N, group);
-  return (int)cudaGetLastError();
+  return launch_mma<MODE_V1>(x, nullptr, q, scale, nullptr, out, M, half, N,
+                             group, stream);
+}
+
+extern "C" int a3_int4_mma_v3(const void* x, const void* q, const void* scale,
+                              void* out, int M, int half, int N, int group,
+                              void* stream) {
+  return launch_mma<MODE_V3>(x, nullptr, q, scale, nullptr, out, M, half, N,
+                             group, stream);
+}
+
+extern "C" int a3_int4_mma_glu(const void* g, const void* u, const void* q,
+                               const void* scale, const void* res, void* out,
+                               int M, int half, int N, int group,
+                               void* stream) {
+  return launch_mma<MODE_GLU>(g, u, q, scale, res, out, M, half, N, group,
+                              stream);
 }

@@ -5,7 +5,7 @@ a3vlm_tpu/main_finetune.py; same flag surface).
         --data_config data.yaml --dialog --quant --quant_bits 4 \\
         --lora_rank 16 --only_save_trainable --checkpointing
 
-The QLoRA recipe: the int4 decoder base is frozen, the rank-r adapters on
+The QLoRA recipe: the int4 (or int8) decoder base is frozen, the rank-r adapters on
 the seven decoder linears, the decoder norms, the projectors and the image
 tags train, with float32 masters under ``--precision bf16``. Data comes
 from the shared ``a3vlm_tpu.data`` datasets, loader and sampler. The flags
@@ -108,8 +108,6 @@ def _refuse_unported(args) -> None:
     unported = [
         (args.model_parallel_size > 1 or (args.num_devices or 1) > 1,
          "more than one device", "Queue 1 item 17"),
-        (args.quant and args.quant_bits == 8, "--quant_bits 8 (K6)",
-         "Queue 1 item 4"),
         (args.cache_tower_features, "--cache_tower_features",
          "Queue 1 item 14 (feature_cache)"),
         (bool(args.resume), "--resume", "Queue 1 item 16"),

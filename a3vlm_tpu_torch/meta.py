@@ -1,5 +1,5 @@
 """MetaModel for ``llama_type="llama_ens5"`` (counterpart of
-a3vlm_tpu/meta.py): parameters, optional tokenizer, int4 quantization,
+a3vlm_tpu/meta.py): parameters, optional tokenizer, quantization,
 image encoding, generation and the training loss.
 
 Without a tokenizer the model is driven with token ids
@@ -75,10 +75,21 @@ class MetaModel:
         # emitted tokens and verify rounds of the last draft_k request
         self.last_spec_stats: Optional[dict] = None
 
-    def quantize(self, bits: int = 4) -> None:
-        """Weight-only int4 of the decoder (meta.py:302); towers and
-        projectors stay dense. In place, leaf by leaf."""
-        quantize_params(self.params["llama"], bits=bits)
+    def quantize(self, bits: Optional[int] = 4,
+                 tower_bits: Optional[int] = None) -> None:
+        """Weight-only quantization (meta.py:302). ``bits`` 4 or 8
+        quantizes the decoder (None leaves it); projectors stay dense.
+        ``tower_bits=8`` makes the four vision towers' linears per-channel
+        int8, which sends them through ``w8a8_matmul`` (the activations
+        round to int8 there: opt-in). In place, leaf by leaf. The JAX
+        method's ``tp_align`` and ``row_parallel`` are for several devices
+        and have no counterpart."""
+        if bits:
+            quantize_params(self.params["llama"], bits=bits)
+        if tower_bits:
+            if tower_bits != 8:
+                raise ValueError("towers support W8A8 only: tower_bits=8")
+            ens5_mod.quantize_tower_params(self.params)
         self._generator = None
 
     @torch.inference_mode()

@@ -11,6 +11,8 @@ import torch.nn.functional as F
 from a3vlm_tpu_torch.config import ConvNeXtConfig
 from a3vlm_tpu_torch.models._init import trunc_normal
 from a3vlm_tpu_torch.ops.norms import layer_norm
+from a3vlm_tpu_torch.ops.quant_matmul import w8a8_matmul
+from a3vlm_tpu_torch.quant import QuantizedWeight
 
 
 def init_convnext_params(cfg: ConvNeXtConfig, dtype: torch.dtype,
@@ -61,12 +63,20 @@ def _conv2d(x, p, stride: int, groups: int = 1, pad: int = 0):
     return out.permute(0, 2, 3, 1) + p["bias"].to(x.dtype)
 
 
+def _lin(x, p):
+    """Pointwise linear (convnext.py:103): dense, or the W8A8 path when
+    tower-quantized; the convs (leaves named ``kernel``) stay dense."""
+    w = p["weight"]
+    out = w8a8_matmul(x, w) if isinstance(w, QuantizedWeight) else x @ w
+    return out + p["bias"]
+
+
 def _block_fwd(x, bp, eps: float):
     h = _conv2d(x, bp["dwconv"], stride=1, groups=x.shape[-1], pad=3)
     h = layer_norm(h, bp["norm"]["weight"], bp["norm"]["bias"], eps)
-    h = h @ bp["pw1"]["weight"] + bp["pw1"]["bias"]
+    h = _lin(h, bp["pw1"])
     h = F.gelu(h)
-    h = h @ bp["pw2"]["weight"] + bp["pw2"]["bias"]
+    h = _lin(h, bp["pw2"])
     return x + h * bp["gamma"]
 
 

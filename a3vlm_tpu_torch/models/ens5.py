@@ -19,7 +19,7 @@ from a3vlm_tpu_torch.models import llama, qformer, vit
 from a3vlm_tpu_torch.models._init import trunc_normal
 from a3vlm_tpu_torch.ops.norms import layer_norm
 from a3vlm_tpu_torch.ops.resize import resize
-from a3vlm_tpu_torch.quant import tree_map
+from a3vlm_tpu_torch.quant import _quantize_leaf_int8, tree_map
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -39,6 +39,37 @@ def trainable_mask(params: dict) -> dict:
 def quant_blocklist() -> tuple[str, ...]:
     """Subtrees kept dense under weight quantization (ens5.py:169)."""
     return FROZEN_PREFIXES + ("qformer_proj", "visual_proj")
+
+
+# towers whose linears take the W8A8 path when quantized (vit._lin,
+# convnext._lin); the Q-Former stays dense (ens5.py:175)
+W8A8_TOWER_KEYS = ("clip", "blip2_vision", "dinov2", "convnext")
+
+
+def quantize_tower_params(params: dict,
+                          keys: tuple[str, ...] = W8A8_TOWER_KEYS) -> dict:
+    """Per-output-channel int8 of the frozen vision towers, the serving
+    side's W8A8 mode (ens5.py:181): matmul ``weight`` leaves of two or more
+    dims outside ``norm``/``ln*`` scopes are quantized from their float32
+    values; conv kernels, norms, biases, embeddings and layer scales stay
+    dense. IN PLACE on the containers of ``params``, leaf by leaf, on the
+    device the weights are on; returns ``params``."""
+
+    def walk(node, names):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for key, x in list(items):
+            if isinstance(x, (dict, list)):
+                walk(x, names + [key] if isinstance(key, str) else names)
+            elif (key == "weight" and isinstance(x, torch.Tensor)
+                  and x.dim() >= 2
+                  and not any("norm" in n or n.startswith("ln")
+                              for n in names)):
+                node[key] = _quantize_leaf_int8(x.float())
+
+    for k in keys:
+        if k in params:
+            walk(params[k], [])
+    return params
 
 
 def init_ens5_params(cfg: Ens5Config, dtype: torch.dtype,

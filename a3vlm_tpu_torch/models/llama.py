@@ -2,8 +2,8 @@
 over a KV cache, and the cache-free training forward.
 
 Parameters are the JAX package's tree as tensors (``checkpoint/bridge.py``):
-linear weights ``[in, out]``, int4 ``QuantizedWeight`` or ``LoraWeight``,
-and ``"layers"`` a list of per-layer dicts (the decode layout). The KV cache
+linear weights ``[in, out]``, int4 or int8 ``QuantizedWeight`` or
+``LoraWeight``, and ``"layers"`` a list of per-layer dicts (the decode layout). The KV cache
 is layered, one [B, Hkv, S, D] tensor (or int8 ``QuantizedKV``) per layer
 for k and for v, written IN PLACE where the JAX package donates its
 buffers. ``impl="plain"`` runs
@@ -29,10 +29,17 @@ from a3vlm_tpu_torch.ops.decode_attention import (
     update_decode_cache,
 )
 from a3vlm_tpu_torch.ops.norms import rms_norm
-from a3vlm_tpu_torch.ops.quant_matmul import qmat
+from a3vlm_tpu_torch.ops.quant_matmul import int4_ffn_down, qmat
 from a3vlm_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
+from a3vlm_tpu_torch.quant import QuantizedWeight
 
 Params = dict
+
+# Send the FFN tail of int4 layers that run over a cache (prefill and
+# decode) through the GLU-fused kernel: silu(gate) * up and the residual
+# add folded into the w2 product (``int4_ffn_down``; llama.py:53). Off by
+# default, as in the JAX package; read at every call.
+FUSE_FFN_DOWN = False
 
 
 class KVCache:
@@ -150,7 +157,15 @@ def _block(h, lp, args: ModelArgs, freqs_cis, mask, cache_k, cache_v,
         attend_valid_static=attend_valid_static,
     )
     ffn_in = rms_norm(h, lp["ffn_norm"]["weight"], args.norm_eps)
-    return h + _ffn_sublayer(ffn_in, lp["feed_forward"], impl)
+    fw = lp["feed_forward"]
+    w2 = fw["w2"]["weight"]
+    if (FUSE_FFN_DOWN and cache_k is not None
+            and type(w2) is QuantizedWeight and w2.bits == 4):
+        # training (no cache) and LoraWeight keep the unfused ops
+        gate = qmat(ffn_in, fw["w1"]["weight"], impl)
+        up = qmat(ffn_in, fw["w3"]["weight"], impl)
+        return int4_ffn_down(gate, up, w2, h, impl)
+    return h + _ffn_sublayer(ffn_in, fw, impl)
 
 
 @functools.lru_cache(maxsize=8)

@@ -12,11 +12,13 @@ from a3vlm_tpu_torch.config import ViTConfig
 from a3vlm_tpu_torch.models._init import trunc_normal
 from a3vlm_tpu_torch.ops.attention import attention
 from a3vlm_tpu_torch.ops.norms import layer_norm
+from a3vlm_tpu_torch.ops.quant_matmul import w8a8_matmul
 from a3vlm_tpu_torch.ops.resize import resize
 from a3vlm_tpu_torch.ops.vit_attention import (
     vit_attention,
     vit_attention_eligible,
 )
+from a3vlm_tpu_torch.quant import QuantizedWeight
 
 
 def init_vit_params(cfg: ViTConfig, dtype: torch.dtype,
@@ -81,7 +83,11 @@ def interpolate_pos_embed(pos: torch.Tensor, src_grid: int,
 
 
 def _lin(x, p):
-    return x @ p["weight"] + p["bias"]
+    """Tower linear (vit.py:151): dense ``x @ w + b``, or the W8A8 path
+    when the weight was tower-quantized (``ens5.quantize_tower_params``)."""
+    w = p["weight"]
+    out = w8a8_matmul(x, w) if isinstance(w, QuantizedWeight) else x @ w
+    return out + p["bias"]
 
 
 def _act(x, kind: str):
@@ -149,5 +155,9 @@ def vit_forward(params: dict, cfg: ViTConfig, pixels: torch.Tensor,
 
 
 def _layer(stacked: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+    def pick(v):
+        if isinstance(v, dict):
+            return _layer(v, i)
+        return v.layer(i) if isinstance(v, QuantizedWeight) else v[i]
+
+    return {k: pick(v) for k, v in stacked.items()}

@@ -37,6 +37,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "a3_int4_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "a3_int4_gemv_v3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "a3_int4_mma_v3": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "a3_int4_gemv_glu": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "a3_int4_mma_glu": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "a3_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "a3_int8_mma": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "a3_int4_gemv_a8": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "a3_int4_mma_w8a8p": [_P] * 6 + [_I, _I, _I, _I, _P],
     "a3_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],
     "a3_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],

@@ -1,11 +1,11 @@
-"""Weight-only int4 quantization (counterpart of a3vlm_tpu/quant.py, int4
-only).
+"""Weight-only quantization (counterpart of a3vlm_tpu/quant.py).
 
-Group-wise symmetric int4 over the input dim, packed SPLIT-HALF: byte row
-``r`` of ``q`` holds weight row ``r`` in its low nibble and row ``r + K/2``
-in its high nibble. Inputs of 1024 rows or more are zero-padded so K blocks
-align (``int4_geometry``). The packing is byte-identical to the JAX
-package's, so the same packed weights serve both."""
+int8: symmetric, one float32 scale per output channel. int4: group-wise
+symmetric over the input dim, packed SPLIT-HALF: byte row ``r`` of ``q``
+holds weight row ``r`` in its low nibble and row ``r + K/2`` in its high
+nibble. Inputs of 1024 rows or more are zero-padded so K blocks align
+(``int4_geometry``). Values and packing are byte-identical to the JAX
+package's, so the same quantized weights serve both."""
 
 from __future__ import annotations
 
@@ -18,14 +18,16 @@ KERNEL_K_ALIGN = 1024
 
 
 class QuantizedWeight:
-    """Packed int4 weight: ``q`` [*, Kpad/2, N] int8, ``scale``
-    [*, Kpad/group, N] float32, and the true input dim ``in_dim``
-    (quant.py:32, with ``k_chunks == 1``)."""
+    """A quantized weight (quant.py:32, with ``k_chunks == 1``).
+    ``bits=4``: packed ``q`` [*, Kpad/2, N] int8, ``scale``
+    [*, Kpad/group, N] float32, and the true input dim ``in_dim``.
+    ``bits=8``: ``q`` [*, K, N] int8 and ``scale`` [*, 1, N] float32;
+    ``group`` and ``in_dim`` are 0, as in the JAX package."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor, bits: int = 4,
                  group: int = GROUP_SIZE, in_dim: int = 0):
-        if bits != 4:
-            raise NotImplementedError(f"only int4 is ported, got bits={bits}")
+        if bits not in (4, 8):
+            raise ValueError(f"bits={bits}: want 4 or 8")
         self.q = q
         self.scale = scale
         self.bits = bits
@@ -71,6 +73,20 @@ def int4_geometry(in_dim: int) -> tuple[int, int]:
     return pad_in, g
 
 
+def _quantize_leaf_int8(w: torch.Tensor) -> QuantizedWeight:
+    """Per-output-channel int8 of ``w`` [*, in, out] in its own dtype
+    (quant.py:106): scale [*, 1, out] = max(absmax over in, 1e-8) / 127,
+    round half to even, clip to [-127, 127]. The divisor is a tensor: on a
+    CUDA tensor a Python divisor becomes a product with its rounded
+    reciprocal, which is an ulp off the quotient the JAX package takes."""
+    scale = w.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8)
+    scale = scale / torch.full_like(scale, 127.0)
+    q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    return QuantizedWeight(q.contiguous(),
+                           scale.to(torch.float32).contiguous(), bits=8,
+                           group=0, in_dim=0)
+
+
 def _quantize_leaf_int4(w: torch.Tensor) -> QuantizedWeight:
     """Quantize ``w`` [*, in, out] in its own dtype, as the JAX package
     does on the host (quant.py:151): per-group absmax / 7, round half to
@@ -83,7 +99,8 @@ def _quantize_leaf_int4(w: torch.Tensor) -> QuantizedWeight:
         w = torch.cat([w, w.new_zeros((*lead, pad_in - in_dim, out_dim))],
                       dim=-2)
     wg = w.reshape(*lead, pad_in // g, g, out_dim)
-    scale = wg.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8) / 7.0
+    scale = wg.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8)
+    scale = scale / torch.full_like(scale, 7.0)  # a tensor: see int8 above
     q = torch.round(wg / scale).clamp(-7, 7).to(torch.int8)
     q = q.reshape(*lead, pad_in, out_dim)
     scale = scale.reshape(*lead, pad_in // g, out_dim).to(torch.float32)
@@ -105,6 +122,8 @@ def unpack_int4(packed: torch.Tensor):
 def _dequantize_leaf(leaf: QuantizedWeight,
                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Dense [*, in_dim, N] weight (quant.py:222)."""
+    if leaf.bits == 8:
+        return (leaf.q.float() * leaf.scale).to(dtype)
     lo, hi = unpack_int4(leaf.q)
     q = torch.cat([lo, hi], dim=-2)
     *lead, pad_in, out_dim = q.shape
@@ -127,13 +146,15 @@ def _keep_dense(names: Sequence[str], leaf_name) -> bool:
 def quantize_params(params: dict, bits: int = 4,
                     blocklist: Sequence[str] = ()) -> dict:
     """Quantize linear ``weight`` leaves outside blocklisted top-level
-    subtrees (quant.py:260): embeddings, norms and biases stay dense.
+    subtrees (quant.py:260) to int4 or int8: embeddings, norms and biases
+    stay dense, and under ``bits=4`` a weight with an odd input dim becomes
+    int8 (it cannot be packed two rows to a byte).
 
     Works IN PLACE on the containers of ``params`` and returns it: each
     dense leaf is replaced, and so can be freed, as soon as its packed form
     exists, so a model never holds its dense and packed decoder at once."""
-    if bits != 4:
-        raise NotImplementedError("only int4 quantization is ported")
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}: want 4 or 8")
 
     def walk(node, names):
         items = node.items() if isinstance(node, dict) else enumerate(node)
@@ -144,7 +165,10 @@ def quantize_params(params: dict, bits: int = 4,
             elif isinstance(x, torch.Tensor):
                 leaf = key if isinstance(key, str) else None
                 if x.dim() >= 2 and not _keep_dense(path[:-1], leaf):
-                    node[key] = _quantize_leaf_int4(x)
+                    if bits == 8 or x.shape[-2] % 2:
+                        node[key] = _quantize_leaf_int8(x)
+                    else:
+                        node[key] = _quantize_leaf_int4(x)
 
     for key, sub in params.items():
         if key not in blocklist and isinstance(sub, (dict, list)):

@@ -19,10 +19,11 @@ GROUPS = ("attention", "feed_forward")
 
 def _weight_geometry(w) -> tuple[int, int]:
     """(in, out) of a base weight: a packed int4 base's adapter spans its
-    original input dim and the output dim of its packed ints
-    (lora.py:56-68)."""
+    original input dim and the output dim of its packed ints; an int8
+    base has the dense weight's shape (lora.py:56-68)."""
     if isinstance(w, QuantizedWeight):
-        return w.in_dim, w.q.shape[-1]
+        in_dim = w.in_dim if w.bits == 4 else w.q.shape[-2]
+        return in_dim, w.q.shape[-1]
     return w.shape[-2], w.shape[-1]
 
 

@@ -39,16 +39,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain path on a copy of the same cache, and the chunked prefill's logits
    against the one-shot prefill's.
 
+7. quantized modes (modes (i)-(n) run after phase 6 on phase 4's weights,
+   mode (h) last on a model of its own): one request as in phase 6 through
+   ``MetaModel.generate_tokens`` per mode: (h) ``quantize(bits=8)``, the
+   int8 kernel on every decoder linear and the head; (i) ``W4A8_DECODE``,
+   the W4A8 kernel on every decode step; (j) ``W8A8_PREFILL``, the W8A8
+   kernel in prefill; (k) both with ``draft_k = 8``, verify rounds of 8
+   rows through the W4A8 and the verify kernels; (l) ``FUSE_FFN_DOWN``, the
+   GLU-fused kernel once per layer and forward; (m) the v3 int4 kernel in
+   place of the v1 kernel everywhere; (n) ``quantize(tower_bits=8)`` on a
+   batch of 4, the towers through ``w8a8_matmul``. Each mode's kernel must
+   have launched exactly as often as its forwards say, the kernel it
+   replaces not at all; then the prefill and one decode (or verify) step of
+   the kernel path are held against the plain path of the same mode.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 3.
+
 The line before the last is the kernel table as JSON (``launches`` sums
-the serving, latency and training runs, ``launches_by_path`` splits them;
-``bound_ms`` is the larger of the bytes the call must move over 3.35 TB/s
-and its operations over 989 TFLOP/s, ``library_ms`` one PyTorch library
-call on the same inputs, timed here and used nowhere in the port); the
-last line is ``{"ok": true, "device": {...}}``.
+the serving, latency, training and quantized-mode runs,
+``launches_by_path`` splits them; ``bound_ms`` is the larger of the bytes
+the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
+over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
+PyTorch library call on the same inputs, timed here and used nowhere in
+the port); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import math
 import subprocess
@@ -85,13 +104,32 @@ from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_dq_plain,
 )
+from a3vlm_tpu_torch.ops import quant_matmul as qmm
 from a3vlm_tpu_torch.ops.quant_matmul import (
     int4_matmul,
     int4_matmul_2d,
+    int4_matmul_2d_glu,
+    int4_matmul_2d_glu_plain,
     int4_matmul_2d_plain,
+    int4_matmul_2d_v3,
+    int4_matmul_2d_v3_plain,
+    int4_matmul_2d_w4a8,
+    int4_matmul_2d_w4a8_plain,
+    int4_matmul_2d_w8a8p,
+    int4_matmul_2d_w8a8p_plain,
+    int8_matmul_2d,
+    int8_matmul_2d_plain,
+    quantize_act_int8,
+    requantize_w8,
+    w8a8p_factors,
 )
 from a3vlm_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
-from a3vlm_tpu_torch.quant import _dequantize_leaf, _quantize_leaf_int4
+from a3vlm_tpu_torch.quant import (
+    QuantizedWeight,
+    _dequantize_leaf,
+    _quantize_leaf_int4,
+    _quantize_leaf_int8,
+)
 
 # Kernel against plain version, both bf16 out of f32 accumulation: each side
 # rounds once to bf16 (2^-8 relative each, so 2^-7 between them) and the
@@ -124,10 +162,22 @@ TRAIN_GRAD_COS_MIN = 0.99
 # by the 128-term dot products), so a layer still differs by about one bf16
 # rounding of its output, as with the bf16 cache.
 
+# The A8 modes against the exact int4 path, one matmul, relative Frobenius
+# error. The JAX package's tests hold its emulations to 1% (W4A8: the
+# activations round to 8 bits per row) and 2% (W8A8 prefill: each weight
+# also moves by at most smax / 31.75) at K = 2048. A row's absmax, and with
+# it the rounding step, grows with K (about 0.9% at K = 5120 for Gaussian
+# rows, before the bf16 rounding of both outputs), so twice those here: a
+# guard against a wrong kernel, not an accuracy claim.
+W4A8_REL_ENVELOPE = 0.02
+W8A8P_REL_ENVELOPE = 0.04
+
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate and dense bf16 tensor-core rate, for ``bound_ms``.
+# rate, dense bf16 tensor-core rate and dense int8 tensor-core rate, for
+# ``bound_ms``.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
 
 KERNELS = {
     "int4_matmul": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
@@ -162,6 +212,20 @@ KERNELS = {
     "verify_attention_q8": ("a3vlm_tpu_torch/csrc/verify_attention.cu",
                             "a3vlm_tpu/ops/decode_attention.py:731",
                             verify_attention_quant),
+    "int8_matmul": ("a3vlm_tpu_torch/csrc/int8_matmul.cu",
+                    "a3vlm_tpu/ops/quant_matmul.py:993", int8_matmul_2d),
+    "int4_matmul_w4a8": ("a3vlm_tpu_torch/csrc/int4_matmul_a8.cu",
+                         "a3vlm_tpu/ops/quant_matmul.py:194",
+                         int4_matmul_2d_w4a8),
+    "int4_matmul_w8a8p": ("a3vlm_tpu_torch/csrc/int4_matmul_a8.cu",
+                          "a3vlm_tpu/ops/quant_matmul.py:238",
+                          int4_matmul_2d_w8a8p),
+    "int4_matmul_glu": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
+                        "a3vlm_tpu/ops/quant_matmul.py:105",
+                        int4_matmul_2d_glu),
+    "int4_matmul_v3": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
+                       "a3vlm_tpu/ops/quant_matmul.py:147",
+                       int4_matmul_2d_v3),
 }
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
@@ -171,6 +235,10 @@ LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                    "verify_attention", "verify_attention_q8")
 TRAIN_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "vit_attention")
+QUANT_KERNELS = ("int8_matmul", "int4_matmul_w4a8", "int4_matmul_w8a8p",
+                 "int4_matmul_glu", "int4_matmul_v3", "int4_matmul",
+                 "flash_attention", "decode_attention", "verify_attention",
+                 "vit_attention")
 
 
 def device_line() -> str:
@@ -228,13 +296,14 @@ def nbytes(*tensors) -> int:
 
 
 def record(results, name, case, err, ms, plain, bytes_moved, flops,
-           library_ms) -> None:
+           library_ms, peak_ops: float = PEAK_FLOPS_PER_S) -> None:
     """One phase-3 row. ``bound_ms``: the larger of ``bytes_moved`` (each
     input read once, each output written once; of a cache only the rows
     this call's data makes visible) over the card's memory rate and
-    ``flops`` over its dense bf16 rate."""
+    ``flops`` over ``peak_ops``, the card's dense rate for the operands'
+    type (bf16 unless given)."""
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS_PER_S * 1e3
+    by_ops = flops / peak_ops * 1e3
     results.append({
         "name": name, "case": case, "err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(by_bytes, by_ops),
@@ -308,6 +377,144 @@ def check_int4(gen, results):
         record(results, "int4_matmul", f"M={M} K={K}(pad {kpad}) N={N}", err,
                ms, plain, nbytes(x2, qw.q, qw.scale, got), 2 * M * kpad * N,
                library)
+
+# Decoder linears of the 13B model: (K, N) of wq/wk/wv/wo, w1/w3, w2, head.
+LINEAR_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000))
+GEMV_MS = (1, 4, 8, 32)        # decode batches and verify spans
+TILED_MS = (1487, 4 * 1487)    # prefill of one request and of four
+
+
+def random_weight(K, N, gen):
+    w = torch.rand(K, N, generator=gen, device="cuda") * 2 - 1
+    return (w / K ** 0.5).to(torch.bfloat16)
+
+
+def padded(x, qw):
+    kpad = qw.q.shape[0] * 2
+    return F.pad(x, (0, kpad - x.shape[1])).contiguous()
+
+
+def reps_for(M: int) -> int:
+    return 10 if M <= 32 else 3
+
+
+def check_int8(gen, results):
+    """K6 at every decoder linear, K unpadded (13824 for w2)."""
+    for K, N in LINEAR_SHAPES:
+        qw = _quantize_leaf_int8(random_weight(K, N, gen))
+        for M in GEMV_MS + TILED_MS:
+            x = randn(M, K, gen=gen)
+            got = int8_matmul_2d(x, qw.q, qw.scale)
+            err = compare(f"int8 M={M} K={K} N={N}", got,
+                          int8_matmul_2d_plain(x, qw.q, qw.scale))
+            reps = reps_for(M)
+            record(results, "int8_matmul", f"M={M} K={K} N={N}", err,
+                   timed_ms(lambda: int8_matmul_2d(x, qw.q, qw.scale), reps),
+                   timed_ms(lambda: int8_matmul_2d_plain(x, qw.q, qw.scale),
+                            reps=1),
+                   nbytes(x, qw.q, qw.scale, got), 2 * M * K * N,
+                   timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
+                            reps))
+
+
+def check_int4_variants(gen, results):
+    """K1v3, K7 and K8 at the decoder linears, on one packed weight per
+    shape. K7 and K8 are also held against the exact int4 math inside
+    the JAX package's envelopes; K8 must equal its plain version bit for
+    bit."""
+    for K, N in LINEAR_SHAPES:
+        qw = _quantize_leaf_int4(random_weight(K, N, gen))
+        kpad = qw.q.shape[0] * 2
+        wargs = (qw.q, qw.scale, qw.group)
+        shape = f"K={K}(pad {kpad}) N={N}"
+        for M in GEMV_MS + TILED_MS:
+            x = padded(randn(M, K, gen=gen), qw)
+            reps = reps_for(M)
+            flops = 2 * M * kpad * N
+
+            def dense():
+                return x[:, :K] @ _dequantize_leaf(qw, torch.bfloat16)
+
+            library = timed_ms(dense, reps)
+            exact = int4_matmul_2d_plain(x, *wargs).float()
+
+            got = int4_matmul_2d_v3(x, *wargs)
+            err = compare(f"int4 v3 M={M} {shape}", got,
+                          int4_matmul_2d_v3_plain(x, *wargs))
+            record(results, "int4_matmul_v3", f"M={M} {shape}", err,
+                   timed_ms(lambda: int4_matmul_2d_v3(x, *wargs), reps),
+                   timed_ms(lambda: int4_matmul_2d_v3_plain(x, *wargs),
+                            reps=1),
+                   nbytes(x, qw.q, qw.scale, got), flops, library)
+
+            if M <= 32:
+                got = int4_matmul_2d_w4a8(x, *wargs)
+                err = compare(f"w4a8 M={M} {shape}", got,
+                              int4_matmul_2d_w4a8_plain(x, *wargs))
+                rel = rel_err(got, exact)
+                if not rel < W4A8_REL_ENVELOPE:
+                    FAILURES.append(f"w4a8 M={M} {shape}: rel err {rel:.3e} "
+                                    f"against the exact int4 product")
+                record(results, "int4_matmul_w4a8",
+                       f"M={M} {shape} rel_vs_exact={rel:.2e}", err,
+                       timed_ms(lambda: int4_matmul_2d_w4a8(x, *wargs), reps),
+                       timed_ms(lambda: int4_matmul_2d_w4a8_plain(x, *wargs),
+                                reps=1),
+                       nbytes(x, qw.q, qw.scale, got), flops, library,
+                       peak_ops=PEAK_INT8_OPS_PER_S)
+            else:
+                got = int4_matmul_2d_w8a8p(x, *wargs)
+                want = int4_matmul_2d_w8a8p_plain(x, *wargs)
+                err = float((got.float() - want.float()).abs().max())
+                if not torch.equal(got, want):
+                    FAILURES.append(
+                        f"w8a8p M={M} {shape}: kernel differs from its plain "
+                        f"version in {int((got != want).sum())} of "
+                        f"{got.numel()} elements, max {err:.4g}")
+                rel = rel_err(got, exact)
+                if not rel < W8A8P_REL_ENVELOPE:
+                    FAILURES.append(f"w8a8p M={M} {shape}: rel err {rel:.3e} "
+                                    f"against the exact int4 product")
+                # library yardstick: the same math over a weight that was
+                # requantized beforehand, the integer product one call
+                ratio, cs = w8a8p_factors(qw.scale)
+                w8 = requantize_w8(qw.q, ratio, qw.group)
+
+                def int_mm():
+                    xq, xs = quantize_act_int8(x)
+                    return (torch._int_mm(xq, w8).float() * xs * cs).to(
+                        torch.bfloat16)
+
+                record(results, "int4_matmul_w8a8p",
+                       f"M={M} {shape} rel_vs_exact={rel:.2e}", err,
+                       timed_ms(lambda: int4_matmul_2d_w8a8p(x, *wargs), reps),
+                       timed_ms(lambda: int4_matmul_2d_w8a8p_plain(x, *wargs),
+                                reps=1),
+                       nbytes(x, qw.q, qw.scale, got), flops,
+                       timed_ms(int_mm, reps), peak_ops=PEAK_INT8_OPS_PER_S)
+                del w8
+
+
+def check_glu(gen, results):
+    """K11 at the FFN tail's shape (w2), and at the square one."""
+    for K, N in ((13824, 5120), (5120, 5120)):
+        qw = _quantize_leaf_int4(random_weight(K, N, gen))
+        kpad = qw.q.shape[0] * 2
+        for M in GEMV_MS + TILED_MS:
+            g = padded(randn(M, K, gen=gen), qw)
+            u = padded(randn(M, K, gen=gen), qw)
+            res = randn(M, N, gen=gen)
+            args = (g, u, qw.q, qw.scale, res, qw.group)
+            got = int4_matmul_2d_glu(*args)
+            case = f"M={M} K={K}(pad {kpad}) N={N}"
+            err = compare(f"glu {case}", got, int4_matmul_2d_glu_plain(*args))
+            reps = reps_for(M)
+            record(results, "int4_matmul_glu", case, err,
+                   timed_ms(lambda: int4_matmul_2d_glu(*args), reps),
+                   timed_ms(lambda: int4_matmul_2d_glu_plain(*args), reps=1),
+                   nbytes(g, u, qw.q, qw.scale, res, got), 2 * M * kpad * N,
+                   timed_ms(lambda: res + (F.silu(g[:, :K]) * u[:, :K])
+                            @ _dequantize_leaf(qw, torch.bfloat16), reps))
 
 
 def check_flash(gen, results):
@@ -579,12 +786,16 @@ def reset_launches() -> None:
     flash_attention_bhsd.lse_launches = 0
 
 
-def require_launched(names, path: str) -> dict:
-    launches = {n: KERNELS[n][2].launches for n in names}
-    missing = [n for n, c in launches.items() if c == 0]
+def require_counts(launches: dict, names, path: str) -> None:
+    missing = [n for n in names if launches.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}")
+
+
+def require_launched(names, path: str) -> dict:
+    launches = {n: KERNELS[n][2].launches for n in names}
+    require_counts(launches, names, path)
     return launches
 
 
@@ -891,6 +1102,263 @@ def run_latency_path(card: str, model) -> dict:
     return launches
 
 
+class _QuantRequest:
+    """The single request of phase 7 (as phase 6's) and what every mode
+    shares: launch accounting per request, and the kernel-against-plain
+    check of one prefill and one decode or verify step."""
+
+    N_PROMPT, N_NEW = 45, 32
+
+    def __init__(self, card: str, model):
+        from a3vlm_tpu_torch.models import ens5
+
+        self.card, self.model = card, model
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
+        std = torch.tensor(ens5.CLIP_STD, device="cuda")
+        pixels = torch.rand(1, 448, 448, 3, generator=gen, device="cuda")
+        self.image = ((pixels - mean) / std).to(torch.bfloat16)
+        self.prompt = [[1] + torch.randint(
+            3, 32000, (self.N_PROMPT - 1,), generator=gen,
+            device="cuda").tolist()]
+        self.draft = torch.randint(3, 32000, (8,), generator=gen,
+                                   device="cuda")
+        self.totals = {n: 0 for n in KERNELS}
+
+    def run(self, label: str, expect: dict, images=None, prompts=None, **kw):
+        """One request. ``expect`` maps kernel name -> a function of
+        (forwards at prefill, decode steps or verify rounds) giving the
+        exact launch count wanted; kernels mapped to 0 must not launch."""
+        model = self.model
+        before = {n: KERNELS[n][2].launches for n in KERNELS}
+        torch.cuda.reset_peak_memory_stats()
+        outs = model.generate_tokens(
+            prompts or self.prompt,
+            images=self.image if images is None else images,
+            max_gen_len=self.N_NEW, temperature=0.0, **kw)
+        torch.cuda.synchronize()
+        st = model.last_stats
+        delta = {n: KERNELS[n][2].launches - before[n] for n in KERNELS}
+        for n, c in delta.items():
+            self.totals[n] += c
+        delta = {n: c for n, c in delta.items() if c}
+        steps = st["decode_steps"]
+        print(f"[{self.card}] quant {label}: towers {st['towers_ms']:.1f} "
+              f"ms, prefill {st['prefill_ms']:.1f} ms, decode "
+              f"{st['decode_ms']:.1f} ms over {steps} steps "
+              f"({st['decode_ms'] / max(steps, 1):.2f} ms each); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {delta}")
+        for out in outs:
+            if not out or any(not (0 <= t < 32000) for t in out):
+                raise AssertionError(f"{label}: malformed ids {out}")
+        for name, want in expect.items():
+            want = want(steps) if callable(want) else want
+            if delta.get(name, 0) != want:
+                raise AssertionError(
+                    f"{label}: {name} launched {delta.get(name, 0)} times, "
+                    f"want {want} ({steps} steps)")
+        return outs[0]
+
+    def report_ids(self, label: str, ids, ref, what: str) -> None:
+        agree = sum(a == b for a, b in zip(ids, ref))
+        print(f"[{self.card}] quant {label}: {agree} of {len(ref)} ids "
+              f"agree with {what}")
+
+    def forwards(self, label: str, verify: bool = False):
+        """Prefill and one decode step (``verify``: a verify step of 8
+        rows) of the kernel path against the plain path of the mode that is
+        switched on, same weights, the step on copies of one cache.
+        Returns the kernel path's prefill logits."""
+        from a3vlm_tpu_torch.lookup_decode import _verify_step
+        from a3vlm_tpu_torch.models import llama
+        from a3vlm_tpu_torch.models.llama import KVCache
+
+        model, args = self.model, self.model.args
+        lp = model.params["llama"]
+        tokens = torch.tensor(self.prompt, device="cuda")
+        S = self.N_PROMPT + model.image_words
+        with torch.inference_mode():
+            img = model.encode_images(self.image)
+            got = {}
+            for impl in ("auto", "plain"):
+                cache = KVCache.create(args, 1, S + 16, dtype=torch.bfloat16,
+                                       device="cuda")
+                got[impl], cache, _ = llama.prefill(lp, args, cache, tokens,
+                                                    img, impl=impl)
+                if impl == "plain":
+                    del cache
+                else:
+                    kept = cache
+            self._hold(f"{label} prefill", got["auto"], got["plain"])
+            if verify:
+                def step(c, impl):
+                    return _verify_step(lp, args, c, self.draft, S, impl)[0]
+            else:
+                def step(c, impl):
+                    return llama.decode_step(lp, args, c, self.draft[None, :1],
+                                             S, impl)[0]
+            self._hold(f"{label} {'verify' if verify else 'decode'} step",
+                       step(clone_cache(kept), "auto"),
+                       step(clone_cache(kept), "plain"))
+        return got["auto"]
+
+    def _hold(self, label: str, got, want) -> None:
+        rel = rel_err(got, want)
+        print(f"[{self.card}] quant {label}: logits rel err kernel vs plain "
+              f"{rel:.3e} (limit {LOGITS_REL_TOL})")
+        if not (torch.isfinite(got).all() and rel <= LOGITS_REL_TOL):
+            raise AssertionError(f"{label}: logits rel err {rel}")
+
+
+# launches of one request: a forward runs 7 linears in each of the 40
+# layers and the head; a vanilla request is 1 prefill forward and ``steps``
+# decode forwards
+PER_FORWARD = 40 * 7 + 1
+
+
+def run_quant_modes(card: str, model) -> dict:
+    """Phase 7, modes (i)-(n), on phase 4's int4 model. Returns the launch
+    counts summed over the modes' requests (the checks are not counted)."""
+    from a3vlm_tpu_torch.models import ens5, llama
+
+    req = _QuantRequest(card, model)
+    L = model.args.n_layers
+    reset_launches()
+    # the exact int4 path: the ids and prefill logits the inexact modes are
+    # printed against
+    ref = req.run("(ref) exact int4", {
+        "int4_matmul": lambda s: PER_FORWARD * (1 + s),
+        "decode_attention": lambda s: L * s})
+    exact_logits = req.forwards("(ref) exact int4")
+
+    def against_exact(label, logits, ids):
+        print(f"[{card}] quant {label}: prefill logits rel err against the "
+              f"exact int4 path {rel_err(logits, exact_logits):.3e}")
+        req.report_ids(label, ids, ref, "the exact int4 run's")
+
+    # (i) W4A8 decode: every M <= 32 matmul, the prefill's head (one row)
+    # among them, through the W4A8 kernel; the prefill's linears stay
+    qmm.W4A8_DECODE = True
+    try:
+        ids = req.run("(i) W4A8 decode", {
+            "int4_matmul_w4a8": lambda s: 1 + PER_FORWARD * s,
+            "int4_matmul": PER_FORWARD - 1, "int4_matmul_w8a8p": 0})
+        against_exact("(i)", req.forwards("(i) W4A8"), ids)
+        # (k) both A8 modes and lookup: the whole prompt prefilled through
+        # the W8A8 kernel, rounds of 8 rows through the W4A8 kernel and K5
+        qmm.W8A8_PREFILL = True
+        ids = req.run("(k) W4A8 + W8A8P + draft_k=8", {
+            "int4_matmul_w8a8p": PER_FORWARD - 1,
+            "int4_matmul_w4a8": lambda s: 1 + PER_FORWARD * s,
+            "verify_attention": lambda s: L * s,
+            "int4_matmul": 0}, draft_k=8)
+        print(f"[{card}] quant (k) last_spec_stats {model.last_spec_stats}")
+        against_exact("(k)", req.forwards("(k) W4A8 + W8A8P", verify=True),
+                      ids)
+    finally:
+        qmm.W4A8_DECODE = False
+    # (j) W8A8 prefill alone: the prefill's 280 linears (1487 rows); its
+    # head and every decode step stay on the exact GEMV
+    try:
+        ids = req.run("(j) W8A8 prefill", {
+            "int4_matmul_w8a8p": PER_FORWARD - 1,
+            "int4_matmul": lambda s: 1 + PER_FORWARD * s,
+            "int4_matmul_w4a8": 0})
+        against_exact("(j)", req.forwards("(j) W8A8P"), ids)
+    finally:
+        qmm.W8A8_PREFILL = False
+    # (l) the fused FFN tail: w2 of every layer and forward, prefill too
+    llama.FUSE_FFN_DOWN = True
+    try:
+        ids = req.run("(l) FUSE_FFN_DOWN", {
+            "int4_matmul_glu": lambda s: L * (1 + s),
+            "int4_matmul": lambda s: (PER_FORWARD - L) * (1 + s)})
+        against_exact("(l)", req.forwards("(l) FUSE_FFN_DOWN"), ids)
+    finally:
+        llama.FUSE_FFN_DOWN = False
+    # (m) the v3 kernel in place of v1, process-wide
+    saved = qmm._AUTO_VARIANT
+    qmm._AUTO_VARIANT = "v3"
+    try:
+        ids = req.run("(m) variant v3", {
+            "int4_matmul_v3": lambda s: PER_FORWARD * (1 + s),
+            "int4_matmul": 0})
+        against_exact("(m)", req.forwards("(m) v3"), ids)
+    finally:
+        qmm._AUTO_VARIANT = saved
+    # (n) int8 towers on a batch of 4 (20 crops). The towers' containers
+    # are copied first: quantization replaces leaves in place, and the
+    # training phase wants the dense towers back.
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
+    std = torch.tensor(ens5.CLIP_STD, device="cuda")
+    pixels = torch.rand(4, 448, 448, 3, generator=gen, device="cuda")
+    images = ((pixels - mean) / std).to(torch.bfloat16)
+    prompts = [[1] + torch.randint(3, 32000, (req.N_PROMPT - 1,),
+                                   generator=gen, device="cuda").tolist()
+               for _ in range(4)]
+    from a3vlm_tpu_torch.quant import tree_map
+
+    dense_towers = {k: model.params[k] for k in ens5.W8A8_TOWER_KEYS}
+    with torch.inference_mode():
+        dense_img = model.encode_images(images)
+    dense_ids = req.run("(n0) dense towers, batch 4", {}, images=images,
+                        prompts=prompts)
+    try:
+        for k in dense_towers:
+            model.params[k] = tree_map(lambda t: t, dense_towers[k])
+        model.quantize(bits=None, tower_bits=8)
+        n_q = []
+        tree_map(lambda t: n_q.append(isinstance(t, QuantizedWeight)),
+                 {k: model.params[k] for k in dense_towers})
+        if sum(n_q) < 4 * 3 + 2:
+            raise AssertionError(f"(n): only {sum(n_q)} tower leaves are int8")
+        ids = req.run("(n) tower_bits=8, batch 4", {
+            "int4_matmul": lambda s: PER_FORWARD * (1 + s)},
+            images=images, prompts=prompts)
+        with torch.inference_mode():
+            q_img = model.encode_images(images)
+        rel = rel_err(q_img, dense_img)
+        print(f"[{card}] quant (n): {sum(n_q)} tower leaves int8; image "
+              f"tokens rel err against the dense towers {rel:.3e}")
+        if not (torch.isfinite(q_img).all() and 0 < rel < 0.08):
+            raise AssertionError(f"(n): image tokens rel err {rel}")
+        req.report_ids("(n)", ids, dense_ids, "the dense-tower run's")
+    finally:
+        for k, v in dense_towers.items():
+            model.params[k] = v
+        model._generator = None
+    return req.totals
+
+
+def run_int8_mode(card: str) -> dict:
+    """Phase 7, mode (h): a model of its own with the decoder quantized to
+    int8 leaf by leaf. Returns the launch counts of its request."""
+    from a3vlm_tpu_torch.config import Ens5Config
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    t0 = time.perf_counter()
+    model = MetaModel(
+        "llama_ens5", with_visual=True, max_seq_len=2048,
+        dtype=torch.bfloat16, vocab_size=32000, model_cfg=Ens5Config(),
+        seed=0, device="cuda",
+    )
+    model.quantize(bits=8)
+    torch.cuda.synchronize()
+    print(f"[{card}] model built (random weights, int8 decoder) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    req = _QuantRequest(card, model)
+    L = model.args.n_layers
+    model.generate_tokens(req.prompt, images=req.image, max_gen_len=2)
+    reset_launches()
+    req.run("(h) int8 decoder", {
+        "int8_matmul": lambda s: PER_FORWARD * (1 + s),
+        "decode_attention": lambda s: L * s, "int4_matmul": 0})
+    req.forwards("(h) int8")
+    return req.totals
+
+
 def run_training(card: str, model) -> dict:
     """Phase 5 on phase 4's model; returns the training kernels' launch
     counts from the 4 train steps."""
@@ -990,7 +1458,11 @@ def run_training(card: str, model) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 3 (no result lines)")
+    opts = parser.parse_args(argv)
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke runs on the GPU only")
@@ -1013,6 +1485,9 @@ def main() -> int:
     results = []
     with torch.inference_mode():
         check_int4(gen, results)
+        check_int8(gen, results)
+        check_int4_variants(gen, results)
+        check_glu(gen, results)
         check_flash(gen, results)
         check_flash_bwd(gen, results)
         check_decode(gen, results)
@@ -1025,19 +1500,30 @@ def main() -> int:
               f"({r['bound_by']}) library {r['library_ms']:.4f} ms")
     if FAILURES:
         raise AssertionError("kernel checks failed:\n" + "\n".join(FAILURES))
+    if opts.kernels_only:
+        return 0
 
-    # 4. serving path, 6. latency path (on phase 4's weights, which phase 5
-    # recasts), 5. training path
+    # 4. serving path, 6. latency path and 7. the quantized modes over the
+    # int4 decoder (on phase 4's weights, which phase 5 recasts), 5.
+    # training path, then 7. mode (h) on an int8 model of its own
     model, serve = run_main_path(card)
     latency = run_latency_path(card, model)
+    quant = run_quant_modes(card, model)
     train = run_training(card, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, count in run_int8_mode(card).items():
+        quant[name] += count
+    require_counts(quant, QUANT_KERNELS, "quantized-mode")
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in results if r["name"] == name]
         by_path = {"serve": serve.get(name, 0),
                    "latency": latency.get(name, 0),
-                   "train": train.get(name, 0)}
+                   "train": train.get(name, 0),
+                   "quant": quant.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

@@ -29,12 +29,13 @@ from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
 )
+from a3vlm_tpu_torch.ops import quant_matmul as qmm
 from a3vlm_tpu_torch.ops.quant_matmul import int4_matmul, int4_matmul_2d
 from a3vlm_tpu_torch.ops.vit_attention import (
     vit_attention,
     vit_attention_plain,
 )
-from a3vlm_tpu_torch.quant import _quantize_leaf_int4
+from a3vlm_tpu_torch.quant import _quantize_leaf_int4, _quantize_leaf_int8
 
 pytestmark = pytest.mark.cuda
 RTOL = 2.0 ** -6
@@ -253,3 +254,100 @@ def test_flash_attention_function_grads_cuda(gen):
         bound = 4 * (RTOL * r.abs() + 1e-3 * r.abs().max())
         assert bool(((g - r).abs() <= bound).all()), float(
             (g - r).abs().max())
+
+
+# The quantized-matmul kernels over the edge shapes: M on both sides of the
+# GEMV limit (32) and of the W8A8 prefill threshold (256), an N that is no
+# multiple of a tile (16 * 75 = 1200), K 13824 unpadded for the int8
+# kernel and padded to 14336 for the int4 ones.
+_EDGE_MS = [1, 32, 33, 255, 256, 257]
+_EDGE_KN = [(5120, 1200), (13824, 5120)]
+
+
+def _weight(K, N, gen):
+    w = (torch.rand(K, N, generator=gen, device="cuda") * 2 - 1) / K ** 0.5
+    return w.to(torch.bfloat16)
+
+
+def _padded(x, qw):
+    kpad = qw.q.shape[0] * 2
+    return torch.nn.functional.pad(x, (0, kpad - x.shape[1])).contiguous()
+
+
+@pytest.mark.parametrize("M", _EDGE_MS)
+@pytest.mark.parametrize("K,N", _EDGE_KN)
+def test_int8_matmul_cuda(gen, M, K, N):
+    qw = _quantize_leaf_int8(_weight(K, N, gen))
+    x = _randn(M, K, gen=gen)
+    before = qmm.int8_matmul_2d.launches
+    got = qmm.int8_matmul(x, qw)
+    assert qmm.int8_matmul_2d.launches == before + 1
+    _check(got, qmm.int8_matmul(x, qw, impl="plain"))
+
+
+@pytest.mark.parametrize("M", _EDGE_MS)
+@pytest.mark.parametrize("K,N", _EDGE_KN)
+def test_int4_v3_cuda(gen, M, K, N):
+    qw = _quantize_leaf_int4(_weight(K, N, gen))
+    x = _randn(M, K, gen=gen)
+    before = (qmm.int4_matmul_2d_v3.launches, int4_matmul_2d.launches)
+    got = int4_matmul(x, qw, variant="v3")
+    assert (qmm.int4_matmul_2d_v3.launches, int4_matmul_2d.launches) == (
+        before[0] + 1, before[1])
+    _check(got, int4_matmul(x, qw, impl="plain", variant="v3"))
+
+
+@pytest.mark.parametrize("M", _EDGE_MS)
+@pytest.mark.parametrize("K,N", _EDGE_KN)
+def test_int4_glu_cuda(gen, M, K, N):
+    qw = _quantize_leaf_int4(_weight(K, N, gen))
+    g, u = _randn(M, K, gen=gen), _randn(M, K, gen=gen)
+    res = _randn(M, N, gen=gen)
+    before = qmm.int4_matmul_2d_glu.launches
+    got = qmm.int4_ffn_down(g, u, qw, res)
+    assert qmm.int4_matmul_2d_glu.launches == before + 1
+    _check(got, qmm.int4_ffn_down(g, u, qw, res, impl="plain"))
+
+
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("K,N", _EDGE_KN)
+def test_int4_w4a8_cuda(gen, M, K, N):
+    qw = _quantize_leaf_int4(_weight(K, N, gen))
+    x = _padded(_randn(M, K, gen=gen), qw)
+    before = qmm.int4_matmul_2d_w4a8.launches
+    got = qmm.int4_matmul_2d_w4a8(x, qw.q, qw.scale, qw.group)
+    assert qmm.int4_matmul_2d_w4a8.launches == before + 1
+    _check(got, qmm.int4_matmul_2d_w4a8_plain(x, qw.q, qw.scale, qw.group))
+    with pytest.raises(ValueError):
+        qmm.int4_matmul_2d_w4a8(_padded(_randn(33, K, gen=gen), qw), qw.q,
+                                qw.scale, qw.group)
+
+
+@pytest.mark.parametrize("M", [33, 255, 256, 257, 1487])
+@pytest.mark.parametrize("K,N", _EDGE_KN)
+def test_int4_w8a8p_cuda_bit_identical(gen, M, K, N):
+    """Integer sums are exact and the epilogue has one order of products:
+    the kernel equals its plain version bit for bit."""
+    qw = _quantize_leaf_int4(_weight(K, N, gen))
+    x = _padded(_randn(M, K, gen=gen), qw)
+    before = qmm.int4_matmul_2d_w8a8p.launches
+    got = qmm.int4_matmul_2d_w8a8p(x, qw.q, qw.scale, qw.group)
+    assert qmm.int4_matmul_2d_w8a8p.launches == before + 1
+    want = qmm.int4_matmul_2d_w8a8p_plain(x, qw.q, qw.scale, qw.group)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_quant_flags_route_on_cuda(gen, monkeypatch):
+    """The dispatcher on the card: each flag sends its range of M to its
+    kernel, and the flags off leave the exact kernel."""
+    qw = _quantize_leaf_int4(_weight(5120, 5120, gen))
+    small, large = _randn(4, 5120, gen=gen), _randn(300, 5120, gen=gen)
+    monkeypatch.setattr(qmm, "W4A8_DECODE", True)
+    monkeypatch.setattr(qmm, "W8A8_PREFILL", True)
+    names = ("int4_matmul_2d", "int4_matmul_2d_w4a8", "int4_matmul_2d_w8a8p")
+    before = [getattr(qmm, n).launches for n in names]
+    int4_matmul(small, qw)
+    int4_matmul(large, qw)
+    int4_matmul(_randn(100, 5120, gen=gen), qw)
+    after = [getattr(qmm, n).launches for n in names]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]

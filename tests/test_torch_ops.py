@@ -263,7 +263,8 @@ def test_ens5_configs_pinned():
 
 def test_bridge_layouts():
     """Stacked decoder layers unstack, conv kernels turn OIHW, quantized
-    leaves keep their bytes, k_chunks > 1 is refused."""
+    leaves keep their bytes, a k_chunks > 1 leaf is repacked to the plain
+    split-half layout with the same dense weight."""
     cfg = jens5.tiny_ens5_config()
     jparams = jens5.init_ens5_params(jax.random.PRNGKey(1), cfg)
     jparams["llama"] = jquant.quantize_params(jparams["llama"], bits=4)
@@ -284,5 +285,9 @@ def test_bridge_layouts():
     assert p["clip"]["blocks"]["attn"]["wqkv"]["weight"].shape[0] == 2
     assert p["start_img"].dtype == torch.float32
     chunked = jquant._quantize_leaf_int4(_rand((2048, 16), 12), k_chunks=2)
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({"w": jax.tree_util.tree_map(np.asarray, chunked)})
+    leaf = params_from_numpy(
+        {"w": jax.tree_util.tree_map(np.asarray, chunked)})["w"]
+    assert leaf.q.shape == (1024, 16) and leaf.in_dim == 2048
+    np.testing.assert_array_equal(
+        tquant._dequantize_leaf(leaf, torch.float32).numpy(),
+        np.asarray(jquant._dequantize_leaf(chunked, jnp.float32)))

@@ -418,10 +418,16 @@ def test_finetune_cli_qlora_runs(tmp_path, tiny_tokenizer_dir):
     log = (tmp_path / "out" / "log.txt").read_text().splitlines()
     assert len(log) == 1 and np.isfinite(json.loads(log[0])["closs"])
 
-    for extra in (["--resume", "auto"], ["--quant_bits", "8"],
-                  ["--model_parallel_size", "2"]):
+    for extra in (["--resume", "auto"], ["--model_parallel_size", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main_finetune.main(argv + extra)
+
+    # an int8 base trains the same way (the later flag wins)
+    state8 = main_finetune.main(argv + ["--quant_bits", "8"])
+    wq8 = state8.params["llama"]["layers"][0]["attention"]["wq"]["weight"]
+    assert state8.step >= 1 and wq8.bits == 8 and wq8.q.shape == (64, 64)
+    ab8 = state8.params["lora"]["layers"][0]["attention"]["wq"]
+    assert float(ab8["b"].abs().max()) > 0
 
 
 def test_port_training_imports_no_jax():
