@@ -103,7 +103,8 @@ def unstack_layers(stacked: dict) -> list:
     ]
 
 
-def params_from_numpy(tree: dict[str, Any], device: torch.device | str = "cpu",
+def params_from_numpy(tree: dict[str, Any],
+                      device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.float32) -> dict[str, Any]:
     """Convert a numpy copy of a JAX parameter tree (any model of the
     slice: the llama decoder alone or the whole llama_ens5 tree, with or
@@ -170,7 +171,7 @@ def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
 
 
 def kv_cache_from_numpy(k_layers, v_layers,
-                        device: torch.device | str = "cpu",
+                        device: torch.device | str = "cuda",
                         dtype: torch.dtype = torch.float32):
     """A layered JAX ``KVCache`` (its ``k`` and ``v`` tuples, every leaf
     turned into numpy) as the port's ``KVCache``. A dense layer

@@ -1,5 +1,8 @@
-// One block of exact softmax attention, shared by flash_attention.cu (causal
-// decoder prefill) and vit_attention.cu (non-causal tower attention).
+// One block of exact softmax attention on the SIMT units, used by
+// vit_attention.cu (K10, non-causal tower attention); flash_attention_bwd.cu
+// takes its constants and warp reductions for K9b. The flash forward (K2)
+// and the dq backward (K9a) have moved to the tensor-core tile of
+// attention_mma.cuh.
 //
 // A block owns AT_BQ = 16 query rows of one (batch, head): 8 warps, 2 rows
 // each. Keys and values stream through shared memory in tiles of 32 (one key

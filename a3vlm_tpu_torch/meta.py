@@ -33,13 +33,13 @@ class MetaModel:
         seed: int = 0,
         model_cfg: Optional[Ens5Config] = None,
         vocab_align: int = 128,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         """As the JAX constructor (meta.py:37-170) for llama_ens5. The true
         vocab comes from ``tokenizer.n_words``, or from ``vocab_size`` when
         no tokenizer is given, and is padded to ``vocab_align``. With
         ``params=None`` random weights are made from ``seed`` on
-        ``device``."""
+        ``device``: the card, unless the caller names another."""
         if llama_type != "llama_ens5":
             raise NotImplementedError(f"{llama_type} is not ported yet")
         self.llama_type = llama_type

@@ -55,8 +55,8 @@ class KVCache:
     @classmethod
     def create(cls, args: ModelArgs, batch_size: int,
                max_seq_len: int | None = None,
-               dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> "KVCache":
+               dtype: torch.dtype = torch.bfloat16, *,
+               device: torch.device | str) -> "KVCache":
         S = max_seq_len or args.max_seq_len
         S = -(-S // 8) * 8
         shape = (batch_size, args.kv_heads, S, args.head_dim)

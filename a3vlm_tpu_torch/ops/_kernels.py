@@ -5,7 +5,9 @@ for ``sm_90a``, one process per ``.cu`` file, all started together, and
 links the objects into one shared library with a plain C interface, which
 is loaded with ``ctypes``. The library lands in ``a3vlm_tpu_torch/_build/``
 (git-ignored) under a name that carries the hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing here
+so an edited source is rebuilt and an unchanged one is reused; the
+compiler's output (``-Xptxas -v``: registers, shared memory and spills of
+every kernel) is kept beside it as ``.log``. Nothing here
 runs at import time: the CPU tests import every module.
 
 Each C entry point launches on the stream it is given, allocates nothing,
@@ -29,7 +31,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -89,9 +91,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"liba3vlm_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run_all(commands: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of the first
-    that failed."""
+def build_log(library: Path) -> Path:
+    """The compiler's output of the build that made ``library``."""
+    return library.with_suffix(".log")
+
+
+def _run_all(commands: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with
+    the output of the first that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in commands]
@@ -100,6 +107,7 @@ def _run_all(commands: list[list[str]]) -> None:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): "
                                f"{' '.join(cmd)}\n{out}")
+    return outputs
 
 
 def build() -> Path:
@@ -112,10 +120,13 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cu = [s for s in sources() if s.suffix == ".cu"]
         objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
-                  for s, o in zip(cu, objs)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                         for s, o in zip(cu, objs)])
         so = str(Path(tmp) / "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+        # what ptxas said of each kernel: registers, shared memory, spills
+        build_log(target).write_text("".join(
+            f"== {s.name}\n{log}" for s, log in zip(cu, logs)))
         os.replace(so, target)
     return target
 

@@ -14,8 +14,7 @@ _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
 def right_aligned_causal_mask(q_len: int, kv_len: int,
-                              device: torch.device | str = "cpu"
-                              ) -> torch.Tensor:
+                              device: torch.device | str) -> torch.Tensor:
     """Boolean [q_len, kv_len]; True = may attend (attention.py:28)."""
     q_idx = torch.arange(q_len, device=device)[:, None] - q_len
     kv_idx = torch.arange(kv_len, device=device)[None, :] - kv_len

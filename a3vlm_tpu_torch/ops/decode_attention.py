@@ -78,7 +78,7 @@ def kv_cache_dtype(kv_bits, device: torch.device | str = "cuda"):
 
 
 def make_quantized_kv(batch, kv_heads, seq_len, head_dim,
-                      device: torch.device | str = "cpu") -> QuantizedKV:
+                      device: torch.device | str) -> QuantizedKV:
     """Zeroed int8 panel and float32 scale plane of one layer."""
     return QuantizedKV(
         torch.zeros((batch, kv_heads, seq_len, head_dim), dtype=torch.int8,

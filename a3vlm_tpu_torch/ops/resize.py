@@ -26,7 +26,7 @@ _KERNELS = {"bicubic": _keys_cubic, "cubic": _keys_cubic,
 
 
 def weight_matrix(in_size: int, out_size: int, method: str,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str) -> torch.Tensor:
     """[in_size, out_size] float32 resampling weights."""
     inv_scale = in_size / out_size
     kernel_scale = max(inv_scale, 1.0)

@@ -7,8 +7,8 @@ import torch
 
 
 def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0,
-                         scaling: float | None = None,
-                         device: torch.device | str = "cpu") -> torch.Tensor:
+                         scaling: float | None = None, *,
+                         device: torch.device | str) -> torch.Tensor:
     """``[end, dim//2, 2]`` float32 table of (cos, sin); ``scaling`` is
     linear position interpolation (rope.py:17)."""
     exponent = torch.arange(0, dim, 2, dtype=torch.float32,

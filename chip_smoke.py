@@ -6,9 +6,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles the hand-written kernels (a3vlm_tpu_torch/csrc) with
-   nvcc and prints the build time.
+   nvcc and prints the build time and what ptxas reported of the
+   tensor-core attention kernels (registers, spills); they must not spill
+   and their wgmma products must not have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16, at the shapes the main path gives it; prints error and times.
+   bf16, at the shapes the main path gives it; prints error and times, for
+   the flash forward and its dq backward also the achieved TFLOP/s.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -70,6 +73,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -227,6 +231,8 @@ KERNELS = {
                        "a3vlm_tpu/ops/quant_matmul.py:147",
                        int4_matmul_2d_v3),
 }
+TENSOR_CORE_ATTENTION = ("flash_attention", "flash_attention_bwd_dq")
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel")
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
 LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
@@ -250,6 +256,39 @@ def device_line() -> str:
     return out[0]
 
 
+def check_build_log(library, kernels) -> list[str]:
+    """What ptxas said (``-Xptxas -v``, kept beside the library) of the
+    kernels whose names contain one of ``kernels``: template arguments,
+    registers, spills. The tensor-core kernels must not spill, and ptxas
+    must not have serialized their wgmma products (its C7513 and C7520
+    notes; no other kernel issues wgmma)."""
+    text = _kernels.build_log(library).read_text()
+    for code in ("C7513", "C7520"):
+        if code in text:
+            FAILURES.append(f"build: ptxas serialized wgmma products ({code})")
+    lines, name, spills = [], None, ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            hit = re.search(r"(%s)(I\w+?E)EvP" % "|".join(kernels),
+                            entry.group(1))
+            name = hit.group(1) + hit.group(2) if hit else None
+        elif name and "spill" in line:
+            spills = line.strip()
+            if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                FAILURES.append(f"build: {name} spills: {spills}")
+        elif name and "Used" in line:
+            used = line.split(":", 1)[1].strip()
+            lines.append(f"{name}: {used}; {spills}")
+            name = None
+    if not lines:
+        FAILURES.append("build: no ptxas report of " + ", ".join(kernels))
+    return lines
+
+
+FAILURES: list[str] = []
+
+
 def timed_ms(fn, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
@@ -261,9 +300,6 @@ def timed_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-FAILURES: list[str] = []
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -308,7 +344,7 @@ def record(results, name, case, err, ms, plain, bytes_moved, flops,
         "name": name, "case": case, "err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "flops": flops,
     })
 
 
@@ -518,10 +554,13 @@ def check_glu(gen, results):
 
 
 def check_flash(gen, results):
+    # the batch-4 prefill, GQA, a chunk of a chunked prefill, a short
+    # right-aligned chunk, and the single-request prefill
     for B, Hq, Hkv, Sq, Skv in ((4, 40, 40, 1487, 1487),
                                 (4, 40, 8, 1487, 1487),
                                 (4, 40, 40, 512, 1487),
-                                (1, 40, 40, 476, 1500)):
+                                (1, 40, 40, 476, 1500),
+                                (1, 40, 40, 1487, 1487)):
         D = 128
         q = randn(B, Hq, Sq, D, gen=gen)
         k = randn(B, Hkv, Skv, D, gen=gen)
@@ -556,11 +595,12 @@ def sdpa_backward_ms(q, k, v, do, mask, reps=3) -> float:
 
 def check_flash_bwd(gen, results):
     """K2 with its lse and K9a/K9b at the training shapes (B 2, S 2048),
-    GQA and right-aligned; both backward sides get the kernel's output and
-    lse."""
+    GQA, right-aligned, and one sample alone; both backward sides get the
+    kernel's output and lse."""
     for B, Hq, Hkv, Sq, Skv in ((2, 40, 40, 2048, 2048),
                                 (2, 40, 8, 2048, 2048),
-                                (2, 40, 40, 512, 2048)):
+                                (2, 40, 40, 512, 2048),
+                                (1, 40, 40, 2048, 2048)):
         D = 128
         case = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}"
         q = randn(B, Hq, Sq, D, gen=gen)
@@ -812,7 +852,6 @@ def run_main_path(card: str):
     model = MetaModel(
         "llama_ens5", with_visual=True, max_seq_len=2048,
         dtype=torch.bfloat16, vocab_size=32000, model_cfg=cfg, seed=0,
-        device="cuda",
     )
     model.quantize(bits=4)
     torch.cuda.synchronize()
@@ -1342,7 +1381,7 @@ def run_int8_mode(card: str) -> dict:
     model = MetaModel(
         "llama_ens5", with_visual=True, max_seq_len=2048,
         dtype=torch.bfloat16, vocab_size=32000, model_cfg=Ens5Config(),
-        seed=0, device="cuda",
+        seed=0,
     )
     model.quantize(bits=8)
     torch.cuda.synchronize()
@@ -1479,6 +1518,8 @@ def main(argv=None) -> int:
     _kernels.lib()
     print(f"[{card}] kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{path.name}")
+    for line in check_build_log(path, TENSOR_CORE_KERNELS):
+        print(f"[{card}] ptxas {line}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1494,8 +1535,12 @@ def main(argv=None) -> int:
         check_latency_kernels(gen, results)
         check_vit(gen, results)
     for r in results:
+        # the tensor-core attention kernels also get their achieved rate:
+        # the row's own operation count over the kernel's time
+        rate = (f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+                if r["name"] in TENSOR_CORE_ATTENTION else "")
         print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
-              f"{r['err']:.3e} kernel {r['ms']:.4f} ms plain "
+              f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) library {r['library_ms']:.4f} ms")
     if FAILURES:

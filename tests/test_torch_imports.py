@@ -50,6 +50,48 @@ def test_port_entry_points_load_neither_package():
     assert out == "[]"
 
 
+def test_entry_points_default_to_the_card():
+    """The entry points run on the card unless the caller names another
+    device, and the inner helpers take theirs as a required argument, so no
+    default can put a model on the CPU without a word."""
+    import inspect
+
+    from a3vlm_tpu_torch.checkpoint import bridge
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.models.llama import KVCache
+    from a3vlm_tpu_torch.ops import attention, decode_attention, resize, rope
+
+    def default(fn):
+        return inspect.signature(fn).parameters["device"].default
+
+    for fn in (MetaModel.__init__, bridge.params_from_numpy,
+               bridge.kv_cache_from_numpy):
+        assert default(fn) == "cuda", fn
+    for fn in (KVCache.create, attention.right_aligned_causal_mask,
+               rope.precompute_freqs_cis, resize.weight_matrix,
+               decode_attention.make_quantized_kv):
+        assert default(fn) is inspect.Parameter.empty, fn
+
+
+def test_no_port_function_defaults_its_device_to_the_cpu():
+    found = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            a = node.args
+            positional = a.posonlyargs + a.args
+            pairs = list(zip(positional[len(positional) - len(a.defaults):],
+                             a.defaults))
+            pairs += [(arg, d) for arg, d in zip(a.kwonlyargs, a.kw_defaults)
+                      if d is not None]
+            found += [f"{path.relative_to(ROOT)}:{node.lineno} {node.name}"
+                      for arg, d in pairs
+                      if arg.arg == "device" and isinstance(d, ast.Constant)
+                      and d.value == "cpu"]
+    assert not found, found
+
+
 def _write_dialog_data(tmp_path, n=6, dialog=True):
     img = tmp_path / "img.png"
     pixels = np.random.default_rng(0).integers(0, 255, size=(48, 64, 3))

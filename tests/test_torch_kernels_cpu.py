@@ -8,7 +8,8 @@ K=1024); flash forward and lse 2e-3 (the Pallas kernel works in the base-2
 exp domain, as tests/test_flash_attention.py allows); flash gradients 5e-3
 as that file's gradient tests, and 2e-4 against the Pallas backward
 kernels fed the same lse (only the score rounding differs); decode and ViT
-1e-5 (f32 softmax on both sides). The decode and verify kernels of the
+1e-5 (f32 softmax on both sides); the flash forward, lse and dq at the tile
+edges 1e-5 against the JAX package's plain attention. The decode and verify kernels of the
 latency path (bf16 and int8 caches): 1e-5 on float32 inputs; on bf16
 inputs 2^-6 of the largest output (the Pallas blocked kernels round the
 softmax weights to bf16 before the pv product, the plain versions keep
@@ -221,6 +222,90 @@ def test_flash_backward_plain_matches_pallas_kernels_padded():
         for g, w_ in zip(got, want):
             _assert_close(g, w_, 2e-4)
         assert float(got[1][:, :, skv:].abs().max()) == 0.0
+
+
+# The edges the tensor-core tile has code for: lengths on both sides of its
+# 64-key (backward) and 128-key (forward) tiles and of the 64 rows of a
+# warpgroup and the 128 of a forward block, fewer queries than keys
+# (right-aligned), actual lengths inside padded arrays, a GQA group of 5,
+# head dims 64 and 128, and no mask.
+# hq, hkv, Sq, Skv, D, causal, sq_actual, skv_actual
+_TILE_EDGES = [
+    (2, 2, 63, 63, 64, True, None, None),
+    (2, 2, 64, 64, 128, True, None, None),
+    (2, 2, 65, 65, 64, True, None, None),
+    (2, 2, 127, 127, 64, True, None, None),
+    (2, 2, 129, 129, 128, True, None, None),
+    (2, 2, 63, 129, 64, True, None, None),
+    (5, 1, 65, 127, 64, True, None, None),
+    (10, 2, 64, 129, 128, True, None, None),
+    (2, 2, 129, 127, 64, False, None, None),
+    (5, 1, 65, 64, 128, False, None, None),
+    (2, 2, 128, 192, 64, True, 127, 129),
+    (5, 1, 128, 192, 128, True, 63, 65),
+    (2, 2, 192, 128, 64, False, 129, 63),
+]
+
+
+def _edge_inputs(hq, hkv, Sq, Skv, D, seed):
+    return (_normal((1, hq, Sq, D), seed), _normal((1, hkv, Skv, D), seed + 1),
+            _normal((1, hkv, Skv, D), seed + 2))
+
+
+def _bshd(x, n):
+    """The first ``n`` rows of a bhsd numpy array in the model layout."""
+    return jnp.asarray(x[:, :, :n].transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("hq,hkv,Sq,Skv,D,causal,sq_a,skv_a", _TILE_EDGES)
+def test_flash_plain_tile_edges(hq, hkv, Sq, Skv, D, causal, sq_a, skv_a):
+    """The forward's plain version and CPU wrapper, output and lse, against
+    the JAX package's plain attention on the actual rows and keys; 1e-5 in
+    float32 (the same f32 softmax on both sides)."""
+    q, k, v = _edge_inputs(hq, hkv, Sq, Skv, D, 50)
+    sq, skv = sq_a or Sq, skv_a or Skv
+    mask = "causal" if causal else None
+    want = np.asarray(j_sdpa(_bshd(q, sq), _bshd(k, skv), _bshd(v, skv),
+                             mask)).transpose(0, 2, 1, 3)
+    scores = jnp.einsum("bqhgd,bkhd->bhgqk",
+                        _bshd(q, sq).reshape(1, sq, hkv, hq // hkv, D),
+                        _bshd(k, skv)) * D ** -0.5
+    if causal:
+        rows = jnp.arange(sq)[:, None] - sq
+        scores = jnp.where(rows >= jnp.arange(skv)[None, :] - skv, scores,
+                           -jnp.inf)
+    want_lse = np.asarray(jax.nn.logsumexp(scores, axis=-1)).reshape(1, hq, sq)
+    tq, tk, tv = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    for fn in (flash_attention_bhsd_plain, flash_attention_bhsd):
+        got, lse = fn(tq, tk, tv, causal, sq_a, skv_a, return_lse=True)
+        assert got.shape == (1, hq, Sq, D) and lse.shape == (1, hq, Sq)
+        _assert_close(got[:, :, :sq], want, 1e-5)
+        _assert_close(lse[:, :, :sq], want_lse, 1e-5)
+
+
+@pytest.mark.parametrize("hq,hkv,Sq,Skv,D,causal,sq_a,skv_a", _TILE_EDGES)
+def test_flash_bwd_dq_plain_tile_edges(hq, hkv, Sq, Skv, D, causal, sq_a,
+                                       skv_a):
+    """K9a's plain version and CPU wrapper against ``jax.grad`` through the
+    JAX package's plain attention on the actual rows and keys (``do`` is
+    zero on the padded rows); 1e-5 in float32, where ds is not rounded."""
+    q, k, v = _edge_inputs(hq, hkv, Sq, Skv, D, 60)
+    sq, skv = sq_a or Sq, skv_a or Skv
+    do = _normal((1, hq, Sq, D), 63)
+    do[:, :, sq:] = 0.0
+    mask = "causal" if causal else None
+    want = jax.grad(lambda x: jnp.sum(
+        j_sdpa(x, _bshd(k, skv), _bshd(v, skv), mask) * _bshd(do, sq)))(
+        _bshd(q, sq))
+    want = np.asarray(want).transpose(0, 2, 1, 3)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    out, lse = flash_attention_bhsd_plain(tq, tk, tv, causal, sq_a, skv_a,
+                                          return_lse=True)
+    delta = (tdo * out).sum(-1)
+    for fn in (flash_attention_bwd_dq_plain, flash_attention_bwd_dq):
+        got = fn(tq, tk, tv, tdo, lse, delta, causal, sq_a, skv_a)
+        assert got.shape == (1, hq, Sq, D)
+        _assert_close(got[:, :, :sq], want, 1e-5)
 
 
 @pytest.mark.parametrize("S", [64, 520])

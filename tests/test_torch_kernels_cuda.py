@@ -8,7 +8,8 @@ the card and without JAX (``tests/conftest.py`` imports it):
 Tolerance: both sides accumulate in f32 and round once to bf16, so they
 may differ by one bf16 ulp (2^-8 relative each way); rtol 2^-6 leaves a
 factor 2, and atol (1e-3 of the largest output) covers outputs that cancel
-to near zero."""
+to near zero. The flash forward on the short rows of the tile-edge cases
+adds the rounding of its softmax weights (``_check_flash``)."""
 
 import pytest
 import torch
@@ -20,6 +21,7 @@ from a3vlm_tpu_torch.ops.decode_attention import (
     decode_attention_update_plain,
     quantize_kv_tokens,
 )
+from a3vlm_tpu_torch.ops import flash_attention as fa
 from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bhsd,
@@ -27,6 +29,7 @@ from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
 )
 from a3vlm_tpu_torch.ops import quant_matmul as qmm
@@ -74,15 +77,106 @@ def test_int4_matmul_cuda(gen, M, K, N):
     _check(got, int4_matmul(x, qw, impl="plain"))
 
 
+def _check_flash(got, want, v, causal, sq_a, skv_a):
+    """K2 on short rows. The kernel rounds the softmax weights to bf16
+    before the value product, as the TPU kernel does, and the plain version
+    keeps them in f32. Each weight moves by at most 2^-9 of itself and a
+    row's weights sum to 1, so an output moves by at most 2^-9 max|v|, and
+    by about 2^-9 max|v| / sqrt(n) where the row sees n keys of similar
+    weight. So a row gets 2^-8 max|v| / sqrt(n) on top of ``_check``'s
+    bound: a factor 2 over the worst case up to 4 keys, and nothing to
+    speak of at the main path's lengths, which hold ``_check`` as it is."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    Sq, Skv = got.shape[2], v.shape[2]
+    seen = fa._visible(Sq, Skv, causal, sq_a or Sq, skv_a or Skv,
+                       got.device).sum(-1).clamp(min=1)
+    bound = (RTOL * want.abs() + 1e-3 * want.abs().max()
+             + 2.0 ** -8 * float(v.float().abs().max())
+             * seen.float().rsqrt()[:, None])
+    assert bool(((got - want).abs() <= bound).all()), float(
+        (got - want).abs().max())
+
+
+@pytest.mark.parametrize("B", [4, 1])
 @pytest.mark.parametrize("hq,hkv,sq,skv", [(40, 40, 1487, 1487),
                                            (40, 8, 1487, 1487),
                                            (40, 40, 512, 1487)])
-def test_flash_attention_cuda(gen, hq, hkv, sq, skv):
-    q = _randn(4, hq, sq, 128, gen=gen)
-    k = _randn(4, hkv, skv, 128, gen=gen)
-    v = _randn(4, hkv, skv, 128, gen=gen)
+def test_flash_attention_cuda(gen, hq, hkv, sq, skv, B):
+    q = _randn(B, hq, sq, 128, gen=gen)
+    k = _randn(B, hkv, skv, 128, gen=gen)
+    v = _randn(B, hkv, skv, 128, gen=gen)
     _check(flash_attention_bhsd(q, k, v, causal=True),
            flash_attention_bhsd_plain(q, k, v, causal=True))
+
+
+# The edges of the tensor-core tiles (128 keys in the forward kernel, 64 in
+# the dq kernel; 64 query rows to a warpgroup, 128 to a forward block):
+# lengths on both sides of a tile, fewer queries than keys, GQA groups,
+# head dims 32 / 64 / 96 / 128 and two that are no multiple of 8 (the slow
+# load path), no mask, ragged actual lengths, and more rows than keys (rows that
+# see no key: zeros and lse = -inf).
+# hq, hkv, Sq, Skv, D, causal, sq_actual, skv_actual
+_EDGE_CASES = [
+    (2, 2, 63, 63, 128, True, None, None),
+    (2, 2, 64, 64, 64, True, None, None),
+    (2, 2, 65, 65, 96, True, None, None),
+    (4, 4, 127, 127, 128, True, None, None),
+    (4, 4, 129, 129, 64, True, None, None),
+    (5, 1, 63, 129, 128, True, None, None),
+    (10, 2, 127, 65, 96, True, None, None),
+    (2, 2, 129, 127, 128, False, None, None),
+    (5, 1, 65, 64, 64, False, None, None),
+    (4, 4, 100, 100, 32, True, None, None),
+    (2, 2, 65, 65, 100, True, None, None),
+    (2, 1, 150, 150, 36, False, None, None),
+    (2, 2, 192, 256, 128, True, 150, 200),
+    (2, 2, 256, 192, 128, True, 129, 63),
+    (2, 2, 128, 128, 64, False, 127, 70),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,Sq,Skv,D,causal,sq_a,skv_a", _EDGE_CASES)
+def test_flash_attention_edges_cuda(gen, hq, hkv, Sq, Skv, D, causal, sq_a,
+                                    skv_a):
+    """K2 at the tile edges, output and lse; a row that sees no key gives
+    zeros and lse = -inf, and nothing is NaN; two launches on the same
+    inputs agree bit for bit."""
+    q = _randn(2, hq, Sq, D, gen=gen)
+    k, v = _randn(2, hkv, Skv, D, gen=gen), _randn(2, hkv, Skv, D, gen=gen)
+    out, lse = flash_attention_bhsd(q, k, v, causal, sq_a, skv_a,
+                                    return_lse=True)
+    want, want_lse = flash_attention_bhsd_plain(q, k, v, causal, sq_a, skv_a,
+                                                return_lse=True)
+    _check_flash(out, want, v, causal, sq_a, skv_a)
+    empty = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert not torch.isnan(lse).any()
+    assert float(out[empty].abs().max() if empty.any() else 0.0) == 0.0
+    assert (lse[~empty] - want_lse[~empty]).abs().max() < 1e-4
+    again = flash_attention_bhsd(q, k, v, causal, sq_a, skv_a)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("hq,hkv,Sq,Skv,D,causal,sq_a,skv_a", _EDGE_CASES)
+def test_flash_bwd_dq_edges_cuda(gen, hq, hkv, Sq, Skv, D, causal, sq_a,
+                                 skv_a):
+    """K9a at the tile edges on the plain forward's output and lse: a row
+    that sees no key gets a zero dq, and two launches on the same inputs
+    agree bit for bit (no atomics)."""
+    q, do = _randn(2, hq, Sq, D, gen=gen), _randn(2, hq, Sq, D, gen=gen)
+    k, v = _randn(2, hkv, Skv, D, gen=gen), _randn(2, hkv, Skv, D, gen=gen)
+    out, lse = flash_attention_bhsd_plain(q, k, v, causal, sq_a, skv_a,
+                                          return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, sq_a, skv_a)
+    before = flash_attention_bwd_dq.launches
+    got = flash_attention_bwd_dq(*args)
+    assert flash_attention_bwd_dq.launches == before + 1
+    _check(got, flash_attention_bwd_dq_plain(*args))
+    empty = torch.isinf(lse)
+    assert float(got[empty].abs().max() if empty.any() else 0.0) == 0.0
+    assert torch.equal(got, flash_attention_bwd_dq(*args))
 
 
 def test_decode_attention_cuda(gen):
@@ -203,9 +297,11 @@ def test_vit_attention_cuda(gen, H, D):
 
 
 # hq, hkv, sq, skv, D: equal, GQA, right-aligned unequal, more rows than
-# keys (rows with no visible key), ragged lengths, head dims 64 and 88
+# keys (rows with no visible key), ragged lengths, head dims 64 and 88, and
+# the training shape of one sample
 _BWD_CASES = [(4, 4, 256, 256, 128), (8, 2, 300, 300, 128),
-              (4, 4, 100, 333, 64), (4, 2, 200, 77, 88), (2, 1, 45, 45, 128)]
+              (4, 4, 100, 333, 64), (4, 2, 200, 77, 88), (2, 1, 45, 45, 128),
+              (40, 40, 2048, 2048, 128)]
 
 
 @pytest.mark.parametrize("hq,hkv,sq,skv,D", _BWD_CASES)

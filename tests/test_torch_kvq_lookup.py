@@ -79,7 +79,7 @@ def setup(tiny_tokenizer):
     jmodel.quantize(bits=4)
     tmodel = MetaModel(
         "llama_ens5", with_visual=True, max_seq_len=512,
-        params=params_from_numpy(tree), tokenizer=trec,
+        params=params_from_numpy(tree, device="cpu"), tokenizer=trec,
         model_cfg=dataclasses.replace(tiny_ens5_config(vocab)),
     )
     tmodel.quantize(bits=4)
@@ -132,10 +132,12 @@ def test_prefill_chunked_matches_one_shot_and_jax(setup):
     want, jcache, _ = jllama.prefill_chunked(jp, jargs, jcache,
                                              jnp.asarray(tokens), jimg, 16)
     with torch.inference_mode():
-        c1 = tllama.KVCache.create(targs, 1, S + 1, dtype=torch.float32)
+        c1 = tllama.KVCache.create(targs, 1, S + 1, dtype=torch.float32,
+                                   device="cpu")
         one_shot, c1, n1 = tllama.prefill(tp, targs, c1, torch.tensor(tokens),
                                           timg)
-        c2 = tllama.KVCache.create(targs, 1, S + 1, dtype=torch.float32)
+        c2 = tllama.KVCache.create(targs, 1, S + 1, dtype=torch.float32,
+                                   device="cpu")
         got, c2, n2 = tllama.prefill_chunked(tp, targs, c2,
                                              torch.tensor(tokens), timg, 16)
     assert n1 == n2 == S
@@ -164,13 +166,14 @@ def test_int8_cache_bridge_and_decode_step(setup):
     _, jcache, _ = jllama.prefill(jp, jargs, jcache, jnp.asarray(tokens),
                                   jimg)
     as_numpy = jax.tree_util.tree_map(np.asarray, (jcache.k, jcache.v))
-    tcache = kv_cache_from_numpy(*as_numpy)
+    tcache = kv_cache_from_numpy(*as_numpy, device="cpu")
     assert isinstance(tcache.k[0], tda.QuantizedKV)
     assert tcache.k[0].qv.dtype == torch.int8
 
     # the port's own int8 prefill writes the same cache, to a rounding step
     with torch.inference_mode():
-        own = tllama.KVCache.create(targs, 1, S + 3, dtype=torch.int8)
+        own = tllama.KVCache.create(targs, 1, S + 3, dtype=torch.int8,
+                                    device="cpu")
         tllama.prefill(tp, targs, own, torch.tensor(tokens), timg)
     diff = (own.k[1].qv.int() - tcache.k[1].qv.int()).abs()
     assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) < 0.01
@@ -207,7 +210,8 @@ def test_per_row_positions_match_jax_ragged_step(setup):
                              (jnp.int8, torch.int8)):
         jcache = jllama.KVCache.create(jargs, B, S, dtype=dtype_j,
                                        layered=True)
-        tcache = tllama.KVCache.create(targs, B, S, dtype=dtype_t)
+        tcache = tllama.KVCache.create(targs, B, S, dtype=dtype_t,
+                                       device="cpu")
         # a shared random history: write 17 rows through both packages
         hist = rng.normal(size=(B, 17, targs.kv_heads, targs.head_dim)
                           ).astype(np.float32)
@@ -343,7 +347,8 @@ def _llama_setup(setup, prompt, total):
     targs = setup["tcfg"].llama
     tp = setup["tmodel"].params["llama"]
     with torch.inference_mode():
-        cache = tllama.KVCache.create(targs, 1, total, dtype=torch.float32)
+        cache = tllama.KVCache.create(targs, 1, total, dtype=torch.float32,
+                                      device="cpu")
         logits, cache, _ = tllama.prefill(tp, targs, cache,
                                           torch.tensor([prompt]))
     return tp, targs, cache, int(torch.argmax(logits[0, :250]))
@@ -404,7 +409,7 @@ def test_fused_and_two_step_paths_agree_on_bf16():
         outs, caches = [], []
         for fuse in (True, False):
             if quant:
-                ck, cv = (tda.make_quantized_kv(B, Hkv, S, D)
+                ck, cv = (tda.make_quantized_kv(B, Hkv, S, D, device="cpu")
                           for _ in range(2))
             else:
                 ck, cv = (torch.zeros(B, Hkv, S, D, dtype=torch.bfloat16)

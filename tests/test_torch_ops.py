@@ -82,7 +82,7 @@ def test_norms_match():
 
 @pytest.mark.parametrize("scaling", [None, 4.0])
 def test_rope_matches(scaling):
-    table_t = trope.precompute_freqs_cis(16, 64, scaling=scaling)
+    table_t = trope.precompute_freqs_cis(16, 64, scaling=scaling, device="cpu")
     table_j = jrope.precompute_freqs_cis(16, 64, scaling=scaling)
     _close(table_t, table_j)
     xq, xk = _rand((2, 7, 4, 16), 3), _rand((2, 7, 2, 16), 4)
@@ -125,7 +125,7 @@ def test_sdpa_reference_masks(case):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask,
         None if valid is None else jnp.asarray(valid))
     _close(got, want)
-    _close(tattn.right_aligned_causal_mask(5, 9),
+    _close(tattn.right_aligned_causal_mask(5, 9, device="cpu"),
            j_causal_mask(5, 9))
 
 
@@ -214,8 +214,9 @@ def test_quantize_params_matches_blocklist_and_filter():
     params = jax.tree_util.tree_map(
         np.asarray, jens5.init_ens5_params(jax.random.PRNGKey(0), cfg))
     jq = jquant.quantize_params(params["llama"], bits=4)
-    tq = tquant.quantize_params(params_from_numpy({"llama": params["llama"]})
-                                ["llama"], bits=4)
+    tq = tquant.quantize_params(
+        params_from_numpy({"llama": params["llama"]},
+                          device="cpu")["llama"], bits=4)
     assert isinstance(tq["tok_embeddings"]["weight"], torch.Tensor)
     assert isinstance(tq["output"]["weight"], tquant.QuantizedWeight)
     for i, layer in enumerate(tq["layers"]):
@@ -269,7 +270,7 @@ def test_bridge_layouts():
     jparams = jens5.init_ens5_params(jax.random.PRNGKey(1), cfg)
     jparams["llama"] = jquant.quantize_params(jparams["llama"], bits=4)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
-    p = params_from_numpy(tree)
+    p = params_from_numpy(tree, device="cpu")
     assert isinstance(p["llama"]["layers"], list)
     assert len(p["llama"]["layers"]) == cfg.llama.n_layers
     wq = p["llama"]["layers"][1]["attention"]["wq"]["weight"]
@@ -286,7 +287,7 @@ def test_bridge_layouts():
     assert p["start_img"].dtype == torch.float32
     chunked = jquant._quantize_leaf_int4(_rand((2048, 16), 12), k_chunks=2)
     leaf = params_from_numpy(
-        {"w": jax.tree_util.tree_map(np.asarray, chunked)})["w"]
+        {"w": jax.tree_util.tree_map(np.asarray, chunked)}, device="cpu")["w"]
     assert leaf.q.shape == (1024, 16) and leaf.in_dim == 2048
     np.testing.assert_array_equal(
         tquant._dequantize_leaf(leaf, torch.float32).numpy(),

@@ -143,7 +143,8 @@ def test_quantize_params_same_leaves(bits):
         "output": {"weight": _rand((16, 32), 8)},
     }
     j = jquant.quantize_params({"m": tree}, bits=bits)["m"]
-    t = tquant.quantize_params({"m": params_from_numpy(tree)}, bits=bits)["m"]
+    t = tquant.quantize_params({"m": params_from_numpy(tree, device="cpu")},
+                               bits=bits)["m"]
     wq = t["layers"][0]["attention"]["wq"]
     assert isinstance(wq["weight"], tquant.QuantizedWeight)
     assert wq["weight"].bits == bits and t["odd"]["weight"].bits == 8
@@ -407,7 +408,7 @@ def test_quantize_tower_params_matches_jax():
     jparams = jens5.init_ens5_params(jax.random.PRNGKey(3), jcfg)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     jq = jens5.quantize_tower_params(jparams)
-    tq = tens5.quantize_tower_params(params_from_numpy(tree))
+    tq = tens5.quantize_tower_params(params_from_numpy(tree, device="cpu"))
     assert tens5.W8A8_TOWER_KEYS == jens5.W8A8_TOWER_KEYS
 
     def walk(t, j, path):
@@ -431,7 +432,7 @@ def test_quantize_tower_params_matches_jax():
     got = tens5.build_image_tokens(tq, tiny_ens5_config(), _t(images))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
-    dense = tens5.build_image_tokens(params_from_numpy(tree),
+    dense = tens5.build_image_tokens(params_from_numpy(tree, device="cpu"),
                                      tiny_ens5_config(), _t(images))
     assert not torch.equal(got, dense)
 
@@ -467,7 +468,7 @@ def test_bridge_int8_both_ways():
     jp = jllama.init_llama_params(jax.random.PRNGKey(5), cfg.llama)
     jp8 = jquant.quantize_params(jp, bits=8)
     tree = jax.tree_util.tree_map(np.asarray, jp8)
-    tp = params_from_numpy(tree)
+    tp = params_from_numpy(tree, device="cpu")
     jw = jp8["layers"]["feed_forward"]["w2"]["weight"]
     for i, layer in enumerate(tp["layers"]):
         _assert_same_leaf(layer["feed_forward"]["w2"]["weight"],
@@ -478,7 +479,7 @@ def test_bridge_int8_both_ways():
     np.testing.assert_array_equal(w.q, np.asarray(jw.q))
     np.testing.assert_array_equal(w.scale, np.asarray(jw.scale))
     assert (w.bits, w.group, w.in_dim) == (8, 0, 0)
-    again = params_from_numpy(back)
+    again = params_from_numpy(back, device="cpu")
     _assert_same_leaf(again["layers"][1]["feed_forward"]["w2"]["weight"],
                       tp["layers"][1]["feed_forward"]["w2"]["weight"])
 
@@ -491,7 +492,7 @@ def test_bridge_repacks_chunked_int4(shape):
     chunked = jquant._quantize_leaf_int4(w, k_chunks=2)
     assert chunked.k_chunks == 2
     leaf = params_from_numpy(
-        {"w": jax.tree_util.tree_map(np.asarray, chunked)})["w"]
+        {"w": jax.tree_util.tree_map(np.asarray, chunked)}, device="cpu")["w"]
     K = shape[-2]
     assert leaf.q.shape == (*shape[:-2], K // 2, shape[-1])
     assert leaf.scale.shape == (*shape[:-2], K // chunked.group, shape[-1])
@@ -583,7 +584,8 @@ def test_slice_matches_jax_in_mode(setup, mode, monkeypatch, one_device):
         _quantize(jmodel, mode)
         tmodel = MetaModel(
             "llama_ens5", with_visual=True, max_seq_len=512,
-            params=params_from_numpy(setup["tree"]), tokenizer=trec,
+            params=params_from_numpy(setup["tree"], device="cpu"),
+            tokenizer=trec,
             model_cfg=dataclasses.replace(tcfg))
         _quantize(tmodel, mode)
         wq = tmodel.params["llama"]["layers"][0]["attention"]["wq"]["weight"]
@@ -609,7 +611,7 @@ def test_slice_matches_jax_in_mode(setup, mode, monkeypatch, one_device):
                                          jnp.asarray(tokens),
                                          image_tokens=want_img)
         tcache = tllama.KVCache.create(tcfg.llama, 2, max_seq_len=S + 1,
-                                       dtype=torch.float32)
+                                       dtype=torch.float32, device="cpu")
         got, tcache, n = tllama.prefill(tp, tcfg.llama, tcache,
                                         torch.tensor(tokens),
                                         image_tokens=got_img)
@@ -627,7 +629,8 @@ def test_slice_matches_jax_in_mode(setup, mode, monkeypatch, one_device):
             # the mode is on: not the exact int4 path's numbers
             exact = MetaModel(
                 "llama_ens5", with_visual=True, max_seq_len=512,
-                params=params_from_numpy(setup["tree"]), tokenizer=tok,
+                params=params_from_numpy(setup["tree"], device="cpu"),
+                tokenizer=tok,
                 model_cfg=dataclasses.replace(tcfg))
             exact.quantize(bits=4)
             if mode == "tower_bits8":
@@ -637,7 +640,7 @@ def test_slice_matches_jax_in_mode(setup, mode, monkeypatch, one_device):
                 monkeypatch.setattr(tqm, "W4A8_DECODE", False)
                 monkeypatch.setattr(tqm, "W8A8_PREFILL", False)
                 c = tllama.KVCache.create(tcfg.llama, 2, max_seq_len=S + 1,
-                                          dtype=torch.float32)
+                                          dtype=torch.float32, device="cpu")
                 ex, _, _ = tllama.prefill(exact.params["llama"], tcfg.llama,
                                           c, torch.tensor(tokens),
                                           image_tokens=got_img)
@@ -666,7 +669,8 @@ def test_finetune_accepts_int8_base(setup):
 
     tmodel = MetaModel(
         "llama_ens5", with_visual=True, max_seq_len=512,
-        params=params_from_numpy(setup["tree"]), tokenizer=setup["tok"],
+        params=params_from_numpy(setup["tree"], device="cpu"),
+        tokenizer=setup["tok"],
         model_cfg=dataclasses.replace(setup["tcfg"]))
     tmodel.quantize(bits=8)
     gen = torch.Generator().manual_seed(0)

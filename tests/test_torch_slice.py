@@ -63,7 +63,7 @@ def setup(tiny_tokenizer):
 def test_image_tokens_match(setup):
     want = jens5.build_image_tokens(setup["jparams"], setup["jcfg"],
                                     jnp.asarray(setup["images"]))
-    tparams = params_from_numpy(setup["tree"])
+    tparams = params_from_numpy(setup["tree"], device="cpu")
     got = tens5.build_image_tokens(tparams, setup["tcfg"],
                                    torch.tensor(setup["images"]))
     assert got.shape == (2, setup["tcfg"].image_words, 64)
@@ -75,7 +75,7 @@ def test_int4_prefill_logits_match(setup):
     jcfg, tcfg = setup["jcfg"], setup["tcfg"]
     jp = dict(setup["jparams"])
     jp["llama"] = jllama.unstack_layers(j_quantize_params(jp["llama"], bits=4))
-    tp = params_from_numpy(setup["tree"])
+    tp = params_from_numpy(setup["tree"], device="cpu")
     from a3vlm_tpu_torch.quant import quantize_params
 
     quantize_params(tp["llama"], bits=4)
@@ -88,7 +88,7 @@ def test_int4_prefill_logits_match(setup):
     want, jcache, _ = jens5.prefill(jp, jcfg, jcache, jnp.asarray(tokens),
                                     image=jnp.asarray(images))
     tcache = tllama.KVCache.create(tcfg.llama, 2, max_seq_len=S + 1,
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     got, tcache, n = tens5.prefill(tp, tcfg, tcache, torch.tensor(tokens),
                                    image=torch.tensor(images))
     assert n == S and got.shape == (2, tcfg.llama.vocab_size)
@@ -119,7 +119,7 @@ def test_metamodel_generate_greedy_identical(setup):
     jmodel.quantize(bits=4)
     tmodel = MetaModel(
         "llama_ens5", with_visual=True, max_seq_len=512,
-        params=params_from_numpy(setup["tree"]), tokenizer=trec,
+        params=params_from_numpy(setup["tree"], device="cpu"), tokenizer=trec,
         model_cfg=dataclasses.replace(setup["tcfg"]),
     )
     tmodel.quantize(bits=4)

@@ -106,10 +106,11 @@ def slice_setup():
     jfull = {**jp, "lora": jlora}
 
     tree = jax.tree_util.tree_map(np.asarray, jfull)
-    tfull = params_from_numpy(tree)
+    tfull = params_from_numpy(tree, device="cpu")
     model = MetaModel("llama_ens5", with_visual=True, max_seq_len=512,
                       params={k: v for k, v in tfull.items() if k != "lora"},
-                      vocab_size=TRUE_VOCAB, model_cfg=tiny_ens5_config())
+                      vocab_size=TRUE_VOCAB, model_cfg=tiny_ens5_config(),
+                      device="cpu")
     tmask = qlora_trainable_mask(model, tfull["lora"], quant=True)
 
     def batch(n, seed):
@@ -189,7 +190,7 @@ def test_qlora_step_matches_jax(slice_setup, accum, impl):
         for _ in range(2):
             jstate, _ = train(jstate, jb)
 
-    tparams = params_from_numpy(s["tree"])
+    tparams = params_from_numpy(s["tree"], device="cpu")
     tloss_fn = make_loss_fn(s["model"], torch.float32, remat=False,
                             impl=impl)
     trainable, frozen = partition_params(tparams, s["tmask"])
@@ -222,7 +223,7 @@ def test_remat_gives_the_same_grads(slice_setup):
     """(h) Per-block recompute changes no gradient."""
     s = slice_setup
     tb = {k: torch.tensor(v) for k, v in s["batch"](2, seed=5).items()}
-    tparams = params_from_numpy(s["tree"])
+    tparams = params_from_numpy(s["tree"], device="cpu")
     trainable, frozen = partition_params(tparams, s["tmask"])
     out = []
     for remat in (False, True):
@@ -238,7 +239,7 @@ def test_tower_features_replace_the_towers(slice_setup):
     the same image tokens, and the projectors and tags get a gradient
     while the towers run without one."""
     s = slice_setup
-    params = params_from_numpy(s["tree"])
+    params = params_from_numpy(s["tree"], device="cpu")
     cfg = s["model"].cfg
     image = torch.tensor(s["batch"](2, seed=9)["image"])
     proj = params["visual_proj"]["linear"]["weight"].requires_grad_()
