@@ -1,9 +1,11 @@
-// Tensor-core building blocks of the flash-attention forward
-// (flash_attention.cu, K2) and its dq backward (flash_attention_bwd.cu, K9a)
-// on Hopper (sm_90a): bf16 tiles in shared memory in the 128-byte swizzle,
-// brought in by asynchronous copies (TMA boxes for the K and V ring,
-// cp.async.cg for the tiles a block loads once), and warpgroup matrix
-// products (wgmma) that read them through matrix descriptors.
+// Tensor-core building blocks of the attention kernels on Hopper (sm_90a):
+// the flash-attention forward (flash_attention.cu, K2), its dq and dk/dv
+// backward (flash_attention_bwd.cu, K9a and K9b) and the tower attention
+// (vit_attention.cu, K10). bf16 tiles in shared memory in the 128-byte
+// swizzle, brought in by asynchronous copies (TMA boxes, or cp.async.cg for
+// the tiles a block loads once), and warpgroup matrix products (wgmma) that
+// read them through matrix descriptors. mma_probe.cu holds the register-A
+// and shared-A forms of the products against each other bit for bit.
 //
 // Tiles. A tile of ROWS rows and DP (64 or 128) columns of bf16 is stored as
 // DP / 64 panels of [ROWS][64]: a panel row is 128 bytes, and the 16-byte
@@ -13,8 +15,8 @@
 // one such panel. Columns d >= D and rows past the end come in as zeros
 // (out of the tensor map's bounds, or cp.async with a source size of 0).
 // Where D % 8 != 0 a row does not start on 16 bytes in device memory, and
-// load_tile fills the chunks with plain 2-byte loads instead (the slow load
-// path; same tile, same kernel).
+// load_tile / load_rows fill the chunks with plain 2-byte loads instead (the
+// slow load path; same tile, same kernel).
 //
 // Products, all m64 x n x k16 in f32 over bf16, one warpgroup per 64 rows:
 // - S = A B^T with B [64 keys][DP] read from shared memory as a K-major
@@ -25,6 +27,8 @@
 //   onto the A fragment: see pack_a) and the V tile [64 keys][DP] read as an
 //   MN-major B operand through the transpose flag: start += 2048 bytes per
 //   16 keys, SBO 1024 bytes (8 keys), LBO the panel stride (next 64 columns).
+//   The backward's dV += P^T dO and dK += dS^T Q are the same form, with the
+//   query rows of the dO and Q tiles as the summed dimension.
 //
 // Accumulator layout of m64nN (thread t of the warpgroup, warp w = t / 32,
 // g = (t % 32) / 4, c = t % 4): d[4 j + e] is row 16 w + g + 8 (e / 2),
@@ -132,6 +136,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// One box of a rank-4 tensor map (columns, heads, rows, batch).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int head,
+                                            int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
 // A [ROWS keys][DP] tile of head ``head`` from key ``row`` on, one box of
 // 64 columns x ROWS rows per panel, into the tile layout of the header note
 // (the map's 128-byte swizzle is that layout). Issued by one thread.
@@ -146,13 +163,16 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* tile,
                 head);
 }
 
-// Host side: the tensor map of k or v [heads][rows_alloc][D] bf16 for boxes
-// of 64 columns x box_rows rows in the 128-byte swizzle. Only ``rows`` rows of
-// each head are in bounds, so later rows read as zeros. D % 8 == 0 (a row
-// is a multiple of 16 bytes). cuTensorMapEncodeTiled is looked up in the
-// libcuda that the process has loaded already. Returns a cudaError_t.
-inline int make_kv_map(CUtensorMap* map, const void* base, int D, int rows,
-                       int rows_alloc, int heads, int box_rows) {
+// Host side: a tensor map of bf16 for boxes of 64 columns (the head dim,
+// dims[0], contiguous) in the 128-byte swizzle; ``strides`` are those of
+// dims[1..rank) in elements. Elements outside ``dims`` read as zeros, so a
+// box past the last row, or columns past D, arrive as zeros. Every stride
+// and the base must be multiples of 16 bytes. cuTensorMapEncodeTiled is
+// looked up in the libcuda that the process has loaded already. Returns a
+// cudaError_t.
+inline int encode_map(CUtensorMap* map, const void* base, int rank,
+                      const cuuint64_t* dims, const long* strides,
+                      const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -164,22 +184,69 @@ inline int make_kv_map(CUtensorMap* map, const void* base, int D, int rows,
                : nullptr;
   }();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows_alloc * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  cuuint64_t bytes[4];
+  for (int i = 0; i + 1 < rank; ++i) bytes[i] = (cuuint64_t)strides[i] * 2;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The map of q, k, v or dO [heads][rows_alloc][D] for boxes of 64 columns x
+// box_rows rows: only ``rows`` rows of each head are in bounds, so later
+// rows read as zeros. D % 8 == 0 (a row is a multiple of 16 bytes).
+inline int make_kv_map(CUtensorMap* map, const void* base, int D, int rows,
+                       int rows_alloc, int heads, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const long strides[2] = {(long)D, (long)rows_alloc * D};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return encode_map(map, base, 3, dims, strides, box);
+}
+
+// The map of a [B, S, H, D] tensor whose rows lie ``ld`` elements apart
+// (heads D apart, batches S * ld apart), as the towers' q, k and v, views
+// of one [B, S, 3W] projection, lie: dims (D, H, S, B), boxes of 64
+// columns x 1 head x box_rows rows, read with tma_load_4d. D % 8 == 0 and
+// ld % 8 == 0.
+inline int make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
+                         int H, int D, long ld, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const long strides[3] = {(long)D, ld, (long)S * ld};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
 __device__ __forceinline__ int tile_offset(int rows, int r, int c) {
   return (c >> 3) * (rows * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// The slow load path with a row stride: rows [r0, r0 + n) of a
+// [tile_rows][DP] tile from g (row i of them at g + i * ld), zero from row
+// rows_valid and column D on, by plain loads from ``nthreads`` threads.
+template <int DP>
+__device__ __forceinline__ void load_rows(uint8_t* tile, int tile_rows,
+                                          int r0, int n,
+                                          const bf16* __restrict__ g, long ld,
+                                          int rows_valid, int D, int tid,
+                                          int nthreads) {
+  constexpr int CH = DP / 8;
+  for (int i = tid; i < n * CH; i += nthreads) {
+    const int r = i / CH, c = i % CH;
+    __align__(16) bf16 tmp[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = c * 8 + e;
+      tmp[e] = (r < rows_valid && d < D) ? g[(long)r * ld + d]
+                                        : __float2bfloat16_rn(0.f);
+    }
+    *reinterpret_cast<uint4*>(tile + tile_offset(tile_rows, r0 + r, c)) =
+        *reinterpret_cast<uint4*>(tmp);
+  }
 }
 
 // Rows [0, ROWS) of g (row stride D elements) into ``tile``; rows from
@@ -192,37 +259,30 @@ __device__ __forceinline__ void load_tile(uint8_t* tile,
                                           int tid) {
   constexpr int CH = DP / 8;
   static_assert((ROWS * CH) % THREADS == 0, "tile does not divide");
+  if (!vec) {
+    load_rows<DP>(tile, ROWS, 0, ROWS, g, D, rows_valid, D, tid, THREADS);
+    return;
+  }
   const uint32_t base = smem_u32(tile);
 #pragma unroll
   for (int n = 0; n < ROWS * CH / THREADS; ++n) {
     const int i = tid + n * THREADS;
     const int r = i / CH, c = i % CH;
-    const int off = tile_offset(ROWS, r, c);
-    if (vec) {
-      const bool ok = r < rows_valid && c * 8 < D;
-      cp_async16(base + off, ok ? g + (long)r * D + c * 8 : g, ok ? 16 : 0);
-    } else {
-      __align__(16) bf16 tmp[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int d = c * 8 + e;
-        tmp[e] = (r < rows_valid && d < D) ? g[(long)r * D + d]
-                                          : __float2bfloat16_rn(0.f);
-      }
-      *reinterpret_cast<uint4*>(tile + off) = *reinterpret_cast<uint4*>(tmp);
-    }
+    const bool ok = r < rows_valid && c * 8 < D;
+    cp_async16(base + tile_offset(ROWS, r, c),
+               ok ? g + (long)r * D + c * 8 : g, ok ? 16 : 0);
   }
 }
 
 // The warpgroup's [64][DP] f32 accumulator (layout in the header note) to
 // ``stage``, its own 64 rows of a [ROWS][DP] tile, as bf16 scaled per row,
-// then to g (row stride D) in 16-byte pieces: rows < rows_valid, columns
-// < D. ``stage`` must no longer be read by any product.
+// then to g (rows ``ld`` elements apart) in 16-byte pieces: rows <
+// rows_valid, columns < D. ``stage`` must no longer be read by any product.
 template <int ROWS, int DP>
 __device__ __forceinline__ void store_rows(uint8_t* tile, int row_base,
                                            const float (&acc)[DP / 2],
                                            float s0, float s1,
-                                           bf16* __restrict__ g,
+                                           bf16* __restrict__ g, long ld,
                                            int rows_valid, int D, bool vec,
                                            int wg, int tid_wg) {
   const int warp = tid_wg >> 5, lane = tid_wg & 31;
@@ -247,7 +307,7 @@ __device__ __forceinline__ void store_rows(uint8_t* tile, int row_base,
     const int rl = i / CH, c = i % CH;
     if (rl >= rows_valid || c * 8 >= D) continue;
     const uint8_t* src = tile + tile_offset(ROWS, row_base + rl, c);
-    bf16* dst = g + (long)rl * D + c * 8;
+    bf16* dst = g + (long)rl * ld + c * 8;
     if (vec) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     } else {
@@ -315,6 +375,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : A3_ACC8(d, 0), A3_ACC8(d, 8), A3_ACC8(d, 16), A3_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with n = 16 (a ragged end of 16 keys).
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : A3_ACC8(d, 0)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -414,6 +485,51 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One tile of the online softmax on the accumulator layout: masks ``s``
+// where asked, moves the running max and this lane's share of the row sum,
+// leaves ``alpha`` (the factor the output so far must be scaled by) and, in
+// ``s``, the weights in f32.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS],
+                                             float (&m_i)[2], float (&l_i)[2],
+                                             float (&alpha)[2], int kt,
+                                             int r_lo, int cq, int offset,
+                                             int skv_actual, bool causal,
+                                             bool need_mask,
+                                             float scale_log2) {
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = kt + 8 * (i >> 2) + 2 * cq + (i & 1);
+      const int r = r_lo + 8 * ((i >> 1) & 1);
+      const bool ok = c < skv_actual && (!causal || c <= r + offset);
+      s[i] = ok ? s[i] : -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float neg[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float m_new = fmaxf(m_i[hh], quad_max(mx[hh]));
+    // a row that has seen no key yet keeps p = 0 and never forms
+    // -inf - -inf
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[hh] = fast_exp2((m_i[hh] - m_use) * scale_log2);
+    neg[hh] = -m_use * scale_log2;
+    m_i[hh] = m_new;
+    l_i[hh] *= alpha[hh];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int hh = (i >> 1) & 1;
+    s[i] = fast_exp2(fmaf(s[i], scale_log2, neg[hh]));
+    l_i[hh] += s[i];  // summed in f32 before the rounding (:146)
+  }
 }
 
 // Keys [0, kv_end) are the ones a block must visit: all visible keys of its

@@ -75,51 +75,6 @@ struct FwdCfg {
   static constexpr int SMEM = SWIZZLE_ALIGN + Q_BYTES + STAGES * 2 * KV_BYTES;
 };
 
-// One tile of the online softmax on the accumulator layout: masks ``s``
-// where asked, moves the running max and this lane's share of the row sum,
-// leaves ``alpha`` (the factor the output so far must be scaled by) and, in
-// ``s``, the weights in f32.
-template <int NS>
-__device__ __forceinline__ void softmax_tile(float (&s)[NS],
-                                             float (&m_i)[2], float (&l_i)[2],
-                                             float (&alpha)[2], int kt,
-                                             int r_lo, int cq, int offset,
-                                             int skv_actual, bool causal,
-                                             bool need_mask,
-                                             float scale_log2) {
-  if (need_mask) {
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int c = kt + 8 * (i >> 2) + 2 * cq + (i & 1);
-      const int r = r_lo + 8 * ((i >> 1) & 1);
-      const bool ok = c < skv_actual && (!causal || c <= r + offset);
-      s[i] = ok ? s[i] : -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < NS; ++i)
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  float neg[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float m_new = fmaxf(m_i[hh], quad_max(mx[hh]));
-    // a row that has seen no key yet keeps p = 0 and never forms
-    // -inf - -inf
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    alpha[hh] = fast_exp2((m_i[hh] - m_use) * scale_log2);
-    neg[hh] = -m_use * scale_log2;
-    m_i[hh] = m_new;
-    l_i[hh] *= alpha[hh];
-  }
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int hh = (i >> 1) & 1;
-    s[i] = fast_exp2(fmaf(s[i], scale_log2, neg[hh]));
-    l_i[hh] += s[i];  // summed in f32 before the rounding (:146)
-  }
-}
-
 template <int DP, int NWG, int STAGES>
 __global__ void __launch_bounds__(WG_THREADS * NWG)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -298,7 +253,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // (the block's last warpgroup visits every tile, so no copy into the
   // ring is in flight once it gets here)
   store_rows<C::BM, DP>(qs, wg * WG_ROWS, acc, inv[0], inv[1],
-                        o + (row0 + wg_row0) * D, Sq - wg_row0, D, vec, wg,
+                        o + (row0 + wg_row0) * D, D, Sq - wg_row0, D, vec, wg,
                         tid_wg);
 }
 

@@ -37,37 +37,37 @@
 // tile is launched first (K2's order); dq leaves through the block's Q tile
 // in 16-byte pieces. D % 8 != 0 takes the slow load path (plain loads).
 //
-// K9b, what bounds it: the same products (8 D flops per pair), run here on
-// the SIMT units far below the tensor-core rate; device memory is not the
-// limit, since every staged tile is reused by 32 rows or keys from shared
-// memory and no score leaves the SM. One block per (b, kv head, 32-key
-// tile), 4 keys per warp; the block loops over the q heads of the GQA group
-// and over 32-row query tiles (one row per lane) from the first row that
-// can see the tile, so the group sum the TPU caller does over a
-// [B, Hq, Skv, D] buffer (:615-617) happens in registers. wgmma for K9b's
-// products is later work.
+// K9b, what bounds it: operations as well, four products of 2 D flops per
+// visible pair (172 GFLOP at the training shape) against 252 MB of
+// operands. The design is K9a's turned around, keys being the M dimension:
+// a block of two warpgroups owns 128 keys of one (batch, kv head), 64 a
+// warpgroup, and holds their K and V tiles in shared memory (one TMA
+// request). The Q and dO tiles (64 rows) of every q head of the GQA group
+// stream through a three-stage ring that both warpgroups share, one thread
+// asking the TMA for them, an mbarrier per stage, from the first row tile
+// that can see the block's keys; lse * log2 e and delta of each tile's 64
+// rows are staged beside it in shared memory (loaded a stage ahead, so the
+// load's latency hides behind the products). Per tile and warpgroup:
+// S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands
+// K-major as they lie; P^T and dS^T are formed on the accumulator layout
+// (lse and delta per column), P^T while dP^T is still on the tensor cores
+// (with the third stage, ~5% faster than two stages and waiting for both);
+// dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers as A
+// fragments and the dO and Q tiles as MN-major B operands (transpose
+// flag). The GQA group's sum the TPU caller does over a [B, Hq, Skv, D]
+// buffer (:615-617) stays in the f32 accumulators. A warpgroup skips a
+// tile that no row of it sees; only tiles that the diagonal or the ragged
+// ends cross are masked. Within a (batch, kv head) the earliest key tiles,
+// which see the most rows, launch first and the head's Q and dO (1 MB a q
+// head at S 2048) stay in L2 for all its key tiles. dk and dv leave
+// through the K and V tiles in 16-byte pieces. D % 8 != 0 takes the slow
+// load path (plain loads).
 
 #include "attention_mma.cuh"
-#include "attention_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int THREADS = a3::AT_WARPS * 32;
-constexpr int KPW = 4;                    // K9b: keys per warp
-constexpr int KV_BK = a3::AT_WARPS * KPW; // K9b: keys per block
-constexpr int KV_BQ = 32;                 // K9b: query rows per tile
-constexpr int DMAX = a3::AT_DMAX;
-constexpr int DPAD = DMAX + 1;            // row stride of lane-indexed tiles
-
-constexpr size_t DKV_SMEM =
-    sizeof(float) * (2 * KV_BQ * DPAD + 2 * KV_BK * DMAX);
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 namespace mm = a3mma;
 
 template <int DP, int STAGES>
@@ -230,135 +230,222 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mm::fence_regs(acc);
     mm::fence_frags(ds);
   }
-  mm::store_rows<C::BM, DP>(qs, 0, acc, 1.f, 1.f, dq + (row0 + q0) * D,
+  mm::store_rows<C::BM, DP>(qs, 0, acc, 1.f, 1.f, dq + (row0 + q0) * D, D,
                             Sq - q0, D, vec, 0, tid);
 }
 
-template <int NC>
-__global__ void __launch_bounds__(THREADS)
+template <int DP, int STAGES>
+struct DkvCfg {
+  static constexpr int NWG = 2;
+  static constexpr int BK = mm::WG_ROWS * NWG;  // keys per block
+  static constexpr int BM = 64;                 // query rows per tile
+  static constexpr int THREADS = mm::WG_THREADS * NWG;
+  static constexpr int ROW_BYTES = BM * DP * 2;  // a Q tile, a dO tile
+  static constexpr int KV_BYTES = BK * DP * 2;
+  static constexpr int SMEM =
+      mm::SWIZZLE_ALIGN + 2 * KV_BYTES + STAGES * 2 * ROW_BYTES;
+};
+
+template <int DP, int STAGES>
+__global__ void __launch_bounds__(DkvCfg<DP, STAGES>::THREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
                      int D, int sq_actual, int skv_actual, float scale_log2,
-                     float scale, int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [KV_BQ][DPAD], row j of the q tile
-  float* dos = qs + KV_BQ * DPAD;    // [KV_BQ][DPAD]
-  float* ks = dos + KV_BQ * DPAD;    // [KV_BK][DMAX], read as a broadcast
-  float* vs = ks + KV_BK * DMAX;     // [KV_BK][DMAX]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * KV_BK;
+                     float scale, int causal_i) {
+  static_assert(STAGES >= 2, "a tile is loaded a stage ahead");
+  using C = DkvCfg<DP, STAGES>;
+  constexpr int BM = C::BM, BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];  // tile t's Q and dO landed
+  __shared__ __align__(8) uint64_t kv_full;
+  __shared__ float2 rowv[STAGES][BM];  // (lse * log2 e, delta) of the rows
+  uint8_t* ks = mm::align_smem(smem_raw);
+  uint8_t* vs = ks + C::KV_BYTES;
+  uint8_t* ring = vs + C::KV_BYTES;  // tile t: Q at 2 (t % STAGES), dO after
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / mm::WG_THREADS, 0);
+  const int tid_wg = tid % mm::WG_THREADS;
+  const int warp = tid_wg >> 5, lane = tid_wg & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const bool causal = causal_i != 0;
+  const bool vec = (D & 7) == 0;  // TMA; else plain loads
+
+  const int k0 = blockIdx.x * BK, b = blockIdx.z;
+  const int kv_head = b * Hkv + blockIdx.y;
   const int group = Hq / Hkv;
-  const long kv0 = ((long)b * Hkv + kvh) * Skv;
+  const int head0 = b * Hq + blockIdx.y * group;  // first q head of the group
   const int offset = skv_actual - sq_actual;
-
-  for (int i = tid; i < KV_BK * DMAX; i += THREADS) {
-    const int j = i / DMAX, d = i % DMAX;
-    float kv = 0.f, vv = 0.f;
-    if (k0 + j < skv_actual && d < D) {
-      kv = __bfloat162float(k[(kv0 + k0 + j) * D + d]);
-      vv = __bfloat162float(v[(kv0 + k0 + j) * D + d]);
-    }
-    ks[i] = kv;
-    vs[i] = vv;
-  }
-
-  float dka[KPW][NC], dva[KPW][NC];
-#pragma unroll
-  for (int kk = 0; kk < KPW; ++kk)
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) dka[kk][cc] = dva[kk][cc] = 0.f;
-
-  // a key tile gets gradient only from rows r >= c - offset (causal), and
-  // none at all when it lies wholly in the padding
+  // a key gets gradient only from rows r >= c - offset (causal), and none
+  // at all past skv_actual
   const int r_begin = causal ? max(0, k0 - offset) : 0;
-  const int rt_begin = k0 < skv_actual ? r_begin / KV_BQ * KV_BQ : Sq;
-  const float* kw = ks + warp * KPW * DMAX;
-  const float* vw = vs + warp * KPW * DMAX;
+  const int rt_begin = r_begin / BM * BM;
+  const int n_rt = k0 < skv_actual && rt_begin < Sq
+                       ? (Sq - rt_begin + BM - 1) / BM : 0;
+  const int n_tiles = group * n_rt;
 
-  for (int g = 0; g < group; ++g) {
-    const long row0 = ((long)b * Hq + kvh * group + g) * Sq;
-    for (int rt = rt_begin; rt < Sq; rt += KV_BQ) {
-      __syncthreads();  // the previous tile (and, first time, ks/vs) settled
-      for (int i = tid; i < KV_BQ * DMAX; i += THREADS) {
-        const int j = i / DMAX, d = i % DMAX;
-        float qv = 0.f, gv = 0.f;
-        if (rt + j < Sq && d < D) {
-          const long at = (row0 + rt + j) * D + d;
-          qv = __bfloat162float(q[at]);
-          gv = __bfloat162float(dout[at]);
-        }
-        qs[j * DPAD + d] = qv;
-        dos[j * DPAD + d] = gv;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mm::mbar_init(mm::smem_u32(&full[s]), 1);
+    mm::mbar_init(mm::smem_u32(&kv_full), 1);
+    mm::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile t: q head head0 + t / n_rt, rows from rt_begin + (t % n_rt) BM
+  auto tile_head = [&](int t) { return head0 + t / n_rt; };
+  auto tile_row = [&](int t) { return rt_begin + (t % n_rt) * BM; };
+  auto load_rows_of = [&](int t) {
+    uint8_t* dst = ring + (2 * (t % STAGES)) * C::ROW_BYTES;
+    const int hq = tile_head(t), rt = tile_row(t);
+    if (vec) {
+      if (tid == 0) {
+        const uint32_t bar = mm::smem_u32(&full[t % STAGES]);
+        mm::mbar_expect_tx(bar, 2 * C::ROW_BYTES);
+        mm::tma_load_tile<BM, DP>(dst, &q_map, bar, rt, hq);
+        mm::tma_load_tile<BM, DP>(dst + C::ROW_BYTES, &do_map, bar, rt, hq);
       }
+    } else {
+      const long at = ((long)hq * Sq + rt) * D;
+      mm::load_tile<BM, DP, C::THREADS>(dst, q + at, Sq - rt, D, false, tid);
+      mm::load_tile<BM, DP, C::THREADS>(dst + C::ROW_BYTES, dout + at,
+                                        Sq - rt, D, false, tid);
+    }
+  };
+  // (lse * log2 e, delta) of row tid of tile t; a dead row (past Sq, or
+  // lse = -inf: no visible key) gets +inf, so that its p is 0
+  auto row_values = [&](int t) {
+    const int r = tile_row(t) + tid;
+    const long at = (long)tile_head(t) * Sq + r;
+    const float l = r < Sq ? lse[at] : -INFINITY;
+    return l > -INFINITY ? make_float2(l * mm::LOG2E, delta[at])
+                         : make_float2(INFINITY, 0.f);
+  };
+
+  if (vec) {
+    if (tid == 0 && n_tiles > 0) {
+      const uint32_t bar = mm::smem_u32(&kv_full);
+      mm::mbar_expect_tx(bar, 2 * C::KV_BYTES);
+      mm::tma_load_tile<BK, DP>(ks, &k_map, bar, k0, kv_head);
+      mm::tma_load_tile<BK, DP>(vs, &v_map, bar, k0, kv_head);
+    }
+  } else {
+    const long at = ((long)kv_head * Skv + k0) * D;
+    mm::load_tile<BK, DP, C::THREADS>(ks, k + at, skv_actual - k0, D, false,
+                                      tid);
+    mm::load_tile<BK, DP, C::THREADS>(vs, v + at, skv_actual - k0, D, false,
+                                      tid);
+  }
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) {
+      load_rows_of(t);
+      if (tid < BM) rowv[t][tid] = row_values(t);
+    }
+  }
+
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  const int kw = k0 + wg * mm::WG_ROWS;  // this warpgroup's first key
+  const int c_lo = kw + warp * 16 + gq;   // keys of this thread: c_lo, + 8
+  const uint32_t ks_u = mm::smem_u32(ks), vs_u = mm::smem_u32(vs);
+
+  // the first tiles (and, on the slow path, K and V) are visible
+  if (!vec) mm::fence_proxy_async();
+  __syncthreads();
+  if (vec && n_tiles > 0) mm::mbar_wait(mm::smem_u32(&kv_full), 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    // every warp is done with tile it - 1, whose stage the next copy
+    // overwrites (on the slow path the barrier also publishes tile it)
+    if (it > 0) {
+      if (!vec) mm::fence_proxy_async();
       __syncthreads();
-
-      const int r = rt + lane;
-      const float l = r < Sq ? lse[row0 + r] : -INFINITY;
-      const bool live = l > -INFINITY;
-      const float l2 = live ? l * a3::AT_LOG2E : 0.f;
-      const float dl = live ? delta[row0 + r] : 0.f;
-
-      float s[KPW], dp[KPW];
-#pragma unroll
-      for (int kk = 0; kk < KPW; ++kk) s[kk] = dp[kk] = 0.f;
-      const float* qr = qs + lane * DPAD;
-      const float* gr = dos + lane * DPAD;
-      for (int d = 0; d < D; ++d) {
-        const float qv = qr[d], gv = gr[d];
-#pragma unroll
-        for (int kk = 0; kk < KPW; ++kk) {
-          s[kk] = fmaf(qv, kw[kk * DMAX + d], s[kk]);
-          dp[kk] = fmaf(gv, vw[kk * DMAX + d], dp[kk]);
-        }
-      }
-      float pb[KPW], dsb[KPW];
-#pragma unroll
-      for (int kk = 0; kk < KPW; ++kk) {
-        const int c = k0 + warp * KPW + kk;
-        const bool ok = live && c < skv_actual && (!causal || c <= r + offset);
-        const float p = ok ? exp2f(s[kk] * scale_log2 - l2) : 0.f;
-        pb[kk] = bf16_round(p);
-        dsb[kk] = bf16_round(p * (dp[kk] - dl) * scale);
-      }
-
-#pragma unroll 4
-      for (int j = 0; j < KV_BQ; ++j) {
-        float qj[NC], gj[NC];
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-          qj[cc] = qs[j * DPAD + lane + 32 * cc];
-          gj[cc] = dos[j * DPAD + lane + 32 * cc];
-        }
-#pragma unroll
-        for (int kk = 0; kk < KPW; ++kk) {
-          const float pj = __shfl_sync(0xffffffffu, pb[kk], j);
-          const float dsj = __shfl_sync(0xffffffffu, dsb[kk], j);
-#pragma unroll
-          for (int cc = 0; cc < NC; ++cc) {
-            dva[kk][cc] = fmaf(pj, gj[cc], dva[kk][cc]);
-            dka[kk][cc] = fmaf(dsj, qj[cc], dka[kk][cc]);
-          }
-        }
-      }
     }
-  }
-
-#pragma unroll
-  for (int kk = 0; kk < KPW; ++kk) {
-    const int c = k0 + warp * KPW + kk;
-    if (c >= Skv) continue;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const int d = lane + 32 * cc;
-      if (d < D) {
-        dk[(kv0 + c) * D + d] = __float2bfloat16_rn(dka[kk][cc]);
-        dv[(kv0 + c) * D + d] = __float2bfloat16_rn(dva[kk][cc]);
-      }
+    const int nt = it + STAGES - 1;
+    float2 ahead = make_float2(0.f, 0.f);
+    if (nt < n_tiles) {
+      load_rows_of(nt);
+      if (tid < BM) ahead = row_values(nt);
     }
+    const int st = it % STAGES;
+    if (vec) mm::mbar_wait(mm::smem_u32(&full[st]), (it / STAGES) & 1);
+
+    const int rt = tile_row(it);
+    // some row of the tile sees this warpgroup's first key
+    const bool sees = kw < skv_actual && (!causal || rt + BM - 1 + offset >= kw);
+    if (sees) {
+      const uint32_t qs_u = mm::smem_u32(ring + 2 * st * C::ROW_BYTES);
+      const uint32_t dos_u = qs_u + C::ROW_BYTES;
+      float s[32], dp[32];
+      mm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mm::wgmma_ss_n64(s, mm::desc_kmajor(ks_u, BK, wg * mm::WG_ROWS, kk),
+                         mm::desc_kmajor(qs_u, BM, 0, kk), kk > 0);
+      mm::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mm::wgmma_ss_n64(dp, mm::desc_kmajor(vs_u, BK, wg * mm::WG_ROWS, kk),
+                         mm::desc_kmajor(dos_u, BM, 0, kk), kk > 0);
+      mm::wgmma_commit();
+      // P^T while dP^T is still on the tensor cores
+      mm::wgmma_wait<1>();
+      mm::fence_regs(s);
+      const bool need_mask = kw + mm::WG_ROWS > skv_actual ||
+                             (causal && kw + mm::WG_ROWS - 1 > rt + offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + 2 * cq + (i & 1);  // row rt + col
+        float p = mm::fast_exp2(fmaf(s[i], scale_log2, -rowv[st][col].x));
+        if (need_mask) {
+          const int c = c_lo + 8 * ((i >> 1) & 1);
+          p = (c < skv_actual && (!causal || c <= rt + col + offset)) ? p
+                                                                      : 0.f;
+        }
+        s[i] = p;  // rounded by pack_a (:440)
+      }
+      mm::wgmma_wait<0>();
+      mm::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + 2 * cq + (i & 1);
+        dp[i] = s[i] * (dp[i] - rowv[st][col].y) * scale;  // ds (:450)
+      }
+      uint32_t pf[4][4], dsf[4][4];
+      mm::pack_a(s, pf);
+      mm::pack_a(dp, dsf);
+      mm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mm::wgmma_rs_tb(dva, pf[kk], mm::desc_mnmajor(dos_u, BM, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mm::wgmma_rs_tb(dka, dsf[kk], mm::desc_mnmajor(qs_u, BM, kk));
+      mm::wgmma_commit();
+      mm::wgmma_wait<0>();
+      mm::fence_regs(dva);
+      mm::fence_regs(dka);
+      mm::fence_frags(pf);
+      mm::fence_frags(dsf);
+    }
+    if (nt < n_tiles && tid < BM) rowv[nt % STAGES][tid] = ahead;
   }
+  // each warpgroup's K and V rows are read by its own products only
+  mm::store_rows<BK, DP>(ks, wg * mm::WG_ROWS, dka, 1.f, 1.f,
+                         dk + ((long)kv_head * Skv + kw) * D, D, Skv - kw, D,
+                         vec, wg, tid_wg);
+  mm::store_rows<BK, DP>(vs, wg * mm::WG_ROWS, dva, 1.f, 1.f,
+                         dv + ((long)kv_head * Skv + kw) * D, D, Skv - kw, D,
+                         vec, wg, tid_wg);
 }
 
 template <int DP>
@@ -389,23 +476,35 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int NC>
+template <int DP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int Hq, int Hkv, int Sq, int Skv, int D, int sq_actual,
                int skv_actual, float scale_log2, float scale, int causal,
                cudaStream_t s) {
+  using C = DkvCfg<DP, 3>;
+  auto kernel = flash_bwd_dkv_kernel<DP, 3>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DKV_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Skv + KV_BK - 1) / KV_BK, Hkv, B);
-  flash_bwd_dkv_kernel<NC><<<grid, THREADS, DKV_SMEM, s>>>(
+  CUtensorMap q_map = {}, do_map = {}, k_map = {}, v_map = {};
+  if (D % 8 == 0) {
+    int e = mm::make_kv_map(&q_map, q, D, Sq, Sq, B * Hq, C::BM);
+    if (e == 0) e = mm::make_kv_map(&do_map, dout, D, Sq, Sq, B * Hq, C::BM);
+    if (e == 0)
+      e = mm::make_kv_map(&k_map, k, D, skv_actual, Skv, B * Hkv, C::BK);
+    if (e == 0)
+      e = mm::make_kv_map(&v_map, v, D, skv_actual, Skv, B * Hkv, C::BK);
+    if (e != 0) return e;
+  }
+  dim3 grid((Skv + C::BK - 1) / C::BK, Hkv, B);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, D,
-      sq_actual, skv_actual, scale_log2, scale, causal);
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), q_map,
+      do_map, k_map, v_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, D, sq_actual, skv_actual,
+      scale_log2, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -428,7 +527,8 @@ extern "C" int a3_flash_bwd_dq(const void* q, const void* k, const void* v,
                         sq_actual, skv_actual, scale_log2, scale, causal, s);
 }
 
-// K9b: dk, dv per kv head.
+// K9b: dk, dv per kv head, the GQA group summed. Head dims up to 64 use
+// 64-wide tiles, up to 128 128-wide tiles.
 extern "C" int a3_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int B,
@@ -438,13 +538,10 @@ extern "C" int a3_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_dkv<2>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq,
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq,
+                          Skv, D, sq_actual, skv_actual, scale_log2, scale,
+                          causal, s);
+  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq,
                          Skv, D, sq_actual, skv_actual, scale_log2, scale,
                          causal, s);
-  if (D <= 96)
-    return launch_dkv<3>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq,
-                         Skv, D, sq_actual, skv_actual, scale_log2, scale,
-                         causal, s);
-  return launch_dkv<4>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Skv,
-                       D, sq_actual, skv_actual, scale_log2, scale, causal, s);
 }

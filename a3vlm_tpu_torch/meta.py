@@ -173,18 +173,24 @@ class MetaModel:
         masks every generated token to a grammar; ``draft_k`` sends a
         batch-1 request through prompt-lookup speculative decoding
         (``Generator.generate_tokens``)."""
+        return self._timed(images, impl, lambda gen, tokens: (
+            gen.generate_tokens(
+                prompt_tokens, image_tokens=tokens, max_gen_len=max_gen_len,
+                temperature=temperature, top_p=top_p, stop_tokens=stop_tokens,
+                seed=seed, impl=impl, fsm=fsm, draft_k=draft_k,
+                lookup_max_n=lookup_max_n)))
+
+    def _timed(self, images, impl: str, run):
+        """The path both entries share: the towers timed on the device,
+        then ``run(generator, image_tokens)``; sets ``last_stats`` (towers,
+        prefill and decode) and ``last_spec_stats`` of this call."""
         gen = self._get_generator()
         device = self.params["llama"]["norm"]["weight"].device
         t0 = time.perf_counter()
         image_tokens = self.encode_images(images, impl)
         synchronize(device)
         towers_ms = (time.perf_counter() - t0) * 1e3
-        out = gen.generate_tokens(
-            prompt_tokens, image_tokens=image_tokens, max_gen_len=max_gen_len,
-            temperature=temperature, top_p=top_p, stop_tokens=stop_tokens,
-            seed=seed, impl=impl, fsm=fsm, draft_k=draft_k,
-            lookup_max_n=lookup_max_n,
-        )
+        out = run(gen, image_tokens)
         self.last_stats = {"towers_ms": towers_ms, **gen.last_stats}
         self.last_spec_stats = gen.last_spec_stats
         return out
@@ -206,13 +212,8 @@ class MetaModel:
         """Text prompts in, text out (meta.py:540); needs a tokenizer."""
         if self.tokenizer is None:
             raise ValueError("generate needs a tokenizer; use generate_tokens")
-        gen = self._get_generator()
-        image_tokens = self.encode_images(images, impl)
-        out = gen.generate(
-            prompts, image_tokens=image_tokens, max_gen_len=max_gen_len,
+        return self._timed(images, impl, lambda gen, tokens: gen.generate(
+            prompts, image_tokens=tokens, max_gen_len=max_gen_len,
             temperature=temperature, top_p=top_p,
             additional_stop_symbols=additional_stop_symbols, seed=seed,
-            impl=impl, fsm=fsm, draft_k=draft_k, lookup_max_n=lookup_max_n,
-        )
-        self.last_spec_stats = gen.last_spec_stats
-        return out
+            impl=impl, fsm=fsm, draft_k=draft_k, lookup_max_n=lookup_max_n))

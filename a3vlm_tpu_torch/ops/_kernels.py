@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
+                  ctypes.c_float)
 # name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
     "a3_int4_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -59,7 +60,8 @@ _SIGNATURES = {
     "a3_verify_partials": [_I],
     "a3_verify_attend": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P],
     "a3_verify_attend_q8": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
-    "a3_vit_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "a3_vit_attention": [_P] * 4 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    "a3_probe_wgmma": [_P] * 4 + [_I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,11 +7,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles the hand-written kernels (a3vlm_tpu_torch/csrc) with
    nvcc and prints the build time and what ptxas reported of the
-   tensor-core attention kernels (registers, spills); they must not spill
-   and their wgmma products must not have been serialized.
+   tensor-core attention kernels (K2, K9a, K9b, K10: registers, spills);
+   they must not spill and their wgmma products must not have been
+   serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times, for
-   the flash forward and its dq backward also the achieved TFLOP/s.
+   the tensor-core attention kernels also the achieved rate (TFLOP/s, or
+   GB/s where bytes bound it) and its share of the bound.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -231,8 +233,10 @@ KERNELS = {
                        "a3vlm_tpu/ops/quant_matmul.py:147",
                        int4_matmul_2d_v3),
 }
-TENSOR_CORE_ATTENTION = ("flash_attention", "flash_attention_bwd_dq")
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel")
+TENSOR_CORE_ATTENTION = ("flash_attention", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv", "vit_attention")
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel", "vit_attn_kernel")
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
 LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
@@ -302,6 +306,26 @@ def timed_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls; None when
+    the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total / reps / 1e3 if total else None  # microseconds -> ms
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Max |kernel - plain|; a mismatch is recorded in FAILURES, and phase 3
     raises once every kernel has been checked."""
@@ -344,7 +368,7 @@ def record(results, name, case, err, ms, plain, bytes_moved, flops,
         "name": name, "case": case, "err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "library_ms": library_ms, "flops": flops,
+        "library_ms": library_ms, "flops": flops, "bytes": bytes_moved,
     })
 
 
@@ -804,20 +828,31 @@ def check_latency_kernels(gen, results):
 
 
 def check_vit(gen, results):
-    for H, D in ((16, 64), (16, 88), (24, 64)):
-        B, S = 20, 257
-        q = randn(B, S, H, D, gen=gen)
-        k = randn(B, S, H, D, gen=gen)
-        v = randn(B, S, H, D, gen=gen)
-        got = vit_attention(q, k, v)
-        want = vit_attention_plain(q, k, v)
-        err = compare(f"vit H={H} D={D}", got, want)
-        ms = timed_ms(lambda: vit_attention(q, k, v), reps=20)
-        plain = timed_ms(lambda: vit_attention_plain(q, k, v), reps=20)
-        qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
-        record(results, "vit_attention", f"B={B} S={S} H={H} D={D}", err,
-               ms, plain, nbytes(q, k, v, got), 4 * B * H * S * S * D,
-               sdpa_ms(qb, kb, vb, reps=20))
+    """K10 at the three towers' shapes, 20 crops (batch 4) and 5 (one
+    request), on q, k and v as the tower block gives them: split views of
+    one [B, S, 3W] projection, read in place. The device's time alone is
+    printed beside the row."""
+    for B in (20, 5):
+        for H, D in ((16, 64), (16, 88), (24, 64)):
+            S = 257
+            qkv = randn(B, S, 3 * H * D, gen=gen)
+            q, k, v = (t.reshape(B, S, H, D)
+                       for t in qkv.split(H * D, dim=-1))
+            got = vit_attention(q, k, v)
+            want = vit_attention_plain(q, k, v)
+            err = compare(f"vit B={B} H={H} D={D}", got, want)
+            ms = timed_ms(lambda: vit_attention(q, k, v), reps=20)
+            plain = timed_ms(lambda: vit_attention_plain(q, k, v), reps=20)
+            qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
+            record(results, "vit_attention", f"B={B} S={S} H={H} D={D}",
+                   err, ms, plain, nbytes(q, k, v, got),
+                   4 * B * H * S * S * D, sdpa_ms(qb, kb, vb, reps=20))
+            # the device's time alone: at 5 crops the host's share of a
+            # call is large
+            dev = device_ms(lambda: vit_attention(q, k, v), "vit_attn_kernel")
+            dev = "not measured" if dev is None else f"{dev:.4f} ms"
+            print(f"vit_attention B={B} H={H} D={D}: device time {dev} a "
+                  f"call (torch.profiler)")
 
 
 def reset_launches() -> None:
@@ -1535,10 +1570,15 @@ def main(argv=None) -> int:
         check_latency_kernels(gen, results)
         check_vit(gen, results)
     for r in results:
-        # the tensor-core attention kernels also get their achieved rate:
-        # the row's own operation count over the kernel's time
-        rate = (f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
-                if r["name"] in TENSOR_CORE_ATTENTION else "")
+        # the tensor-core attention kernels also get their achieved rate
+        # (the row's own operation or byte count over the kernel's time)
+        # and the share of the bound they reach
+        rate = ""
+        if r["name"] in TENSOR_CORE_ATTENTION:
+            rate = (f" {r['bytes'] / r['ms'] / 1e6:.1f} GB/s"
+                    if r["bound_by"] == "bytes"
+                    else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+            rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
         print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
               f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "

@@ -286,26 +286,36 @@ def test_flash_plain_tile_edges(hq, hkv, Sq, Skv, D, causal, sq_a, skv_a):
 @pytest.mark.parametrize("hq,hkv,Sq,Skv,D,causal,sq_a,skv_a", _TILE_EDGES)
 def test_flash_bwd_dq_plain_tile_edges(hq, hkv, Sq, Skv, D, causal, sq_a,
                                        skv_a):
-    """K9a's plain version and CPU wrapper against ``jax.grad`` through the
-    JAX package's plain attention on the actual rows and keys (``do`` is
-    zero on the padded rows); 1e-5 in float32, where ds is not rounded."""
+    """K9a's and K9b's plain versions and CPU wrappers against one
+    ``jax.grad`` (with respect to q, k and v) through the JAX package's
+    plain attention on the actual rows and keys (``do`` is zero on the
+    padded rows); 1e-5 in float32, where p and ds are not rounded. Padded
+    keys get zero dk and dv."""
     q, k, v = _edge_inputs(hq, hkv, Sq, Skv, D, 60)
     sq, skv = sq_a or Sq, skv_a or Skv
     do = _normal((1, hq, Sq, D), 63)
     do[:, :, sq:] = 0.0
     mask = "causal" if causal else None
-    want = jax.grad(lambda x: jnp.sum(
-        j_sdpa(x, _bshd(k, skv), _bshd(v, skv), mask) * _bshd(do, sq)))(
-        _bshd(q, sq))
-    want = np.asarray(want).transpose(0, 2, 1, 3)
+    grads = jax.grad(lambda x, y, z: jnp.sum(
+        j_sdpa(x, y, z, mask) * _bshd(do, sq)), argnums=(0, 1, 2))(
+        _bshd(q, sq), _bshd(k, skv), _bshd(v, skv))
+    want_dq, want_dk, want_dv = (np.asarray(g).transpose(0, 2, 1, 3)
+                                 for g in grads)
     tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
     out, lse = flash_attention_bhsd_plain(tq, tk, tv, causal, sq_a, skv_a,
                                           return_lse=True)
     delta = (tdo * out).sum(-1)
+    args = (tq, tk, tv, tdo, lse, delta, causal, sq_a, skv_a)
     for fn in (flash_attention_bwd_dq_plain, flash_attention_bwd_dq):
-        got = fn(tq, tk, tv, tdo, lse, delta, causal, sq_a, skv_a)
+        got = fn(*args)
         assert got.shape == (1, hq, Sq, D)
-        _assert_close(got[:, :, :sq], want, 1e-5)
+        _assert_close(got[:, :, :sq], want_dq, 1e-5)
+    for fn in (flash_attention_bwd_dkv_plain, flash_attention_bwd_dkv):
+        dk, dv = fn(*args)
+        assert dk.shape == dv.shape == (1, hkv, Skv, D)
+        _assert_close(dk[:, :, :skv], want_dk, 1e-5)
+        _assert_close(dv[:, :, :skv], want_dv, 1e-5)
+        assert not dk[:, :, skv:].any() and not dv[:, :, skv:].any()
 
 
 @pytest.mark.parametrize("S", [64, 520])

@@ -8,8 +8,9 @@ the card and without JAX (``tests/conftest.py`` imports it):
 Tolerance: both sides accumulate in f32 and round once to bf16, so they
 may differ by one bf16 ulp (2^-8 relative each way); rtol 2^-6 leaves a
 factor 2, and atol (1e-3 of the largest output) covers outputs that cancel
-to near zero. The flash forward on the short rows of the tile-edge cases
-adds the rounding of its softmax weights (``_check_flash``)."""
+to near zero. The flash forward and the tower attention on the short rows
+of the tile-edge cases add the rounding of their softmax weights
+(``_check_flash``, ``_check_vit``)."""
 
 import pytest
 import torch
@@ -28,10 +29,12 @@ from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bhsd_plain,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq,
     flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
 )
+from a3vlm_tpu_torch.ops import _kernels
 from a3vlm_tpu_torch.ops import quant_matmul as qmm
 from a3vlm_tpu_torch.ops.quant_matmul import int4_matmul, int4_matmul_2d
 from a3vlm_tpu_torch.ops.vit_attention import (
@@ -179,6 +182,32 @@ def test_flash_bwd_dq_edges_cuda(gen, hq, hkv, Sq, Skv, D, causal, sq_a,
     assert torch.equal(got, flash_attention_bwd_dq(*args))
 
 
+@pytest.mark.parametrize("hq,hkv,Sq,Skv,D,causal,sq_a,skv_a", _EDGE_CASES)
+def test_flash_bwd_dkv_edges_cuda(gen, hq, hkv, Sq, Skv, D, causal, sq_a,
+                                  skv_a):
+    """K9b at the tile edges (128 keys to a block, 64 to a warpgroup, 64
+    query rows to a tile) on the plain forward's output and lse: dk and dv
+    against the plain version, exact zeros for keys that no row sees, and
+    two launches agree bit for bit (no atomics)."""
+    q, do = _randn(2, hq, Sq, D, gen=gen), _randn(2, hq, Sq, D, gen=gen)
+    k, v = _randn(2, hkv, Skv, D, gen=gen), _randn(2, hkv, Skv, D, gen=gen)
+    out, lse = flash_attention_bhsd_plain(q, k, v, causal, sq_a, skv_a,
+                                          return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, sq_a, skv_a)
+    before = flash_attention_bwd_dkv.launches
+    dk, dv = flash_attention_bwd_dkv(*args)
+    assert flash_attention_bwd_dkv.launches == before + 1
+    want_dk, want_dv = flash_attention_bwd_dkv_plain(*args)
+    _check(dk, want_dk)
+    _check(dv, want_dv)
+    seen = fa._visible(Sq, Skv, causal, sq_a or Sq, skv_a or Skv,
+                       q.device).any(0)
+    assert not dk[:, :, ~seen].any() and not dv[:, :, ~seen].any()
+    again = flash_attention_bwd_dkv(*args)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
 def test_decode_attention_cuda(gen):
     B, Hkv, G, S, D = 4, 40, 1, 1544, 128
     q = _randn(B, Hkv, G, D, gen=gen)
@@ -294,6 +323,88 @@ def test_cache_dispatch_routes_cuda(gen):
 def test_vit_attention_cuda(gen, H, D):
     q, k, v = (_randn(20, 257, H, D, gen=gen) for _ in range(3))
     _check(vit_attention(q, k, v), vit_attention_plain(q, k, v))
+
+
+def _check_vit(got, want, v):
+    """K10 as ``_check_flash`` holds K2: it rounds the softmax weights to
+    bf16 before the value product and the plain version does not, so a
+    short row of S keys (S <= 150) gets 2^-8 max|v| / sqrt(S) on top of
+    ``_check``'s bound. Longer rows, the towers' 257 among them, hold
+    ``_check``'s bound as it is."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    S = got.shape[1]
+    extra = 2.0 ** -8 * float(v.float().abs().max()) / S ** 0.5
+    bound = (RTOL * want.abs() + 1e-3 * want.abs().max()
+             + (extra if S <= 150 else 0.0))
+    assert bool(((got - want).abs() <= bound).all()), float(
+        (got - want).abs().max())
+
+
+# The edges of K10's tiles: one row, both sides of a 64-row query tile and
+# of a 128-key chunk, the towers' 257 (one key past two chunks) and a
+# ragged end of 44 keys; head dims 32, 64, 88 (6 k16 steps on the 128-wide
+# tile), 128 and 36 (no multiple of 8: the slow load path).
+@pytest.mark.parametrize("B", [5, 20])
+@pytest.mark.parametrize("D", [32, 64, 88, 128, 36])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 257, 300])
+def test_vit_attention_edges_cuda(gen, S, D, B):
+    """q, k and v as the tower gives them, split views of one [B, S, 3W]
+    projection read in place; against the plain version, and two launches
+    agree bit for bit."""
+    H = 3
+    qkv = _randn(B, S, 3 * H * D, gen=gen)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    before = vit_attention.launches
+    got = vit_attention(q, k, v)
+    assert vit_attention.launches == before + 1
+    assert got.shape == (B, S, H, D) and got.is_contiguous()
+    _check_vit(got, vit_attention_plain(q, k, v), v)
+    assert torch.equal(got, vit_attention(q, k, v))
+
+
+@pytest.mark.parametrize("S,D", [(1025, 64), (448, 128)])
+def test_vit_attention_refuses_cuda(gen, S, D):
+    """K10 refuses what it does not take, and the card stays usable: S past
+    its 1024-key barriers, or K and V of one (crop, head) past a block's
+    shared memory (the launch fails), and float32 (the wrapper raises)."""
+    q = _randn(1, S, 1, D, gen=gen)
+    with pytest.raises(RuntimeError):
+        vit_attention(q, q, q)
+    q = _randn(1, 257, 1, D, gen=gen)
+    _check_vit(vit_attention(q, q, q), vit_attention_plain(q, q, q), q)
+    q = _randn(1, 8, 1, 64, gen=gen).float()
+    with pytest.raises(ValueError):
+        vit_attention(q, q, q)
+
+
+@pytest.mark.parametrize("DP", [64, 128])
+def test_wgmma_register_a_probe_cuda(gen, DP):
+    """The register-A products of attention_mma.cuh (csrc/mma_probe.cu):
+    A B^T with A as pack_a fragments against a K-major B, and A B with the
+    fragments against an MN-major B (K2's, K9a's, K9b's and K10's form),
+    each equal bit for bit to the same product with A read from shared
+    memory, over three B tiles with the fragments reused; and both near the
+    f32 product."""
+    a = _randn(64, DP, gen=gen)
+    a2 = _randn(64, 64, gen=gen)
+    b = _randn(3, 64, DP, gen=gen)
+    out = torch.empty(2 * 3 * 64 * 64 + 2 * 3 * 64 * DP, device="cuda")
+    err = _kernels.lib().a3_probe_wgmma(
+        a.data_ptr(), a2.data_ptr(), b.data_ptr(), out.data_ptr(), DP,
+        _kernels.stream())
+    _kernels.check(err, "a3_probe_wgmma")
+    torch.cuda.synchronize()
+    n = 3 * 64 * 64
+    abt_ss, abt_rs = out[:n].view(3, 64, 64), out[n:2 * n].view(3, 64, 64)
+    ab_ss = out[2 * n:2 * n + 3 * 64 * DP].view(3, 64, DP)
+    ab_rs = out[2 * n + 3 * 64 * DP:].view(3, 64, DP)
+    assert torch.equal(abt_rs, abt_ss), float((abt_rs - abt_ss).abs().max())
+    assert torch.equal(ab_rs, ab_ss), float((ab_rs - ab_ss).abs().max())
+    want_abt = a.float() @ b.float().transpose(1, 2)
+    want_ab = a2.float() @ b.float()
+    torch.testing.assert_close(abt_ss, want_abt, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(ab_ss, want_ab, rtol=1e-5, atol=1e-4)
 
 
 # hq, hkv, sq, skv, D: equal, GQA, right-aligned unequal, more rows than

@@ -295,6 +295,23 @@ def test_draft_k_batch_of_two_takes_vanilla_loop(setup):
     assert got == want and tmodel.last_spec_stats == before
 
 
+def test_generate_sets_fresh_last_stats(setup):
+    """The text entry reports its own call, towers included, as
+    ``generate_tokens`` does: ``last_stats`` is replaced, not left from the
+    previous call."""
+    tmodel = setup["tmodel"]
+    tmodel.last_stats = {"stale": True}
+    tmodel.generate([PROMPT], images=torch.tensor(setup["image"]),
+                    max_gen_len=3)
+    stats = tmodel.last_stats
+    assert set(stats) == {"towers_ms", "prefill_ms", "decode_ms",
+                          "decode_steps"}
+    assert stats["towers_ms"] > 0 and stats["decode_steps"] >= 1
+    tmodel.generate([PROMPT], max_gen_len=2)
+    assert tmodel.last_stats is not stats
+    assert set(tmodel.last_stats) == set(stats)
+
+
 @pytest.mark.parametrize("draft_k", [0, 6])
 def test_grammar_constrained_ids_equal_jax(setup, draft_k):
     """The in-loop grammar mask (first token masked at DFA state 0, one
