@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the attention kernels on Hopper (sm_90a):
+// Tensor-core building blocks on Hopper (sm_90a) of the attention kernels,
 // the flash-attention forward (flash_attention.cu, K2), its dq and dk/dv
 // backward (flash_attention_bwd.cu, K9a and K9b) and the tower attention
-// (vit_attention.cu, K10). bf16 tiles in shared memory in the 128-byte
+// (vit_attention.cu, K10), and of the quantized matmuls' tiled route
+// (matmul_common.cuh: K1, K1v3, K11, K6). bf16 tiles in shared memory in the 128-byte
 // swizzle, brought in by asynchronous copies (TMA boxes, or cp.async.cg for
 // the tiles a block loads once), and warpgroup matrix products (wgmma) that
 // read them through matrix descriptors. mma_probe.cu holds the register-A
@@ -121,6 +122,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// One box of a rank-2 tensor map (columns, rows) into shared memory; the
+// copy's bytes complete on ``bar``.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
 // One box of a rank-3 tensor map (columns, rows, heads) into shared memory;
 // the copy's bytes complete on ``bar``. Rows and columns outside the map's
 // extents arrive as zeros.
@@ -163,16 +176,16 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* tile,
                 head);
 }
 
-// Host side: a tensor map of bf16 for boxes of 64 columns (the head dim,
-// dims[0], contiguous) in the 128-byte swizzle; ``strides`` are those of
-// dims[1..rank) in elements. Elements outside ``dims`` read as zeros, so a
-// box past the last row, or columns past D, arrive as zeros. Every stride
-// and the base must be multiples of 16 bytes. cuTensorMapEncodeTiled is
-// looked up in the libcuda that the process has loaded already. Returns a
-// cudaError_t.
-inline int encode_map(CUtensorMap* map, const void* base, int rank,
-                      const cuuint64_t* dims, const long* strides,
-                      const cuuint32_t* box) {
+// Host side: a tensor map of ``dtype`` (elements of ``elem_bytes``) with
+// dims[0] contiguous; ``strides`` are those of dims[1..rank) in elements.
+// Elements outside ``dims`` read as zeros, so a box past the last row or
+// column arrives as zeros. Every stride and the base must be multiples of
+// 16 bytes. cuTensorMapEncodeTiled is looked up in the libcuda that the
+// process has loaded already. Returns a cudaError_t.
+inline int encode_map_of(CUtensorMap* map, CUtensorMapDataType dtype,
+                         int elem_bytes, CUtensorMapSwizzle swizzle,
+                         const void* base, int rank, const cuuint64_t* dims,
+                         const long* strides, const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -185,14 +198,24 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
   }();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t bytes[4];
-  for (int i = 0; i + 1 < rank; ++i) bytes[i] = (cuuint64_t)strides[i] * 2;
+  for (int i = 0; i + 1 < rank; ++i)
+    bytes[i] = (cuuint64_t)strides[i] * elem_bytes;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, dtype, rank, const_cast<void*>(base), dims, bytes, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same for bf16 boxes of 64 columns (128 bytes) in the 128-byte
+// swizzle: the tile layout of the header note.
+inline int encode_map(CUtensorMap* map, const void* base, int rank,
+                      const cuuint64_t* dims, const long* strides,
+                      const cuuint32_t* box) {
+  return encode_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                       CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                       box);
 }
 
 // The map of q, k, v or dO [heads][rows_alloc][D] for boxes of 64 columns x
@@ -401,6 +424,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : A3_ACC8(d, 0), A3_ACC8(d, 8), A3_ACC8(d, 16), A3_ACC8(d, 24),
+        A3_ACC8(d, 32), A3_ACC8(d, 40), A3_ACC8(d, 48), A3_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, both operands from shared memory: A K-major, B MN-major
+// (transpose flag, desc_mnmajor); n = 128.
+__device__ __forceinline__ void wgmma_ss_tb_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
       : A3_ACC8(d, 0), A3_ACC8(d, 8), A3_ACC8(d, 16), A3_ACC8(d, 24),
         A3_ACC8(d, 32), A3_ACC8(d, 40), A3_ACC8(d, 48), A3_ACC8(d, 56)
       : "l"(da), "l"(db), "r"(accumulate));

@@ -16,16 +16,19 @@
 //   TPU kernel does.
 // - MODE_V3: the nibbles go to bf16 unscaled (exact); each run of rows
 //   inside one group is summed on its own in f32, multiplied by the group's
-//   scale, and added to the running sum (the runs are 16 rows per thread
-//   in the GEMV and 32 rows per step in the tiled form, so a 64-row group
-//   is scaled in 4 or 2 pieces; the TPU kernel scales it in one).
+//   scale, and added to the running sum. The GEMV's runs are 16 rows per
+//   thread, so it scales a 64-row group in 4 pieces; the tiled form's step
+//   is 64 rows and lies in one group (group % 64 == 0), so it scales a
+//   group in one piece, as the TPU kernel does.
 // - MODE_GLU: x is formed from two inputs as bf16(sigmoid(g) * g * u) in
 //   f32, the weights are as in MODE_V1, and a residual is added in f32
 //   before the one rounding at the store: res + (silu(g) * u) @ W.
 //
 // What bounds it on an H100: at decode (M = batch <= 32) the weight stream,
-// K*N/2 bytes per call, and nothing else; at prefill (M ~ 6000) the
-// multiply-adds. Two launch shapes follow from that:
+// K*N/2 bytes per call, and nothing else; at prefill (M ~ 1500-6000) the
+// multiply-adds (at M 5948, 5120 x 5120: 0.32 ms at the published 989
+// TFLOP/s bf16 rate against 0.04 ms for its bytes at 3.35 TB/s). Two
+// launch shapes follow from that:
 //
 // - int4_gemv_kernel (small M): a split-K GEMV. A block owns 128 columns and
 //   128 packed rows; its 32 x 8 threads read 4 contiguous bytes each, so a
@@ -34,18 +37,19 @@
 //   per-split f32 partials are summed in a fixed order by a second pass
 //   (splitk_reduce_kernel, which also adds the GLU residual, once), so
 //   results do not change from run to run.
-// - int4_mma_kernel (large M): a 128 x 128 output tile per block; every
-//   32-row K step dequantizes a [32, 128] tile of each half into shared
-//   memory as bf16 and runs mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//   No cp.async, TMA or wgmma yet: a simple right kernel first.
+// - int4_mma_kernel (large M): the Hopper tile of matmul_common.cuh (TMA
+//   ring of x, packed-byte and scale boxes; weights dequantized to bf16 in
+//   shared memory while the previous step's wgmma products run). Per
+//   weight, the dequantization costs a few integer and float instructions
+//   against the 2 BM multiply-adds the tensor cores do with it, so the
+//   block is 256 rows high (128 for v3).
+//   MODE_GLU first forms silu(g) * u once per element (glu_prepass_kernel)
+//   into a scratch that the caller allocates, so that the N / 128 column
+//   blocks that read each element do not form it again.
 
 #include "matmul_common.cuh"
 
 namespace {
-
-constexpr int MODE_V1 = 0;
-constexpr int MODE_V3 = 1;
-constexpr int MODE_GLU = 2;
 
 __device__ __forceinline__ float deq_bf16(int v, float s) {
   return __bfloat162float(__float2bfloat16_rn((float)v * s));
@@ -188,91 +192,31 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
 
 // ---------------------------------------------------------------- large M
 template <int MODE>
-__global__ void __launch_bounds__(MM_THREADS)
-int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ u,
-                const int8_t* __restrict__ q,
-                const float* __restrict__ scale,
-                const __nv_bfloat16* __restrict__ res,
-                __nv_bfloat16* __restrict__ out,
-                int M, int half, int N, int group) {
-  // xs[h]: the two K halves of x; ws[h]: dequantized weights, n-major
-  __shared__ __align__(16) __nv_bfloat16 xs[2][MM_BM][MM_LD];
-  __shared__ __align__(16) __nv_bfloat16 ws[2][MM_BN][MM_LD];
-  const int tid = threadIdx.x;
-  const MmLane t(tid);
-  const int m_blk = blockIdx.y * MM_BM;
-  const int n_blk = blockIdx.x * MM_BN;
-  const size_t kpad = 2 * (size_t)half;
-  const int hg = half / group;
+__global__ void __launch_bounds__(QmmCfg<MODE>::THREADS, 1)
+int4_mma_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap s_map,
+                const float* __restrict__ col_scale,
+                const bf16* __restrict__ res, bf16* __restrict__ out, int M,
+                int half, int N, int group) {
+  qmm_tile<MODE>(&x_map, &q_map, &s_map, col_scale, res, out, M, half, N,
+                 group);
+}
 
-  float acc[4][4][4];
-  mm_zero(acc);
-
-  for (int k0 = 0; k0 < half; k0 += MM_BK) {
-    mm_load_x<MODE == MODE_GLU>(xs[0], x, u, kpad, m_blk, M, k0, half, tid);
-    mm_load_x<MODE == MODE_GLU>(xs[1], x, u, kpad, m_blk, M, half + k0,
-                                (int)kpad, tid);
-    {
-      const int r = tid / (MM_BN / 16);         // 0..31
-      const int c16 = (tid % (MM_BN / 16)) * 16;
-      const int n = n_blk + c16;
-      const int kr = k0 + r;
-      if (n < N) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(q + (size_t)kr * N + n);
-        const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
-        const int gi = kr / group;
-        const float* slo = scale + (size_t)gi * N + n;
-        const float* shi = scale + (size_t)(hg + gi) * N + n;
+// z = bf16(sigmoid(g) * g * u) in f32 (glu_bf16), 8 elements a thread.
+__global__ void __launch_bounds__(256)
+glu_prepass_kernel(const bf16* __restrict__ g, const bf16* __restrict__ u,
+                   bf16* __restrict__ z, size_t n8) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const uint4 a = reinterpret_cast<const uint4*>(g)[i];
+  const uint4 b = reinterpret_cast<const uint4*>(u)[i];
+  const bf16* av = reinterpret_cast<const bf16*>(&a);
+  const bf16* bv = reinterpret_cast<const bf16*>(&b);
+  __align__(16) bf16 o[8];
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int v = bytes[j];
-          const float fl = (float)lo_nibble(v), fh = (float)hi_nibble(v);
-          ws[0][c16 + j][r] =
-              __float2bfloat16_rn(MODE == MODE_V3 ? fl : fl * slo[j]);
-          ws[1][c16 + j][r] =
-              __float2bfloat16_rn(MODE == MODE_V3 ? fh : fh * shi[j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          ws[0][c16 + j][r] = __float2bfloat16_rn(0.f);
-          ws[1][c16 + j][r] = __float2bfloat16_rn(0.f);
-        }
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (MODE == MODE_V3) {
-        // this step's 32 rows lie in one group (group % 32 == 0): their
-        // unscaled f32 sum, times the group's scale, into the running sum
-        float part[4][4][4];
-        mm_zero(part);
-        mm_step(part, xs[h], ws[h], t);
-        const float* srow = scale + (size_t)(h * hg + k0 / group) * N;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = n_blk + t.wn * 32 + ni * 8 + t.tig * 2;
-          const float s0 = col < N ? srow[col] : 0.f;
-          const float s1 = col < N ? srow[col + 1] : 0.f;
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            acc[mi][ni][0] += part[mi][ni][0] * s0;
-            acc[mi][ni][1] += part[mi][ni][1] * s1;
-            acc[mi][ni][2] += part[mi][ni][2] * s0;
-            acc[mi][ni][3] += part[mi][ni][3] * s1;
-          }
-        }
-      } else {
-        mm_step(acc, xs[h], ws[h], t);
-      }
-    }
-    __syncthreads();
-  }
-  mm_store(acc, out, M, N, m_blk, n_blk, t, nullptr,
-           MODE == MODE_GLU ? res : nullptr);
+  for (int e = 0; e < 8; ++e) o[e] = glu_bf16(av[e], bv[e]);
+  reinterpret_cast<uint4*>(z)[i] = *reinterpret_cast<const uint4*>(o);
 }
 
 template <int MODE>
@@ -293,21 +237,6 @@ int launch_gemv(const void* x, const void* u, const void* q, const void* scale,
       static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out),
       splits, M, N, nullptr, nullptr,
       static_cast<const __nv_bfloat16*>(res), s);
-}
-
-template <int MODE>
-int launch_mma(const void* x, const void* u, const void* q, const void* scale,
-               const void* res, void* out, int M, int half, int N, int group,
-               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  int4_mma_kernel<MODE><<<grid, MM_THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(u), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale),
-      static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), M, half, N, group);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -336,26 +265,37 @@ extern "C" int a3_int4_gemv_glu(const void* g, const void* u, const void* q,
                                group, stream);
 }
 
-// Tensor-core tiled product for larger M. half must be a multiple of 32;
-// for the v3 form so must group.
+// Tensor-core tiled product for M > 32: half % 64 == 0, group % 64 == 0,
+// N % 16 == 0, every pointer 16-byte aligned.
 extern "C" int a3_int4_mma(const void* x, const void* q, const void* scale,
                            void* out, int M, int half, int N, int group,
                            void* stream) {
-  return launch_mma<MODE_V1>(x, nullptr, q, scale, nullptr, out, M, half, N,
-                             group, stream);
+  return qmm_launch<MODE_V1>(int4_mma_kernel<MODE_V1>, x, q, scale, nullptr,
+                             out, M, half, N, group,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int a3_int4_mma_v3(const void* x, const void* q, const void* scale,
                               void* out, int M, int half, int N, int group,
                               void* stream) {
-  return launch_mma<MODE_V3>(x, nullptr, q, scale, nullptr, out, M, half, N,
-                             group, stream);
+  return qmm_launch<MODE_V3>(int4_mma_kernel<MODE_V3>, x, q, scale, nullptr,
+                             out, M, half, N, group,
+                             static_cast<cudaStream_t>(stream));
 }
 
+// res + (silu(g) * u) @ W: z [M, 2 * half] bf16 is the caller's scratch for
+// silu(g) * u, formed here once per element before the tile runs over it.
 extern "C" int a3_int4_mma_glu(const void* g, const void* u, const void* q,
-                               const void* scale, const void* res, void* out,
-                               int M, int half, int N, int group,
+                               const void* scale, const void* res, void* z,
+                               void* out, int M, int half, int N, int group,
                                void* stream) {
-  return launch_mma<MODE_GLU>(g, u, q, scale, res, out, M, half, N, group,
-                              stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n8 = (size_t)M * half / 4;  // M * 2 half / 8
+  glu_prepass_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
+      static_cast<bf16*>(z), n8);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return qmm_launch<MODE_GLU>(int4_mma_kernel<MODE_GLU>, z, q, scale, res, out,
+                              M, half, N, group, s);
 }

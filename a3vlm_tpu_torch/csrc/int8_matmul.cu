@@ -19,10 +19,12 @@
 //   of a weight row, so a warp streams 512 bytes of it per step. x is staged
 //   in shared memory as f32; the per-split f32 partials are summed in a
 //   fixed order, and scaled, by splitk_reduce_kernel.
-// - int8_mma_kernel (larger M): a 128 x 128 output tile per block; every
-//   32-row K step turns a [32, 128] tile of q into bf16 in shared memory and
-//   runs mma.sync m16n8k16 (bf16 in, f32 accumulate); the scale is applied at
-//   the store.
+// - int8_mma_kernel (larger M): the Hopper tile of matmul_common.cuh in
+//   MODE_INT8: x and q come in by TMA ([BM][64] bf16 and [64][128] byte
+//   boxes; rows and columns past K, and rows past M, as zeros, so K need
+//   not divide a step), each 64-row step of q becomes bf16 in shared memory
+//   (exact) while the previous step's wgmma products run, and the scale is
+//   applied to the finished f32 sum at the store.
 
 #include "matmul_common.cuh"
 
@@ -100,41 +102,15 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(MM_THREADS)
-int8_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                const int8_t* __restrict__ q,
-                const float* __restrict__ scale,
-                __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) __nv_bfloat16 xs[MM_BM][MM_LD];
-  __shared__ __align__(16) __nv_bfloat16 ws[MM_BN][MM_LD];  // n-major
-  const int tid = threadIdx.x;
-  const MmLane t(tid);
-  const int m_blk = blockIdx.y * MM_BM;
-  const int n_blk = blockIdx.x * MM_BN;
-
-  float acc[4][4][4];
-  mm_zero(acc);
-
-  for (int k0 = 0; k0 < K; k0 += MM_BK) {
-    mm_load_x<false>(xs, x, nullptr, (size_t)K, m_blk, M, k0, K, tid);
-    {
-      const int r = tid / (MM_BN / 16);         // 0..31
-      const int c16 = (tid % (MM_BN / 16)) * 16;
-      const int n = n_blk + c16;
-      const int kr = k0 + r;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (n < N && kr < K)
-        raw = *reinterpret_cast<const uint4*>(q + (size_t)kr * N + n);
-      const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        ws[c16 + j][r] = __float2bfloat16_rn((float)bytes[j]);
-    }
-    __syncthreads();
-    mm_step(acc, xs, ws, t);
-    __syncthreads();
-  }
-  mm_store(acc, out, M, N, m_blk, n_blk, t, scale, nullptr);
+__global__ void __launch_bounds__(QmmCfg<MODE_INT8>::THREADS, 1)
+int8_mma_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap s_map,
+                const float* __restrict__ col_scale,
+                const bf16* __restrict__ res, bf16* __restrict__ out, int M,
+                int K, int N, int group) {
+  qmm_tile<MODE_INT8>(&x_map, &q_map, &s_map, col_scale, res, out, M, K, N,
+                      group);
 }
 
 }  // namespace
@@ -157,14 +133,10 @@ extern "C" int a3_int8_gemv(const void* x, const void* q, const void* scale,
       splits, M, N, static_cast<const float*>(scale), nullptr, nullptr, s);
 }
 
-// Tensor-core tiled product for larger M. K % 8 == 0, N % 16 == 0.
+// Tensor-core tiled product for M > 32: K % 8 == 0, N % 16 == 0, every
+// pointer 16-byte aligned.
 extern "C" int a3_int8_mma(const void* x, const void* q, const void* scale,
                            void* out, int M, int K, int N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  int8_mma_kernel<<<grid, MM_THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, K,
-      N);
-  return (int)cudaGetLastError();
+  return qmm_launch<MODE_INT8>(int8_mma_kernel, x, q, scale, nullptr, out, M,
+                               K, N, 1, static_cast<cudaStream_t>(stream));
 }

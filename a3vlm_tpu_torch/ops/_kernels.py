@@ -43,7 +43,7 @@ _SIGNATURES = {
     "a3_int4_gemv_v3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_mma_v3": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_gemv_glu": [_P] * 7 + [_I, _I, _I, _I, _P],
-    "a3_int4_mma_glu": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "a3_int4_mma_glu": [_P] * 7 + [_I, _I, _I, _I, _P],
     "a3_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "a3_int8_mma": [_P, _P, _P, _P, _I, _I, _I, _P],
     "a3_int4_gemv_a8": [_P] * 6 + [_I, _I, _I, _I, _P],

@@ -5,7 +5,11 @@ csrc/int8_matmul.cu and csrc/int4_matmul_a8.cu).
 Every kernel has a wrapper and a plain PyTorch version beside it. A wrapper
 launches its kernel on CUDA tensors (a split-K GEMV for M <= 32, a
 tensor-core tiled product above) or raises; CPU tensors take the plain
-version, as does ``impl="plain"`` on any device.
+version, as does ``impl="plain"`` on any device. The tiled product
+(csrc/matmul_common.cuh: TMA-fed tiles, wgmma) takes K/2 % 64 == 0 and
+group % 64 == 0 for the int4 modes (a 64-row step of K lies in one group),
+K % 8 == 0 for int8, N % 16 == 0, and 16-byte aligned contiguous operands;
+its wrappers raise on anything else.
 
 Wrappers (each ``name`` has its ``name_plain``) and what they compute:
 
@@ -58,6 +62,14 @@ W4A8_MAX_M = 32
 # the kernel and contract int8 x int8 over the whole K. Not exact: opt-in.
 W8A8_PREFILL = False
 W8A8_PREFILL_MIN_M = 256
+
+# Dense prefill (quant_matmul.py:52): with it set, int4 matmuls with M >= it
+# dequantize the weight and take two dense products, as the JAX package's
+# ``_int4_matmul_xla`` does: each half's product rounds to x's dtype before
+# their sum, where the kernel sums both in float32. None: off.
+PREFILL_DENSE_MIN_M = None
+
+_TILE_MIN = 64  # K rows of a tiled-route weight tile: half, group divide
 
 _W8A8P_LEVELS = 15.875  # 127 / 8: |q4| <= 8 times a ratio <= 15.875
 
@@ -165,6 +177,17 @@ def int4_matmul_2d_glu_plain(g, u, q, scale, res, group: int):
     return (acc + res.float()).to(res.dtype)
 
 
+def int4_matmul_dense(x, q, scale, group: int):
+    """The dense prefill route (``_int4_matmul_xla``, quant_matmul.py:688):
+    each half of the packed weight dequantized to x's dtype (float32 nibble
+    times group scale, rounded once), then two products in x's dtype,
+    ``x[:, :K/2] @ lo + x[:, K/2:] @ hi``. Plain tensor ops on any device,
+    as the JAX package computes it outside any kernel."""
+    half = q.shape[0]
+    w = _dequant_2d(q, scale, group, x.dtype)
+    return x[:, :half] @ w[:half] + x[:, half:] @ w[half:]
+
+
 def int4_matmul_2d_w4a8_plain(x, q, scale, group: int):
     """The W4A8 math (``_int4_w4a8_xla``, quant_matmul.py:467): per-row int8
     activations, exact integer dots per group (in float32: |sum| <=
@@ -234,14 +257,14 @@ def _launch_int4(name: str, mode: str, x, q, scale, group: int, u=None,
             fn = lib.a3_int4_gemv if mode == "v1" else lib.a3_int4_gemv_v3
             err = fn(p(x), p(q), p(scale), p(partial), p(out), *tail)
         return out, err
-    _kernels.require(half % 32 == 0, f"{name}: K/2 must be a multiple of 32 "
-                     "for M > 32")
+    _kernels.require(half % _TILE_MIN == 0 and group % _TILE_MIN == 0,
+                     f"{name}: K/2 ({half}) and group ({group}) must be "
+                     f"multiples of {_TILE_MIN} for M > {GEMV_MAX_M}")
     if mode == "glu":
-        err = lib.a3_int4_mma_glu(p(x), p(u), p(q), p(scale), p(res), p(out),
-                                  *tail)
+        z = torch.empty_like(x)  # silu(g) * u, formed once by the kernel
+        err = lib.a3_int4_mma_glu(p(x), p(u), p(q), p(scale), p(res), p(z),
+                                  p(out), *tail)
     elif mode == "v3":
-        _kernels.require(group % 32 == 0, f"{name}: group must be a "
-                         "multiple of 32 for M > 32")
         err = lib.a3_int4_mma_v3(p(x), p(q), p(scale), p(out), *tail)
     else:
         err = lib.a3_int4_mma(p(x), p(q), p(scale), p(out), *tail)
@@ -265,7 +288,8 @@ int4_matmul_2d_v3.launches = 0
 def int4_matmul_2d(x, q, scale, group: int, variant: str = "auto"):
     """Wrapper of the int4 kernel (quant_matmul.py:496). x [M, Kpad] bf16,
     q [Kpad/2, N] int8, scale [Kpad/group, N] float32, all contiguous;
-    N % 16 == 0; for M > 32 also Kpad/2 % 32 == 0. Returns [M, N] bf16.
+    N % 16 == 0; for M > 32 also Kpad/2 % 64 == 0 and group % 64 == 0.
+    Returns [M, N] bf16.
     ``variant``: "v1", "v3" (``int4_matmul_2d_v3``, which keeps its own
     launch count), or "auto" = ``_AUTO_VARIANT``."""
     if variant == "auto":
@@ -403,16 +427,19 @@ def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto",
                 variant: str = "auto"):
     """x [..., K] @ int4-packed weight -> [..., N] (quant_matmul.py:946):
     x is zero-padded to the packed K. With ``W8A8_PREFILL`` set, M >=
-    ``W8A8_PREFILL_MIN_M`` rows take the W8A8 prefill math; with
-    ``W4A8_DECODE`` set, M <= ``W4A8_MAX_M`` rows take the W4A8 math; the
-    rest take the exact kernel in ``variant``. ``impl="plain"`` takes the
-    same route through the plain versions, on any device. The flags are
-    read at every call."""
+    ``W8A8_PREFILL_MIN_M`` rows take the W8A8 prefill math; then, with
+    ``PREFILL_DENSE_MIN_M`` set, M >= it rows take the dense route
+    (``int4_matmul_dense``); with ``W4A8_DECODE`` set, M <= ``W4A8_MAX_M``
+    rows take the W4A8 math; the rest take the exact kernel in
+    ``variant``. ``impl="plain"`` takes the same route through the plain
+    versions, on any device. The flags are read at every call."""
     lead = x.shape[:-1]
     x2 = _pad_k(x, qw, "int4_matmul")
     M = x2.shape[0]
     if W8A8_PREFILL and M >= W8A8_PREFILL_MIN_M:
         fn, fn_plain = int4_matmul_2d_w8a8p, int4_matmul_2d_w8a8p_plain
+    elif PREFILL_DENSE_MIN_M is not None and M >= PREFILL_DENSE_MIN_M:
+        fn = fn_plain = int4_matmul_dense
     elif W4A8_DECODE and M <= W4A8_MAX_M:
         fn, fn_plain = int4_matmul_2d_w4a8, int4_matmul_2d_w4a8_plain
     elif (_AUTO_VARIANT if variant == "auto" else variant) == "v3":

@@ -7,13 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles the hand-written kernels (a3vlm_tpu_torch/csrc) with
    nvcc and prints the build time and what ptxas reported of the
-   tensor-core attention kernels (K2, K9a, K9b, K10: registers, spills);
-   they must not spill and their wgmma products must not have been
-   serialized.
+   tensor-core kernels (K2, K9a, K9b, K10, the tiled quantized matmuls of
+   K1, K1v3, K11 and K6, and K11's pre-pass: registers, spills); they must
+   not spill and their wgmma products must not have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times, for
-   the tensor-core attention kernels also the achieved rate (TFLOP/s, or
-   GB/s where bytes bound it) and its share of the bound.
+   the tensor-core kernels (the attention kernels, and the quantized
+   matmuls at M > 32) also the achieved rate (TFLOP/s, or GB/s where bytes
+   bound it) and its share of the bound.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -44,7 +45,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain path on a copy of the same cache, and the chunked prefill's logits
    against the one-shot prefill's.
 
-7. quantized modes (modes (i)-(n) run after phase 6 on phase 4's weights,
+7. quantized modes (modes (i)-(o) run after phase 6 on phase 4's weights,
    mode (h) last on a model of its own): one request as in phase 6 through
    ``MetaModel.generate_tokens`` per mode: (h) ``quantize(bits=8)``, the
    int8 kernel on every decoder linear and the head; (i) ``W4A8_DECODE``,
@@ -52,8 +53,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel in prefill; (k) both with ``draft_k = 8``, verify rounds of 8
    rows through the W4A8 and the verify kernels; (l) ``FUSE_FFN_DOWN``, the
    GLU-fused kernel once per layer and forward; (m) the v3 int4 kernel in
-   place of the v1 kernel everywhere; (n) ``quantize(tower_bits=8)`` on a
-   batch of 4, the towers through ``w8a8_matmul``. Each mode's kernel must
+   place of the v1 kernel everywhere; (o) ``PREFILL_DENSE_MIN_M = 256``,
+   the prefill's linears through dequantize + two dense products, whose
+   prefill time is printed beside the kernel route's; (n)
+   ``quantize(tower_bits=8)`` on a batch of 4, the towers through
+   ``w8a8_matmul``. Each mode's kernel must
    have launched exactly as often as its forwards say, the kernel it
    replaces not at all; then the prefill and one decode (or verify) step of
    the kernel path are held against the plain path of the same mode.
@@ -235,8 +239,13 @@ KERNELS = {
 }
 TENSOR_CORE_ATTENTION = ("flash_attention", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv", "vit_attention")
+# the wrappers whose rows at M > GEMV_MAX_M run the tiled wgmma route
+TILED_MATMULS = ("int4_matmul", "int4_matmul_v3", "int4_matmul_glu",
+                 "int8_matmul")
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "vit_attn_kernel")
+                       "flash_bwd_dkv_kernel", "vit_attn_kernel",
+                       "int4_mma_kernel", "int8_mma_kernel",
+                       "glu_prepass_kernel")
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
 LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
@@ -274,9 +283,11 @@ def check_build_log(library, kernels) -> list[str]:
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            hit = re.search(r"(%s)(I\w+?E)EvP" % "|".join(kernels),
+            # a template's arguments (I...E) follow its name, then the E
+            # that closes the namespace
+            hit = re.search(r"(%s)(I\w+?E)?E" % "|".join(kernels),
                             entry.group(1))
-            name = hit.group(1) + hit.group(2) if hit else None
+            name = hit.group(1) + (hit.group(2) or "") if hit else None
         elif name and "spill" in line:
             spills = line.strip()
             if "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -411,8 +422,11 @@ def right_aligned_mask(Sq: int, Skv: int):
 
 
 def check_int4(gen, results):
+    """K1 at every decoder linear at decode (M 4), at one request's
+    prefill, at the QLoRA step's M (2 x 2048) and at the batch-4
+    prefill."""
     cases = []
-    for M in (4, 4 * 1487):
+    for M in (4, 1487, 4096, 4 * 1487):
         for K, N in ((5120, 5120), (5120, 13824), (13824, 5120),
                      (5120, 32000)):
             cases.append((M, K, N))
@@ -1292,7 +1306,7 @@ PER_FORWARD = 40 * 7 + 1
 
 
 def run_quant_modes(card: str, model) -> dict:
-    """Phase 7, modes (i)-(n), on phase 4's int4 model. Returns the launch
+    """Phase 7, modes (i)-(o), on phase 4's int4 model. Returns the launch
     counts summed over the modes' requests (the checks are not counted)."""
     from a3vlm_tpu_torch.models import ens5, llama
 
@@ -1304,6 +1318,7 @@ def run_quant_modes(card: str, model) -> dict:
     ref = req.run("(ref) exact int4", {
         "int4_matmul": lambda s: PER_FORWARD * (1 + s),
         "decode_attention": lambda s: L * s})
+    ref_prefill_ms = model.last_stats["prefill_ms"]
     exact_logits = req.forwards("(ref) exact int4")
 
     def against_exact(label, logits, ids):
@@ -1361,6 +1376,20 @@ def run_quant_modes(card: str, model) -> dict:
         against_exact("(m)", req.forwards("(m) v3"), ids)
     finally:
         qmm._AUTO_VARIANT = saved
+    # (o) the dense prefill route: the prefill's 280 linears (1487 rows)
+    # dequantize their weight and take two dense products; the head (one
+    # row) and every decode step stay on the GEMV. Its prefill time is the
+    # yardstick of the kernel route's.
+    qmm.PREFILL_DENSE_MIN_M = 256
+    try:
+        ids = req.run("(o) PREFILL_DENSE_MIN_M=256", {
+            "int4_matmul": lambda s: 1 + PER_FORWARD * s})
+        print(f"[{card}] quant (o): prefill "
+              f"{model.last_stats['prefill_ms']:.1f} ms on the dense route "
+              f"against {ref_prefill_ms:.1f} ms on the kernel route ((ref))")
+        against_exact("(o)", req.forwards("(o) dense prefill"), ids)
+    finally:
+        qmm.PREFILL_DENSE_MIN_M = None
     # (n) int8 towers on a batch of 4 (20 crops). The towers' containers
     # are copied first: quantization replaces leaves in place, and the
     # training phase wants the dense towers back.
@@ -1570,11 +1599,13 @@ def main(argv=None) -> int:
         check_latency_kernels(gen, results)
         check_vit(gen, results)
     for r in results:
-        # the tensor-core attention kernels also get their achieved rate
+        # the tensor-core kernels also get their achieved rate
         # (the row's own operation or byte count over the kernel's time)
         # and the share of the bound they reach
         rate = ""
-        if r["name"] in TENSOR_CORE_ATTENTION:
+        tiled = (r["name"] in TILED_MATMULS
+                 and int(r["case"].split()[0][2:]) > qmm.GEMV_MAX_M)
+        if r["name"] in TENSOR_CORE_ATTENTION or tiled:
             rate = (f" {r['bytes'] / r['ms'] / 1e6:.1f} GB/s"
                     if r["bound_by"] == "bytes"
                     else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")

@@ -67,9 +67,15 @@ def _check(got, want):
         (got - want).abs().max())
 
 
-@pytest.mark.parametrize("M", [4, 4 * 1487])
-@pytest.mark.parametrize("K,N", [(5120, 5120), (5120, 13824), (13824, 5120),
-                                 (5120, 32000)])
+# The decoder linears of the 13B model (K, N) at decode, one request's
+# prefill, the QLoRA step's M (2 x 2048) and four requests' prefill, then
+# the tiled route's edges (_EDGE_MS x _EDGE_KN, below); a relaunch on the
+# same inputs must give the same bits.
+@pytest.mark.parametrize("M,K,N", [
+    (M, K, N) for M in (4, 1487, 4096, 4 * 1487)
+    for K, N in ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000))
+] + [(M, K, N) for M in (33, 127, 128, 129, 255, 256, 257)
+     for K, N in ((5120, 1200), (13824, 5120))])
 def test_int4_matmul_cuda(gen, M, K, N):
     w = (torch.rand(K, N, generator=gen, device="cuda") * 2 - 1) / K ** 0.5
     qw = _quantize_leaf_int4(w.to(torch.bfloat16))
@@ -78,6 +84,7 @@ def test_int4_matmul_cuda(gen, M, K, N):
     got = int4_matmul(x, qw)
     assert int4_matmul_2d.launches == before + 1
     _check(got, int4_matmul(x, qw, impl="plain"))
+    assert torch.equal(got, int4_matmul(x, qw))
 
 
 def _check_flash(got, want, v, causal, sq_a, skv_a):
@@ -464,11 +471,20 @@ def test_flash_attention_function_grads_cuda(gen):
 
 
 # The quantized-matmul kernels over the edge shapes: M on both sides of the
-# GEMV limit (32) and of the W8A8 prefill threshold (256), an N that is no
-# multiple of a tile (16 * 75 = 1200), K 13824 unpadded for the int8
-# kernel and padded to 14336 for the int4 ones.
-_EDGE_MS = [1, 32, 33, 255, 256, 257]
+# GEMV limit (32), of the tiled route's 128- and 256-row blocks and of the
+# W8A8 prefill threshold (256), one request's prefill and four requests';
+# an N that is no multiple of a tile (16 * 75 = 1200), K 13824 unpadded for
+# the int8 kernel (and K 1000, no multiple of its 128-row step) and padded
+# to 14336 for the int4 ones, and the other decoder linears. The tiled
+# route's blocks are 256 rows high (two warpgroups of 128), 128 for v3; a
+# relaunch on the same inputs must give the same bits (K is summed inside
+# a block, no atomics).
+_EDGE_MS = [1, 32, 33, 127, 128, 129, 255, 256, 257, 1487]
 _EDGE_KN = [(5120, 1200), (13824, 5120)]
+_TILE_CASES = ([(M, K, N) for M in _EDGE_MS for K, N in _EDGE_KN]
+               + [(M, K, N) for M in (1487, 4 * 1487)
+                  for K, N in ((5120, 5120), (5120, 13824), (5120, 32000))]
+               + [(4 * 1487, 13824, 5120)])
 
 
 def _weight(K, N, gen):
@@ -481,8 +497,7 @@ def _padded(x, qw):
     return torch.nn.functional.pad(x, (0, kpad - x.shape[1])).contiguous()
 
 
-@pytest.mark.parametrize("M", _EDGE_MS)
-@pytest.mark.parametrize("K,N", _EDGE_KN)
+@pytest.mark.parametrize("M,K,N", _TILE_CASES + [(300, 1000, 1200)])
 def test_int8_matmul_cuda(gen, M, K, N):
     qw = _quantize_leaf_int8(_weight(K, N, gen))
     x = _randn(M, K, gen=gen)
@@ -490,10 +505,10 @@ def test_int8_matmul_cuda(gen, M, K, N):
     got = qmm.int8_matmul(x, qw)
     assert qmm.int8_matmul_2d.launches == before + 1
     _check(got, qmm.int8_matmul(x, qw, impl="plain"))
+    assert torch.equal(got, qmm.int8_matmul(x, qw))
 
 
-@pytest.mark.parametrize("M", _EDGE_MS)
-@pytest.mark.parametrize("K,N", _EDGE_KN)
+@pytest.mark.parametrize("M,K,N", _TILE_CASES)
 def test_int4_v3_cuda(gen, M, K, N):
     qw = _quantize_leaf_int4(_weight(K, N, gen))
     x = _randn(M, K, gen=gen)
@@ -502,10 +517,10 @@ def test_int4_v3_cuda(gen, M, K, N):
     assert (qmm.int4_matmul_2d_v3.launches, int4_matmul_2d.launches) == (
         before[0] + 1, before[1])
     _check(got, int4_matmul(x, qw, impl="plain", variant="v3"))
+    assert torch.equal(got, int4_matmul(x, qw, variant="v3"))
 
 
-@pytest.mark.parametrize("M", _EDGE_MS)
-@pytest.mark.parametrize("K,N", _EDGE_KN)
+@pytest.mark.parametrize("M,K,N", _TILE_CASES)
 def test_int4_glu_cuda(gen, M, K, N):
     qw = _quantize_leaf_int4(_weight(K, N, gen))
     g, u = _randn(M, K, gen=gen), _randn(M, K, gen=gen)
@@ -514,6 +529,32 @@ def test_int4_glu_cuda(gen, M, K, N):
     got = qmm.int4_ffn_down(g, u, qw, res)
     assert qmm.int4_matmul_2d_glu.launches == before + 1
     _check(got, qmm.int4_ffn_down(g, u, qw, res, impl="plain"))
+    assert torch.equal(got, qmm.int4_ffn_down(g, u, qw, res))
+
+
+def test_tiled_route_refuses_cuda(gen):
+    """Shapes the tiled route does not take raise on the card, and nothing
+    is computed in their place (the launch counts stay): an int4 weight
+    whose group (16) and K/2 (48) are no multiple of a 64-row step, and an
+    int8 K that is no multiple of 8. At M <= 32 the GEMVs take the same
+    int4 weight."""
+    qw = _quantize_leaf_int4(_weight(96, 64, gen))
+    assert (qw.group, qw.q.shape[0]) == (16, 48)
+    names = ("int4_matmul_2d", "int4_matmul_2d_v3", "int4_matmul_2d_glu",
+             "int8_matmul_2d")
+    before = [getattr(qmm, n).launches for n in names]
+    x = _randn(64, 96, gen=gen)
+    with pytest.raises(ValueError):
+        int4_matmul(x, qw)
+    with pytest.raises(ValueError):
+        int4_matmul(x, qw, variant="v3")
+    with pytest.raises(ValueError):
+        qmm.int4_ffn_down(x, x, qw, _randn(64, 64, gen=gen))
+    with pytest.raises(ValueError):
+        qmm.int8_matmul(_randn(64, 100, gen=gen),
+                        _quantize_leaf_int8(_weight(100, 64, gen)))
+    assert [getattr(qmm, n).launches for n in names] == before
+    _check(int4_matmul(x[:32], qw), int4_matmul(x[:32], qw, impl="plain"))
 
 
 @pytest.mark.parametrize("M", [1, 8, 32])

@@ -19,6 +19,8 @@ Tolerances, each with its reason:
   may reassociate the interpreted kernel's two epilogue products).
 - K11 and K1v3 in float32: 1e-4 (float32 sums in another order, and for K11
   the sigmoid's rounding); K11 in bf16: 2^-6 (one bf16 rounding each side).
+- The dense prefill route against ``_int4_matmul_xla``: 1e-5 in float32
+  (the same products, summed in another order), 2^-6 in bf16.
 
 The tiny slice in each mode is ``test_torch_quant_slice.py``.
 """
@@ -336,6 +338,57 @@ def test_dispatcher_routes_by_m(monkeypatch, one_device):
         jax.clear_caches()
     with pytest.raises(ValueError):
         tqm.int4_matmul(_t(xs[4])[:, :100], t4)
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 96, 40), (40, 1100, 48)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_prefill_dense_route_matches_xla(monkeypatch, M, K, N, bf16):
+    """``PREFILL_DENSE_MIN_M`` (quant_matmul.py:52): M >= it takes the
+    dequantize + two dense products of ``_int4_matmul_xla`` (K zero-padded
+    to the packed K first, 1100 -> 2048). Float32: 1e-5 (the same products,
+    summed in another order); bf16: 2^-6 (each product rounds once to bf16
+    on both sides, then one bf16 sum). Below the threshold, and with the
+    flag None, the exact kernel's route is taken."""
+    j4, t4 = _int4_pair(K, N, 80 + K)
+    x = _rand((M, K), 81)
+    kpad = t4.q.shape[0] * 2
+    xp = np.pad(x, ((0, 0), (0, kpad - K)))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    xj = jnp.asarray(xp).astype(jnp.bfloat16 if bf16 else jnp.float32)
+    want = jqm._int4_matmul_xla(xj, j4)
+    assert tqm.PREFILL_DENSE_MIN_M is None
+    monkeypatch.setattr(tqm, "PREFILL_DENSE_MIN_M", M)
+    got = tqm.int4_matmul(_t(x, dtype), t4)
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, tqm.int4_matmul(_t(x, dtype), t4, impl="plain"))
+    if bf16:
+        _check_bf16(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    kernel_route = tqm.int4_matmul_2d_plain(_t(xp, dtype), t4.q, t4.scale,
+                                            t4.group)
+    monkeypatch.setattr(tqm, "PREFILL_DENSE_MIN_M", M + 1)
+    assert torch.equal(tqm.int4_matmul(_t(x, dtype), t4), kernel_route)
+
+
+def test_prefill_dense_route_order(monkeypatch):
+    """The JAX dispatch order (quant_matmul.py:970-983): W8A8 prefill
+    before the dense route, the dense route before W4A8 decode."""
+    _, t4 = _int4_pair(1024, 128, 82)
+    args = (t4.q, t4.scale, t4.group)
+    monkeypatch.setattr(tqm, "PREFILL_DENSE_MIN_M", 8)
+    monkeypatch.setattr(tqm, "W4A8_DECODE", True)
+    x = _t(_rand((16, 1024), 83))
+    assert torch.equal(tqm.int4_matmul(x, t4),
+                       tqm.int4_matmul_dense(x, *args))
+    monkeypatch.setattr(tqm, "W8A8_PREFILL", True)
+    monkeypatch.setattr(tqm, "W8A8_PREFILL_MIN_M", 16)
+    assert torch.equal(tqm.int4_matmul(x, t4),
+                       tqm.int4_matmul_2d_w8a8p_plain(x, *args))
+    x = _t(_rand((4, 1024), 84))
+    assert torch.equal(tqm.int4_matmul(x, t4),
+                       tqm.int4_matmul_2d_w4a8_plain(x, *args))
 
 
 def test_auto_variant_is_read_at_call(monkeypatch):
