@@ -1,7 +1,8 @@
 // Tensor-core building blocks on Hopper (sm_90a) of the attention kernels,
 // the flash-attention forward (flash_attention.cu, K2), its dq and dk/dv
-// backward (flash_attention_bwd.cu, K9a and K9b) and the tower attention
-// (vit_attention.cu, K10), and of the quantized matmuls' tiled route
+// backward (flash_attention_bwd.cu, K9a and K9b), the tower attention
+// (vit_attention.cu, K10) and the verify window (verify_attention.cu, K5
+// and K5q), and of the quantized matmuls' tiled route
 // (matmul_common.cuh: K1, K1v3, K11, K6). bf16 tiles in shared memory in the 128-byte
 // swizzle, brought in by asynchronous copies (TMA boxes, or cp.async.cg for
 // the tiles a block loads once), and warpgroup matrix products (wgmma) that

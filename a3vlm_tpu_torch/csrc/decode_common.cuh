@@ -1,5 +1,5 @@
-// Shared pieces of the split-KV attention kernels over the decode cache
-// (decode_attention.cu, decode_attention_q8.cu, verify_attention.cu): the
+// Shared pieces of the split-KV decode kernels over the decode cache
+// (decode_attention.cu, decode_attention_q8.cu): the
 // tile constants, the row loaders and the pass that combines the per-split
 // partial (max, sum, acc) of an online softmax in base 2 into the output.
 // Every including source gets its own copy (anonymous namespace).

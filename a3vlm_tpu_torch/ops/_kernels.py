@@ -57,9 +57,9 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _F, _P],
     "a3_decode_attend_q8": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "a3_decode_update_attend_q8": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
-    "a3_verify_partials": [_I],
-    "a3_verify_attend": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P],
-    "a3_verify_attend_q8": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
+    "a3_verify_slots": [_I, _I],
+    "a3_verify_attend": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "a3_verify_attend_q8": [_P] * 8 + [_I] * 6 + [_F, _P],
     "a3_vit_attention": [_P] * 4 + [_I] * 4 + [_L] * 3 + [_F, _P],
     "a3_probe_wgmma": [_P] * 4 + [_I, _P],
 }
@@ -146,7 +146,15 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+# The current stream's handle without a Stream object (a few us a call
+# less, on every launch), where this PyTorch has the accessor.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream() -> int:
+    """The handle of the current CUDA stream of the current device."""
+    if _raw_stream is not None:
+        return _raw_stream(torch.cuda.current_device())
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -162,12 +170,15 @@ def require(cond: bool, msg: str) -> None:
 
 def require_cuda(name: str, *tensors: torch.Tensor,
                  dtype: torch.dtype | None = None) -> None:
-    """Device, dtype, contiguity and 16-byte alignment of kernel operands."""
+    """Device, dtype, contiguity and 16-byte alignment of kernel operands.
+    (The messages are formatted only on failure: this runs on every
+    launch.)"""
     for t in tensors:
-        require(t.is_cuda, f"{name}: tensor on {t.device}, want cuda")
-        require(t.is_contiguous(), f"{name}: operand is not contiguous")
-        require(t.data_ptr() % 16 == 0, f"{name}: operand not 16-byte "
-                "aligned")
-        if dtype is not None:
-            require(t.dtype == dtype, f"{name}: dtype {t.dtype}, want "
-                    f"{dtype}")
+        if not t.is_cuda:
+            raise ValueError(f"{name}: tensor on {t.device}, want cuda")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand not 16-byte aligned")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, want {dtype}")

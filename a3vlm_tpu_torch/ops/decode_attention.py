@@ -42,7 +42,8 @@ class QuantizedKV(NamedTuple):
     int8 [B, Hkv, S, D]; ``scale`` float32 [B, Hkv, S], symmetric per
     (batch, head, row). The dequantization folds into the attention at
     score level (s *= kscale per column; p *= vscale before the pv sum), so
-    the kernels never form dequantized panels."""
+    no kernel forms scaled panels (the verify kernel turns the int8 values
+    themselves into bf16 or fp16, which hold them exactly)."""
 
     qv: torch.Tensor
     scale: torch.Tensor
@@ -233,10 +234,10 @@ def verify_attention_quant_plain(q, kq: QuantizedKV, vq: QuantizedKV, valid):
 # ---------------------------------------------------------------------------
 
 
-def _check_cache(name, q_rows, cache_k, cache_v, valid):
-    """Shapes and types the kernels share; q_rows [B, Hkv, R, D]. Returns
-    (B, Hkv, R, S)."""
-    B, Hkv, R, D = q_rows.shape
+def _check_cache(name, q, Hkv, cache_k, cache_v, valid):
+    """Shapes and types the kernels share: q bf16, contiguous, batch first
+    and head dim last; caches [B, Hkv, S, D]. Returns S."""
+    B, D = q.shape[0], q.shape[-1]
     quant = isinstance(cache_k, QuantizedKV)
     _kernels.require(isinstance(cache_v, QuantizedKV) == quant,
                      f"{name}: k and v caches of different kinds")
@@ -247,7 +248,7 @@ def _check_cache(name, q_rows, cache_k, cache_v, valid):
                      and _cache_shape(cache_v) == shape,
                      f"{name}: cache shape")
     _kernels.require(valid.shape == (B,), f"{name}: valid shape")
-    _kernels.require_cuda(name, q_rows, dtype=torch.bfloat16)
+    _kernels.require_cuda(name, q, dtype=torch.bfloat16)
     _kernels.require_cuda(name, valid, dtype=torch.int32)
     if quant:
         _kernels.require(cache_k.scale.shape == (B, Hkv, S)
@@ -258,6 +259,13 @@ def _check_cache(name, q_rows, cache_k, cache_v, valid):
                               dtype=torch.float32)
     else:
         _kernels.require_cuda(name, cache_k, cache_v, dtype=torch.bfloat16)
+    return S
+
+
+def _check_rows(name, q_rows, cache_k, cache_v, valid):
+    """``_check_cache`` for q_rows [B, Hkv, R, D]. Returns (B, Hkv, R, S)."""
+    B, Hkv, R, _ = q_rows.shape
+    S = _check_cache(name, q_rows, Hkv, cache_k, cache_v, valid)
     return B, Hkv, R, S
 
 
@@ -280,7 +288,7 @@ def decode_attention_update(q, cache_k, cache_v, nk, nv, pos, valid):
         return decode_attention_update_plain(q, cache_k, cache_v, nk, nv,
                                              pos, valid)
     name = "decode_attention_update"
-    B, Hkv, G, S = _check_cache(name, q, cache_k, cache_v, valid)
+    B, Hkv, G, S = _check_rows(name, q, cache_k, cache_v, valid)
     D = q.shape[-1]
     _kernels.require(nk.shape == (B, Hkv, D) and nv.shape == nk.shape,
                      f"{name}: new k/v shape")
@@ -313,7 +321,7 @@ def decode_attention(q, k, v, valid):
     name = "decode_attention"
     _kernels.require(q.shape[1] == 1, f"{name}: one query token")
     qg = _group_rows(q, k.shape[1]).contiguous()
-    B, Hkv, G, S = _check_cache(name, qg, k, v, valid)
+    B, Hkv, G, S = _check_rows(name, qg, k, v, valid)
     lib = _kernels.lib()
     part_m, part_l, part_acc, out = _scratch(qg, lib.a3_decode_partials(S))
     err = lib.a3_decode_update_attend(
@@ -340,7 +348,7 @@ def decode_attention_quant(q, kq: QuantizedKV, vq: QuantizedKV, valid):
     name = "decode_attention_quant"
     _kernels.require(q.shape[1] == 1, f"{name}: one query token")
     qg = _group_rows(q, kq.qv.shape[1]).contiguous()
-    B, Hkv, G, S = _check_cache(name, qg, kq, vq, valid)
+    B, Hkv, G, S = _check_rows(name, qg, kq, vq, valid)
     lib = _kernels.lib()
     part_m, part_l, part_acc, out = _scratch(qg, lib.a3_decode_partials(S))
     err = lib.a3_decode_attend_q8(
@@ -374,7 +382,7 @@ def decode_attention_update_quant(q, kq: QuantizedKV, vq: QuantizedKV, xk,
     _kernels.require(q.shape[1] == 1 and xk.shape[1] == 1,
                      f"{name}: one query token")
     qg = _group_rows(q, kq.qv.shape[1]).contiguous()
-    B, Hkv, G, S = _check_cache(name, qg, kq, vq, valid)
+    B, Hkv, G, S = _check_rows(name, qg, kq, vq, valid)
     D = q.shape[-1]
     _kernels.require(xk.shape == (B, 1, Hkv, D) and xv.shape == xk.shape,
                      f"{name}: new k/v shape")
@@ -399,29 +407,64 @@ def decode_attention_update_quant(q, kq: QuantizedKV, vq: QuantizedKV, xk,
 decode_attention_update_quant.launches = 0
 
 VERIFY_KERNEL_MAX_SPAN = 16
+_VERIFY_SLOTS: dict[tuple, int] = {}
+
+
+def verify_splits(B, Hkv, R, S, slots):
+    """How many splits of the cache the verify kernel's grid takes: the
+    most runs of whole 64-key tiles whose blocks (a block holds the R query
+    rows of a head, or 64 of them) the card still holds in one wave
+    (``slots`` resident blocks), and at least one. More splits leave a
+    second, part-empty wave; fewer leave SMs idle."""
+    tiles = -(-S // 64)
+    blocks = B * Hkv * -(-R // 64)
+    want = min(max(slots // blocks, 1), tiles)
+    return -(-tiles // -(-tiles // want))
+
+
+def _verify_slots(lib, device, quant, R):
+    """Resident blocks of the kernel instantiation for R rows, per card
+    (``device`` an index)."""
+    key = (device, quant,
+           8 if R <= 8 else 16 if R <= 16 else 32 if R <= 32 else 64)
+    if key not in _VERIFY_SLOTS:
+        n = lib.a3_verify_slots(int(quant), R)
+        _kernels.check(0 if n > 0 else -n, "a3_verify_slots")
+        _VERIFY_SLOTS[key] = n
+    return _VERIFY_SLOTS[key]
 
 
 def _verify_launch(name, q, cache_k, cache_v, valid):
-    """Shared body of the two verify wrappers: fold the window into the row
-    axis, launch, unfold."""
-    Sq = q.shape[1]
+    """Shared body of the two verify wrappers: q [B, Sq, Hq, D] is read in
+    place and the output is written in the same layout; one scratch buffer
+    holds the partials when the cache is split."""
+    q = q.contiguous()  # as it lies (a no-op for the model's queries)
+    B, Sq, Hq, D = q.shape
     _kernels.require(1 < Sq <= VERIFY_KERNEL_MAX_SPAN,
                      f"{name}: window of {Sq} tokens, want 2..16")
-    qg = _group_rows(q, _cache_shape(cache_k)[1]).contiguous()
-    B, Hkv, R, S = _check_cache(name, qg, cache_k, cache_v, valid)
+    Hkv = _cache_shape(cache_k)[1]
+    _kernels.require(Hq % Hkv == 0, f"{name}: {Hq} query heads over {Hkv} "
+                     "kv heads")
+    S = _check_cache(name, q, Hkv, cache_k, cache_v, valid)
+    G = Hq // Hkv
+    quant = isinstance(cache_k, QuantizedKV)
     lib = _kernels.lib()
-    part_m, part_l, part_acc, out = _scratch(qg, lib.a3_verify_partials(S))
-    tail = (valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), out.data_ptr(), B, Hkv, R, Sq, S,
-            _LOG2E / math.sqrt(q.shape[-1]), _kernels.stream())
-    if isinstance(cache_k, QuantizedKV):
+    P = verify_splits(B, Hkv, G * Sq, S,
+                      _verify_slots(lib, q.get_device(), quant, G * Sq))
+    out = torch.empty_like(q)
+    part = (torch.empty(B * Hkv * G * Sq * P * (D + 2), dtype=torch.float32,
+                        device=q.device) if P > 1 else None)
+    tail = (valid.data_ptr(), None if part is None else part.data_ptr(),
+            out.data_ptr(), B, Hkv, G, Sq, S, P, _LOG2E / math.sqrt(D),
+            _kernels.stream())
+    if quant:
         err = lib.a3_verify_attend_q8(
-            qg.data_ptr(), cache_k.qv.data_ptr(), cache_v.qv.data_ptr(),
+            q.data_ptr(), cache_k.qv.data_ptr(), cache_v.qv.data_ptr(),
             cache_k.scale.data_ptr(), cache_v.scale.data_ptr(), *tail)
     else:
-        err = lib.a3_verify_attend(qg.data_ptr(), cache_k.data_ptr(),
+        err = lib.a3_verify_attend(q.data_ptr(), cache_k.data_ptr(),
                                    cache_v.data_ptr(), *tail)
-    return err, _ungroup_rows(out, Sq)
+    return err, out
 
 
 def verify_attention(q, k, v, valid):

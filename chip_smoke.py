@@ -8,13 +8,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compiles the hand-written kernels (a3vlm_tpu_torch/csrc) with
    nvcc and prints the build time and what ptxas reported of the
    tensor-core kernels (K2, K9a, K9b, K10, the tiled quantized matmuls of
-   K1, K1v3, K11 and K6, and K11's pre-pass: registers, spills); they must
-   not spill and their wgmma products must not have been serialized.
+   K1, K1v3, K11 and K6, K11's pre-pass, and the verify kernel of K5 and
+   K5q: registers, spills); they must not spill and their wgmma products
+   must not have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times, for
    the tensor-core kernels (the attention kernels, and the quantized
    matmuls at M > 32) also the achieved rate (TFLOP/s, or GB/s where bytes
-   bound it) and its share of the bound.
+   bound it) and its share of the bound; for the verify kernels (K5, K5q)
+   the device time of a call (``torch.profiler``), the wrapper's host time
+   per call, the device time's share of the bound and its ratio to the
+   library call.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -245,7 +249,11 @@ TILED_MATMULS = ("int4_matmul", "int4_matmul_v3", "int4_matmul_glu",
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", "vit_attn_kernel",
                        "int4_mma_kernel", "int8_mma_kernel",
-                       "glu_prepass_kernel")
+                       "glu_prepass_kernel", "verify_mma_kernel")
+# the verify rows also get their device time (every kernel of the call),
+# the wrapper's host time per call, the share of the bound and the ratio
+# to the library call
+VERIFY_KERNELS = ("verify_attention", "verify_attention_q8")
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
 LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
@@ -317,10 +325,11 @@ def timed_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
+def device_ms(fn, kernel: str = "", reps: int = 20):
     """Mean device time per call of the kernels whose name holds
-    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls; None when
-    the trace shows no such kernel."""
+    ``kernel`` (all the call launches, by default), from a
+    ``torch.profiler`` trace of ``reps`` calls; None when the trace shows
+    no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -331,10 +340,25 @@ def device_ms(fn, kernel: str, reps: int = 20):
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if kernel in e.key:
+        # device events only (a CPU event may carry its kernels' time)
+        if kernel in e.key and str(e.device_type).endswith("CUDA"):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
     return total / reps / 1e3 if total else None  # microseconds -> ms
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time per call of ``fn`` (the wrapper's Python, checks,
+    allocations and launches), on the host clock with no synchronisation
+    inside the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / reps * 1e3
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -733,8 +757,10 @@ def check_latency_kernels(gen, results):
     plain versions: the attend-only bf16 kernel (equal to the fused
     kernel's output bit for bit), the int8 kernels (the fused one leaving
     caches bit-identical to the plain version's) and the verify kernels at
-    spans 2, 8 and 16; batch 1 and 4, GQA, a cache length that is no
-    multiple of 256, ragged ``pos`` and ``valid``."""
+    spans 2, 5, 8 and 16 (with their device time from a ``torch.profiler``
+    trace and the wrapper's host time per call); batch 1 and 4, GQA, a
+    cache length that is no multiple of 256, ragged ``pos`` and
+    ``valid``."""
     D = 128
     for B, Hkv, G, S in ((1, 40, 1, 1544), (4, 40, 1, 1544),
                          (4, 8, 5, 1544), (2, 40, 1, 1000)):
@@ -811,34 +837,31 @@ def check_latency_kernels(gen, results):
                q8_bytes + nbytes(xk, xv) + 2 * B * Hkv * (D + 4),
                4 * D * Hq * rows, library)
 
-        for span in (8, 2, 16):  # 8 first: the latency path's draft_k
+        for span in (8, 2, 5, 16):  # 8 first: the latency path's draft_k
             qs = randn(B, span, Hq, D, gen=gen)
             qsb = qs.transpose(1, 2)
             mask = valid_mask(valid, S, span)
             seen = int(mask.sum())  # visible (row, column) pairs per head
             vcase = f"span={span} {case}"
-            got = verify_attention(qs, ck, cv, valid)
-            err = compare(f"verify {vcase}", got,
-                          verify_attention_plain(qs, ck, cv, valid))
-            record(results, "verify_attention", vcase, err,
-                   timed_ms(lambda: verify_attention(qs, ck, cv, valid),
-                            reps=20),
-                   timed_ms(lambda: verify_attention_plain(qs, ck, cv, valid),
-                            reps=20),
-                   2 * rows * Hkv * D * 2 + nbytes(qs, got),
-                   4 * D * Hq * seen,
-                   sdpa_ms(qsb, ck, cv, mask=mask, reps=20))
-            got = verify_attention_quant(qs, kq, vq, valid)
-            err = compare(f"int8 verify {vcase}", got,
-                          verify_attention_quant_plain(qs, kq, vq, valid))
-            record(results, "verify_attention_q8", vcase, err,
-                   timed_ms(lambda: verify_attention_quant(qs, kq, vq, valid),
-                            reps=20),
-                   timed_ms(lambda: verify_attention_quant_plain(
-                       qs, kq, vq, valid), reps=20),
-                   2 * rows * Hkv * (D + 4) + nbytes(qs, got),
-                   4 * D * Hq * seen,
-                   sdpa_ms(qsb, kd, vd, mask=mask, reps=20))
+            for name, fn, plain, k, v, lk, lv, row_bytes in (
+                    ("verify_attention", verify_attention,
+                     verify_attention_plain, ck, cv, ck, cv, D * 2),
+                    ("verify_attention_q8", verify_attention_quant,
+                     verify_attention_quant_plain, kq, vq, kd, vd, D + 4)):
+                got = fn(qs, k, v, valid)
+                err = compare(f"{name} {vcase}", got,
+                              plain(qs, k, v, valid))
+                record(results, name, vcase, err,
+                       timed_ms(lambda: fn(qs, k, v, valid), reps=20),
+                       timed_ms(lambda: plain(qs, k, v, valid), reps=20),
+                       2 * rows * Hkv * row_bytes + nbytes(qs, got),
+                       4 * D * Hq * seen,
+                       sdpa_ms(qsb, lk, lv, mask=mask, reps=20))
+                # every kernel of the call: the verify kernel and its
+                # combine pass (and any copy the wrapper launches)
+                results[-1]["device_ms"] = device_ms(
+                    lambda: fn(qs, k, v, valid))
+                results[-1]["host_ms"] = host_ms(lambda: fn(qs, k, v, valid))
 
 
 def check_vit(gen, results):
@@ -1610,6 +1633,13 @@ def main(argv=None) -> int:
                     if r["bound_by"] == "bytes"
                     else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
             rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
+        if r["name"] in VERIFY_KERNELS:
+            dev = r["device_ms"]
+            rate = (f" device {dev:.4f} ms ({r['bound_ms'] / dev:.0%} of "
+                    f"bound, {dev / r['library_ms']:.2f}x library)"
+                    if dev else " device not measured")
+            rate += (f" host {r['host_ms']:.4f} ms a call; kernel "
+                     f"{r['ms'] / r['library_ms']:.2f}x library")
         print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
               f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "

@@ -27,6 +27,7 @@ from a3vlm_tpu.ops import quant_matmul as jqm
 from a3vlm_tpu.ops.attention import sdpa_reference as j_sdpa
 from a3vlm_tpu.ops.vit_attention import vit_attention as j_vit_attention
 from a3vlm_tpu.quant import QuantizedWeight as JQuantizedWeight
+from a3vlm_tpu_torch.ops import decode_attention as dec
 from a3vlm_tpu_torch.ops.decode_attention import (
     QuantizedKV,
     decode_attention,
@@ -499,7 +500,7 @@ def test_decode_quant_plain_matches_pallas(S, G, dtype):
             assert diff.max() <= 1 and (diff != 0).sum() <= 4
 
 
-@pytest.mark.parametrize("span", [2, 8])
+@pytest.mark.parametrize("span", [2, 5, 8, 16])
 @pytest.mark.parametrize("S,G,dtype", _CACHE_CASES)
 def test_verify_plain_matches_pallas(S, G, dtype, span):
     """The verify window over a dense and an int8 cache against
@@ -532,6 +533,26 @@ def test_verify_plain_matches_pallas(S, G, dtype, span):
     for fn in (verify_attention_quant_plain, verify_attention_quant):
         _assert_close(fn(tq, kq, vq, tvalid).float(), want,
                       _tol(want, dtype))
+
+
+# (slots: resident blocks on a 132-SM card; 2 a SM for the bf16 kernel at
+# R <= 32, 3 for the int8 one, 1 and 2 at R = 64)
+@pytest.mark.parametrize("B,Hkv,R,S,slots,want", [
+    (1, 40, 8, 1544, 264, 5), (1, 40, 8, 1544, 396, 9),
+    (4, 40, 16, 1544, 264, 1), (4, 40, 16, 1544, 396, 2),
+    (1, 40, 16, 1544, 264, 5), (4, 8, 80, 1544, 132, 2),
+    (4, 8, 80, 1544, 264, 4), (1, 8, 128, 1000, 132, 8),
+    (2, 2, 10, 520, 264, 9), (64, 40, 8, 1544, 396, 1),
+    (1, 1, 200, 60, 132, 1)])
+def test_verify_splits(B, Hkv, R, S, slots, want):
+    """The verify kernel's split count: the most runs of whole 64-key
+    tiles whose blocks still fit the card in one wave, at least one; no
+    split empty, every tile in one."""
+    P = dec.verify_splits(B, Hkv, R, S, slots)
+    assert P == want
+    tiles = -(-S // 64)
+    per = -(-tiles // P)
+    assert (P - 1) * per < tiles <= P * per
 
 
 @pytest.mark.parametrize("H,D", [(4, 64), (2, 88)])

@@ -288,8 +288,45 @@ def test_decode_attention_int8_cuda(gen, B, Hkv, G, S):
     assert not bool((changed & ~expect).any())
 
 
-@pytest.mark.parametrize("span", [2, 8, 16])
-@pytest.mark.parametrize("B,Hkv,G,S", _CACHE_SHAPES)
+# The verify kernels hold ``_check``'s bound on every row, short ones too:
+# they carry the softmax weights as a high and a low part (~16 bits) into
+# the value product, so they do not move rows off the plain versions' f32
+# weights as K2's bf16 weights do (``_check_flash``).
+def _verify_both(q, ck, cv, valid):
+    """Both verify kernels against their plain versions: the launch
+    counters move by one each, a relaunch gives the same bits, and window
+    rows that see no key give zeros. Returns the two outputs."""
+    kq, vq = _quantized(ck, cv)
+    outs = []
+    for fn, plain, k, v in (
+            (dec.verify_attention, dec.verify_attention_plain, ck, cv),
+            (dec.verify_attention_quant, dec.verify_attention_quant_plain,
+             kq, vq)):
+        before = fn.launches
+        got = fn(q, k, v, valid)
+        assert fn.launches == before + 1
+        _check(got, plain(q, k, v, valid))
+        assert torch.equal(got, fn(q, k, v, valid))
+        span = q.shape[1]
+        blind = (valid.long()[:, None] - span + 1
+                 + torch.arange(span, device=q.device)[None, :]) <= 0
+        assert not got[blind].any()
+        outs.append(got)
+    return outs
+
+
+# The main path's caches (batch 1 and 4, 40 kv heads, S 1544), GQA with R =
+# 80 (G 5, span 16), R = 128 (G 8, span 16) and R > 64 at span 9, S that is
+# no multiple of 64 (1000) and none of 4 (1001: the int8 scale rows are not
+# 16-byte aligned), a cache shorter than one 64-key tile (60), and R up to
+# 320 (G 20: five row groups of 64).
+_VERIFY_SHAPES = [(1, 40, 1, 1544), (4, 40, 1, 1544), (4, 8, 5, 1544),
+                  (2, 40, 1, 1000), (2, 5, 8, 1001), (2, 8, 1, 60),
+                  (1, 2, 20, 200)]
+
+
+@pytest.mark.parametrize("span", [2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("B,Hkv,G,S", _VERIFY_SHAPES)
 def test_verify_attention_cuda(gen, B, Hkv, G, S, span):
     """The verify kernels over the dense and the int8 cache; one row of the
     batch has fewer valid rows than the window, so its first query rows see
@@ -297,12 +334,61 @@ def test_verify_attention_cuda(gen, B, Hkv, G, S, span):
     q, ck, cv, _, _, pos = _cache_case(gen, B, Hkv, G, S, span=span)
     valid = pos + 1
     valid[-1] = span - 1
-    got = dec.verify_attention(q, ck, cv, valid)
-    _check(got, dec.verify_attention_plain(q, ck, cv, valid))
-    assert float(got[-1, 0].abs().max()) == 0.0
+    _verify_both(q, ck, cv, valid)
+
+
+# valid[b] just below, at and above a 64-key tile edge and a split edge.
+# At Hkv 40 and S 1544 an H100 (132 SMs; two bf16 blocks resident a SM,
+# three int8 ones) takes, at batch 1, 5 splits of 5 tiles (bf16, edges
+# every 320 keys) and 9 of 3 (int8, every 192); at batch 4 one (bf16) and
+# two of 13 (int8, the edge at 832); and the whole cache.
+@pytest.mark.parametrize("span", [8, 16])
+@pytest.mark.parametrize("B,valid", [
+    (1, [63]), (1, [64]), (1, [65]), (1, [255]), (1, [256]), (1, [257]),
+    (1, [319]), (1, [320]), (1, [321]), (1, [1544]),
+    (4, [831, 832, 833, 1537]), (4, [191, 192, 193, 17])])
+def test_verify_attention_edges_cuda(gen, B, valid, span):
+    Hkv, S = 40, 1544
+    q, ck, cv, _, _, _ = _cache_case(gen, B, Hkv, 1, S, span=span)
+    _verify_both(q, ck, cv, torch.tensor(valid, dtype=torch.int32,
+                                         device="cuda"))
+
+
+@pytest.mark.parametrize("B,Hkv,G,S", [(1, 40, 1, 1544), (4, 8, 5, 1001)])
+def test_verify_attention_ignores_rows_past_valid_cuda(gen, B, Hkv, G, S):
+    """Cache rows at or past valid[b] hold NaN (bf16) or NaN scales (int8):
+    the outputs equal the plain versions' over the same cache with those
+    rows zeroed, so nothing past the window reaches them."""
+    span = 8
+    q, ck, cv, _, _, pos = _cache_case(gen, B, Hkv, G, S, span=span)
+    valid = pos - 40
+    past = (torch.arange(S, device="cuda")[None, :]
+            >= valid.long()[:, None])[:, None, :].expand(B, Hkv, S)
     kq, vq = _quantized(ck, cv)
-    _check(dec.verify_attention_quant(q, kq, vq, valid),
-           dec.verify_attention_quant_plain(q, kq, vq, valid))
+    zk, zv = ck.masked_fill(past[..., None], 0), cv.masked_fill(
+        past[..., None], 0)
+    _check(dec.verify_attention(q, ck.masked_fill(
+        past[..., None], float("nan")), cv.masked_fill(
+        past[..., None], float("nan")), valid),
+           dec.verify_attention_plain(q, zk, zv, valid))
+    nk = QuantizedKV(kq.qv, kq.scale.masked_fill(past, float("nan")))
+    nv = QuantizedKV(vq.qv, vq.scale.masked_fill(past, float("nan")))
+    zk = QuantizedKV(kq.qv, kq.scale.masked_fill(past, 0))
+    zv = QuantizedKV(vq.qv, vq.scale.masked_fill(past, 0))
+    _check(dec.verify_attention_quant(q, nk, nv, valid),
+           dec.verify_attention_quant_plain(q, zk, zv, valid))
+
+
+def test_verify_attention_refuses_cuda(gen):
+    """What the verify kernels cannot take raises on the card: a window of
+    one or 17 tokens, a head dim other than 128, float32 queries."""
+    q, ck, cv, _, _, pos = _cache_case(gen, 1, 8, 1, 256, span=17)
+    for bad in (q, q[:, :1], q.float()):
+        with pytest.raises(ValueError):
+            dec.verify_attention(bad, ck, cv, pos + 1)
+    with pytest.raises(ValueError):
+        dec.verify_attention(q[:, :8, :, :64].contiguous(), ck[..., :64],
+                             cv[..., :64], pos + 1)
 
 
 def test_cache_dispatch_routes_cuda(gen):
