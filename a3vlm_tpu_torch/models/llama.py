@@ -287,11 +287,13 @@ def decode_step(params: Params, args: ModelArgs, cache: KVCache,
     logits, cache)."""
     B = token.shape[0]
     h = embed_tokens(params, token)
+    # the write row and the visible prefix, built once a step for every
+    # layer's fused write + attend
     kv_valid = torch.full((B,), seq_pos + 1, dtype=torch.int32,
                           device=h.device)
     positions = torch.tensor([seq_pos], device=h.device)
     h, cache = forward_hidden(params, args, h, positions, None, cache=cache,
-                              write_pos=seq_pos, kv_valid_len=kv_valid,
+                              write_pos=kv_valid - 1, kv_valid_len=kv_valid,
                               impl=impl)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
     logits = qmat(h[:, -1, :], params["output"]["weight"], impl)

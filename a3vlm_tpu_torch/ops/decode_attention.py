@@ -262,21 +262,90 @@ def _check_cache(name, q, Hkv, cache_k, cache_v, valid):
     return S
 
 
-def _check_rows(name, q_rows, cache_k, cache_v, valid):
-    """``_check_cache`` for q_rows [B, Hkv, R, D]. Returns (B, Hkv, R, S)."""
-    B, Hkv, R, _ = q_rows.shape
-    S = _check_cache(name, q_rows, Hkv, cache_k, cache_v, valid)
-    return B, Hkv, R, S
+DECODE_MAX_CLUSTER = 8
+# cache rows a stage of the decode kernel copies: bf16, int8
+DECODE_STAGE_ROWS = (32, 64)
+_DECODE_SLOTS: dict[tuple, int] = {}
 
 
-def _scratch(q_rows, P):
-    """Per-row partial (max, sum, acc) buffers and the output."""
-    B, Hkv, R, D = q_rows.shape
-    part_m = torch.empty((B, Hkv, R, P), dtype=torch.float32,
-                         device=q_rows.device)
-    part_acc = torch.empty((B, Hkv, R, P, D), dtype=torch.float32,
-                           device=q_rows.device)
-    return part_m, torch.empty_like(part_m), part_acc, torch.empty_like(q_rows)
+def _decode_rows_per_block(G) -> int:
+    """Query rows a block of the decode kernel holds: G rounded up to 1, 2,
+    4 or 8 (more than 8 take more blocks)."""
+    return 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8
+
+
+def decode_splits(B, Hkv, G, S, slots):
+    """Blocks of the decode kernel's cluster for each (batch row, kv head,
+    group of up to 8 query rows): the largest of 1, 2, 4 and 8 whose blocks
+    the card still holds in one wave (``slots`` resident blocks), with at
+    least 64 cache rows a block. More leave a second, part-empty wave;
+    fewer leave SMs idle."""
+    blocks = B * Hkv * -(-G // 8)
+    want = min(max(slots // blocks, 1), DECODE_MAX_CLUSTER, -(-S // 64))
+    C = 1
+    while 2 * C <= want:
+        C *= 2
+    return C
+
+
+def _decode_slots(lib, device, quant, G):
+    """Resident blocks of the decode kernel for G query rows a kv head,
+    per card (``device`` an index)."""
+    key = (device, quant, _decode_rows_per_block(G))
+    if key not in _DECODE_SLOTS:
+        n = (lib.a3_decode_slots_q8 if quant else lib.a3_decode_slots)(G)
+        _kernels.check(0 if n > 0 else -n, "a3_decode_slots")
+        _DECODE_SLOTS[key] = n
+    return _DECODE_SLOTS[key]
+
+
+def _decode_launch(name, q, G, cache_k, cache_v, valid, nk=None, nv=None,
+                   pos=None):
+    """Shared body of the four decode wrappers. q holds the G query rows of
+    each kv head in the kernel's order, [B, Hkv, G, D] or (one query token)
+    [B, 1, Hkv * G, D], the same memory; with ``pos``, nk/nv hold the new
+    row of each kv head ([B, Hkv, D] or [B, 1, Hkv, D]) and are written at
+    row pos[b] first. One launch, one allocation: the output, in q's shape.
+    Returns (cudaError_t, out)."""
+    Hkv = _cache_shape(cache_k)[1]
+    S = _check_cache(name, q, Hkv, cache_k, cache_v, valid)
+    B, D = q.shape[0], q.shape[-1]
+    _kernels.require(q.numel() == B * Hkv * G * D,
+                     f"{name}: q shape {tuple(q.shape)} for {Hkv} kv heads")
+    if pos is not None:
+        _kernels.require(nk.numel() == B * Hkv * D and nv.shape == nk.shape
+                         and nk.shape[0] == B and nk.shape[-1] == D,
+                         f"{name}: new k/v shape")
+        _kernels.require(pos.shape == (B,), f"{name}: pos shape")
+        _kernels.require_cuda(name, nk, nv, dtype=torch.bfloat16)
+        _kernels.require_cuda(name, pos, dtype=torch.int32)
+        new = (nk.data_ptr(), nv.data_ptr(), pos.data_ptr())
+    else:
+        new = (None, None, None)
+    quant = isinstance(cache_k, QuantizedKV)
+    lib = _kernels.lib()
+    C = decode_splits(B, Hkv, G, S,
+                      _decode_slots(lib, q.get_device(), quant, G))
+    out = torch.empty_like(q)
+    tail = (*new, valid.data_ptr(), out.data_ptr(), B, Hkv, G, S, C,
+            _LOG2E / math.sqrt(D), _kernels.stream())
+    if quant:
+        err = lib.a3_decode_attend_q8(
+            q.data_ptr(), cache_k.qv.data_ptr(), cache_v.qv.data_ptr(),
+            cache_k.scale.data_ptr(), cache_v.scale.data_ptr(), *tail)
+    else:
+        err = lib.a3_decode_attend(q.data_ptr(), cache_k.data_ptr(),
+                                   cache_v.data_ptr(), *tail)
+    return err, out
+
+
+def _query_group(name, q, cache_k):
+    """G of a one-token query q [B, 1, Hq, D] over the cache's kv heads."""
+    Hq, Hkv = q.shape[2], _cache_shape(cache_k)[1]
+    _kernels.require(q.dim() == 4 and q.shape[1] == 1 and Hq % Hkv == 0,
+                     f"{name}: one query token of {Hq} heads over {Hkv} kv "
+                     "heads")
+    return Hq // Hkv
 
 
 def decode_attention_update(q, cache_k, cache_v, nk, nv, pos, valid):
@@ -288,23 +357,12 @@ def decode_attention_update(q, cache_k, cache_v, nk, nv, pos, valid):
         return decode_attention_update_plain(q, cache_k, cache_v, nk, nv,
                                              pos, valid)
     name = "decode_attention_update"
-    B, Hkv, G, S = _check_rows(name, q, cache_k, cache_v, valid)
-    D = q.shape[-1]
-    _kernels.require(nk.shape == (B, Hkv, D) and nv.shape == nk.shape,
-                     f"{name}: new k/v shape")
-    _kernels.require(pos.shape == (B,), f"{name}: pos shape")
-    _kernels.require_cuda(name, nk, nv, dtype=torch.bfloat16)
-    _kernels.require_cuda(name, pos, dtype=torch.int32)
-    lib = _kernels.lib()
-    part_m, part_l, part_acc, out = _scratch(q, lib.a3_decode_partials(S))
-    err = lib.a3_decode_update_attend(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), nk.data_ptr(),
-        nv.data_ptr(), pos.data_ptr(), valid.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, Hkv, G, S,
-        _LOG2E / math.sqrt(D), _kernels.stream(),
-    )
+    _kernels.require(q.dim() == 4 and q.shape[1] == cache_k.shape[1],
+                     f"{name}: q [B, Hkv, G, D]")
+    err, out = _decode_launch(name, q, q.shape[2], cache_k, cache_v, valid,
+                              nk, nv, pos)
     decode_attention_update.launches += 1
-    _kernels.check(err, "a3_decode_update_attend")
+    _kernels.check(err, "a3_decode_attend")
     return out
 
 
@@ -319,20 +377,11 @@ def decode_attention(q, k, v, valid):
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid)
     name = "decode_attention"
-    _kernels.require(q.shape[1] == 1, f"{name}: one query token")
-    qg = _group_rows(q, k.shape[1]).contiguous()
-    B, Hkv, G, S = _check_rows(name, qg, k, v, valid)
-    lib = _kernels.lib()
-    part_m, part_l, part_acc, out = _scratch(qg, lib.a3_decode_partials(S))
-    err = lib.a3_decode_update_attend(
-        qg.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
-        valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), B, Hkv, G, S,
-        _LOG2E / math.sqrt(q.shape[-1]), _kernels.stream(),
-    )
+    q = q.contiguous()  # as it lies (a no-op for the model's queries)
+    err, out = _decode_launch(name, q, _query_group(name, q, k), k, v, valid)
     decode_attention.launches += 1
-    _kernels.check(err, "a3_decode_update_attend")
-    return _ungroup_rows(out, 1)
+    _kernels.check(err, "a3_decode_attend")
+    return out
 
 
 decode_attention.launches = 0
@@ -346,21 +395,12 @@ def decode_attention_quant(q, kq: QuantizedKV, vq: QuantizedKV, valid):
     if q.device.type == "cpu":
         return decode_attention_quant_plain(q, kq, vq, valid)
     name = "decode_attention_quant"
-    _kernels.require(q.shape[1] == 1, f"{name}: one query token")
-    qg = _group_rows(q, kq.qv.shape[1]).contiguous()
-    B, Hkv, G, S = _check_rows(name, qg, kq, vq, valid)
-    lib = _kernels.lib()
-    part_m, part_l, part_acc, out = _scratch(qg, lib.a3_decode_partials(S))
-    err = lib.a3_decode_attend_q8(
-        qg.data_ptr(), kq.qv.data_ptr(), vq.qv.data_ptr(),
-        kq.scale.data_ptr(), vq.scale.data_ptr(), valid.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, Hkv, G, S, _LOG2E / math.sqrt(q.shape[-1]),
-        _kernels.stream(),
-    )
+    q = q.contiguous()
+    err, out = _decode_launch(name, q, _query_group(name, q, kq), kq, vq,
+                              valid)
     decode_attention_quant.launches += 1
     _kernels.check(err, "a3_decode_attend_q8")
-    return _ungroup_rows(out, 1)
+    return out
 
 
 decode_attention_quant.launches = 0
@@ -379,29 +419,14 @@ def decode_attention_update_quant(q, kq: QuantizedKV, vq: QuantizedKV, xk,
         return decode_attention_update_quant_plain(q, kq, vq, xk, xv, pos,
                                                    valid)
     name = "decode_attention_update_quant"
-    _kernels.require(q.shape[1] == 1 and xk.shape[1] == 1,
-                     f"{name}: one query token")
-    qg = _group_rows(q, kq.qv.shape[1]).contiguous()
-    B, Hkv, G, S = _check_rows(name, qg, kq, vq, valid)
-    D = q.shape[-1]
-    _kernels.require(xk.shape == (B, 1, Hkv, D) and xv.shape == xk.shape,
-                     f"{name}: new k/v shape")
-    _kernels.require(pos.shape == (B,), f"{name}: pos shape")
-    nk, nv = xk.reshape(B, Hkv, D), xv.reshape(B, Hkv, D)
-    _kernels.require_cuda(name, nk, nv, dtype=torch.bfloat16)
-    _kernels.require_cuda(name, pos, dtype=torch.int32)
-    lib = _kernels.lib()
-    part_m, part_l, part_acc, out = _scratch(qg, lib.a3_decode_partials(S))
-    err = lib.a3_decode_update_attend_q8(
-        qg.data_ptr(), kq.qv.data_ptr(), vq.qv.data_ptr(),
-        kq.scale.data_ptr(), vq.scale.data_ptr(), nk.data_ptr(),
-        nv.data_ptr(), pos.data_ptr(), valid.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, Hkv, G, S,
-        _LOG2E / math.sqrt(D), _kernels.stream(),
-    )
+    q, xk, xv = q.contiguous(), xk.contiguous(), xv.contiguous()
+    _kernels.require(xk.dim() == 4 and xk.shape[1] == 1,
+                     f"{name}: new k/v of one token")
+    err, out = _decode_launch(name, q, _query_group(name, q, kq), kq, vq,
+                              valid, xk, xv, pos)
     decode_attention_update_quant.launches += 1
-    _kernels.check(err, "a3_decode_update_attend_q8")
-    return _ungroup_rows(out, 1)
+    _kernels.check(err, "a3_decode_attend_q8")
+    return out
 
 
 decode_attention_update_quant.launches = 0
@@ -536,6 +561,18 @@ def fused_eligible(xq, cache_k, mask, kv_valid_len) -> bool:
     )
 
 
+def _int32_rows(x, B, device):
+    """``x`` as a contiguous int32 [B] tensor: itself when it is one
+    (``decode_step`` builds pos and valid once a step, so the layers cast
+    and allocate nothing); else an int or a [1] tensor broadcast."""
+    if isinstance(x, torch.Tensor):
+        if (x.dtype == torch.int32 and x.shape == (B,)
+                and x.is_contiguous()):
+            return x
+        return x.to(torch.int32).expand(B).contiguous()
+    return torch.full((B,), x, dtype=torch.int32, device=device)
+
+
 # False forces the two-step path: write, then attend (the attend-only
 # kernels). Read at call time.
 FUSE_UPDATE_ATTEND = True
@@ -555,23 +592,18 @@ def update_and_attend_decode_cache(xq, cache_k, cache_v, xk, xv, write_pos,
     if (FUSE_UPDATE_ATTEND and impl in ("auto", "flash")
             and valid_static is None and xk.shape[1] == 1
             and fused_eligible(xq, cache_k, mask, kv_valid_len)):
-        if isinstance(write_pos, torch.Tensor):
-            pos = write_pos.to(torch.int32).expand(B).contiguous()
-        else:
-            pos = torch.full((B,), write_pos, dtype=torch.int32,
-                             device=xq.device)
-        valid = kv_valid_len.to(torch.int32).contiguous()
+        pos = _int32_rows(write_pos, B, xq.device)
+        valid = _int32_rows(kv_valid_len, B, xq.device)
         if isinstance(cache_k, QuantizedKV):
-            return decode_attention_update_quant(
-                xq, cache_k, cache_v, xk.contiguous(), xv.contiguous(), pos,
-                valid)
+            return decode_attention_update_quant(xq, cache_k, cache_v, xk,
+                                                 xv, pos, valid)
         Hkv, D = cache_k.shape[1], xq.shape[-1]
         out = decode_attention_update(
-            _group_rows(xq, Hkv).contiguous(), cache_k, cache_v,
+            xq.reshape(B, Hkv, -1, D), cache_k, cache_v,
             xk.reshape(B, Hkv, D).to(cache_k.dtype).contiguous(),
             xv.reshape(B, Hkv, D).to(cache_v.dtype).contiguous(), pos, valid,
         )
-        return _ungroup_rows(out, 1)
+        return out.view(xq.shape)
     update_decode_cache(cache_k, cache_v, xk, xv, write_pos)
     return attend_decode_cache(xq, cache_k, cache_v, mask=mask,
                                kv_valid_len=kv_valid_len, impl=impl,

@@ -9,16 +9,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc and prints the build time and what ptxas reported of the
    tensor-core kernels (K2, K9a, K9b, K10, the tiled quantized matmuls of
    K1, K1v3, K11 and K6, K11's pre-pass, and the verify kernel of K5 and
-   K5q: registers, spills); they must not spill and their wgmma products
-   must not have been serialized.
+   K5q: registers, spills) and of the decode kernel of K3, K3u, K4 and K4
+   fused; they must not spill and the wgmma products must not have been
+   serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times, for
    the tensor-core kernels (the attention kernels, and the quantized
    matmuls at M > 32) also the achieved rate (TFLOP/s, or GB/s where bytes
-   bound it) and its share of the bound; for the verify kernels (K5, K5q)
-   the device time of a call (``torch.profiler``), the wrapper's host time
-   per call, the device time's share of the bound and its ratio to the
-   library call.
+   bound it) and its share of the bound; for the decode and verify kernels
+   (K3, K3u, K4, K4 fused, K5, K5q) the device time of a call and the
+   kernels it launches (``torch.profiler``), the wrapper's host time per
+   call, the device time's share of the bound and its ratio to the library
+   call, all timed over a rotation of operand copies that exceeds the L2
+   (``cold_copies``), as the decode step finds each layer's cache.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -81,6 +84,8 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
+import itertools
 import json
 import math
 import re
@@ -192,6 +197,10 @@ W8A8P_REL_ENVELOPE = 0.04
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_PER_S = 989e12
 PEAK_INT8_OPS_PER_S = 1979e12
+# The card's L2 (50 MB): the decode step reads 40 layers' caches, so each
+# call finds its layer's cache evicted; phase 3 times the decode and verify
+# kernels over enough copies of their operands to evict them too.
+L2_BYTES = 50 * 2 ** 20
 
 KERNELS = {
     "int4_matmul": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
@@ -250,10 +259,16 @@ TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", "vit_attn_kernel",
                        "int4_mma_kernel", "int8_mma_kernel",
                        "glu_prepass_kernel", "verify_mma_kernel")
-# the verify rows also get their device time (every kernel of the call),
-# the wrapper's host time per call, the share of the bound and the ratio
-# to the library call
+# the decode kernel of K3, K3u, K4 and K4 fused (bulk copies, no wgmma):
+# it must not spill either
+DECODE_PTXAS_KERNELS = ("decode_cluster_kernel",)
+# the verify and decode rows also get their device time (every kernel of
+# the call), kernel launches per call, the wrapper's host time per call,
+# the share of the bound and the ratio to the library call; they are timed
+# on a cold L2 (``cold_copies``)
 VERIFY_KERNELS = ("verify_attention", "verify_attention_q8")
+DECODE_KERNELS = ("decode_attention", "decode_attention_attend",
+                  "decode_attention_q8", "decode_attention_q8_fused")
 SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                  "vit_attention")
 LATENCY_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
@@ -325,11 +340,11 @@ def timed_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str = "", reps: int = 20):
+def device_stats(fn, kernel: str = "", reps: int = 20):
     """Mean device time per call of the kernels whose name holds
-    ``kernel`` (all the call launches, by default), from a
-    ``torch.profiler`` trace of ``reps`` calls; None when the trace shows
-    no such kernel."""
+    ``kernel`` (all the call launches, by default), and how many such
+    kernels a call launches, from a ``torch.profiler`` trace of ``reps``
+    calls; (None, 0) when the trace shows no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -338,13 +353,21 @@ def device_ms(fn, kernel: str = "", reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, count = 0.0, 0
     for e in prof.key_averages():
         # device events only (a CPU event may carry its kernels' time)
         if kernel in e.key and str(e.device_type).endswith("CUDA"):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
-    return total / reps / 1e3 if total else None  # microseconds -> ms
+            count += e.count
+    if not total:
+        return None, 0
+    return total / reps / 1e3, count / reps  # microseconds -> ms
+
+
+def device_ms(fn, kernel: str = "", reps: int = 20):
+    """``device_stats``' time alone."""
+    return device_stats(fn, kernel, reps)[0]
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -359,6 +382,38 @@ def host_ms(fn, reps: int = 20) -> float:
     spent = time.perf_counter() - t0
     torch.cuda.synchronize()
     return spent / reps * 1e3
+
+
+def cold_copies(nbytes_one: int) -> int:
+    """Copies of a call's operands that a rotation needs for every call to
+    find its own evicted from the L2: between two uses of a copy, the
+    others move more bytes than the L2 holds."""
+    return 1 + -(-L2_BYTES // nbytes_one)
+
+
+def rotation(fn, arg_sets):
+    """A call of ``fn`` on the next argument tuple of ``arg_sets`` each
+    time, round and round."""
+    sets = itertools.cycle(arg_sets)
+    return lambda: fn(*next(sets))
+
+
+def time_cold(row: dict, fn, arg_sets, reps: int = 20) -> None:
+    """Times ``fn`` over a rotation of ``arg_sets`` into ``row`` (a phase-3
+    row): event ms (``ms``), device ms and kernel launches per call
+    (``torch.profiler``), the wrapper's host ms per call, and the number of
+    copies rotated."""
+    call = rotation(fn, arg_sets)
+    row["ms"] = timed_ms(call, reps=reps)
+    row["device_ms"], row["launches_per_call"] = device_stats(call, reps=reps)
+    row["host_ms"] = host_ms(call, reps=reps)
+    row["copies"] = len(arg_sets)
+
+
+def ids_digest(ids) -> str:
+    """A short digest of generated ids, to hold them against another run's
+    (the parent commit's, say) without printing them all."""
+    return hashlib.sha1(json.dumps(ids).encode()).hexdigest()[:12]
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -428,6 +483,14 @@ def sdpa_ms(q, k, v, mask=None, causal=False, reps=5) -> float:
     k, v, kw = sdpa_operands(q, k, v)
     return timed_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=causal, **kw), reps=reps)
+
+
+def sdpa_cold_ms(q, kv_sets, mask=None, reps=20) -> float:
+    """``sdpa_ms`` over a rotation of (k, v) copies (``cold_copies``)."""
+    def call(k, v):
+        k, v, kw = sdpa_operands(q, k, v)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **kw)
+    return timed_ms(rotation(call, kv_sets), reps=reps)
 
 
 def causal_pairs(Sq: int, Skv: int) -> int:
@@ -718,7 +781,15 @@ def valid_mask(valid, S, span: int = 1):
             < thr[:, :, None])[:, None]
 
 
+def copies_of(tensors, n):
+    """``tensors`` and n - 1 clones of them, as a list of tuples."""
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(n - 1)]
+
+
 def check_decode(gen, results):
+    """K3 at the batch-4 serving shape (write + attend, bf16 cache), timed
+    on a cold L2 with its write targets rotating."""
     B, Hkv, G, S, D = 4, 40, 1, 1544, 128
     q = randn(B, Hkv, G, D, gen=gen)
     ck = randn(B, Hkv, S, D, gen=gen)
@@ -740,16 +811,17 @@ def check_decode(gen, results):
     expect[torch.arange(B), :, pos.long()] = True
     if bool((changed & ~expect).any()):
         FAILURES.append("decode: kernel wrote rows other than pos")
-    ms = timed_ms(lambda: decode_attention_update(q, ck1, cv1, nk, nv, pos,
-                                                  valid), reps=20)
+    caches = copies_of((ck1, cv1), cold_copies(nbytes(ck, cv)))
     plain = timed_ms(lambda: decode_attention_update_plain(
         q, ck2, cv2, nk, nv, pos, valid), reps=20)
-    library = sdpa_ms(q, ck1, cv1, mask=valid_mask(valid, S), reps=20)
+    library = sdpa_cold_ms(q, caches, mask=valid_mask(valid, S))
     rows = int(valid.sum())
     record(results, "decode_attention", f"B={B} Hkv={Hkv} G={G} S={S} D={D}",
-           err, ms, plain,
+           err, None, plain,
            2 * rows * Hkv * D * 2 + nbytes(q, got) + 2 * nbytes(nk, nv),
            4 * D * Hkv * G * rows, library)
+    time_cold(results[-1], lambda k, v: decode_attention_update(
+        q, k, v, nk, nv, pos, valid), caches)
 
 
 def check_latency_kernels(gen, results):
@@ -757,10 +829,11 @@ def check_latency_kernels(gen, results):
     plain versions: the attend-only bf16 kernel (equal to the fused
     kernel's output bit for bit), the int8 kernels (the fused one leaving
     caches bit-identical to the plain version's) and the verify kernels at
-    spans 2, 5, 8 and 16 (with their device time from a ``torch.profiler``
-    trace and the wrapper's host time per call); batch 1 and 4, GQA, a
-    cache length that is no multiple of 256, ragged ``pos`` and
-    ``valid``."""
+    spans 2, 5, 8 and 16; batch 1 and 4, GQA, a cache length that is no
+    multiple of a stage, ragged ``pos`` and ``valid``. Each row is timed
+    on a cold L2 (a rotation of cache copies; the fused rows write into
+    them), with its device time and launches per call from a
+    ``torch.profiler`` trace and the wrapper's host time per call."""
     D = 128
     for B, Hkv, G, S in ((1, 40, 1, 1544), (4, 40, 1, 1544),
                          (4, 8, 5, 1544), (2, 40, 1, 1000)):
@@ -777,6 +850,7 @@ def check_latency_kernels(gen, results):
         valid = pos + 1
         rows = int(valid.sum())
         qb = q.transpose(1, 2)  # bhsd for the library call
+        dense = copies_of((ck, cv), cold_copies(nbytes(ck, cv)))
 
         # attend-only bf16: after the fused kernel wrote the row, its output
         # must equal the fused kernel's exactly
@@ -790,29 +864,35 @@ def check_latency_kernels(gen, results):
                             f"fused kernel's output")
         err = compare(f"attend-only decode {case}", got,
                       decode_attention_plain(q, c1, c2, valid))
-        record(results, "decode_attention_attend", case, err,
-               timed_ms(lambda: decode_attention(q, c1, c2, valid), reps=20),
+        record(results, "decode_attention_attend", case, err, None,
                timed_ms(lambda: decode_attention_plain(q, c1, c2, valid),
                         reps=20),
                2 * rows * Hkv * D * 2 + nbytes(q, got),
                4 * D * Hq * rows,
-               sdpa_ms(qb, c1, c2, mask=valid_mask(valid, S), reps=20))
+               sdpa_cold_ms(qb, dense, mask=valid_mask(valid, S)))
+        time_cold(results[-1], lambda k, v: decode_attention(q, k, v, valid),
+                  dense)
+        del c1, c2
 
         # int8 cache of the same values
         kq = QuantizedKV(*quantize_kv_tokens(ck.transpose(1, 2)))
         vq = QuantizedKV(*quantize_kv_tokens(cv.transpose(1, 2)))
         kd, vd = dequantize_kv(kq), dequantize_kv(vq)
+        q8 = [(QuantizedKV(*k), QuantizedKV(*v)) for k, v in (
+            (c[:2], c[2:]) for c in copies_of(
+                (*kq, *vq), cold_copies(nbytes(*kq, *vq))))]
+        deq = copies_of((kd, vd), cold_copies(nbytes(kd, vd)))
         q8_bytes = 2 * rows * Hkv * (D + 4) + nbytes(q, got)
         got = decode_attention_quant(q, kq, vq, valid)
         err = compare(f"int8 decode {case}", got,
                       decode_attention_quant_plain(q, kq, vq, valid))
-        library = sdpa_ms(qb, kd, vd, mask=valid_mask(valid, S), reps=20)
-        record(results, "decode_attention_q8", case, err,
-               timed_ms(lambda: decode_attention_quant(q, kq, vq, valid),
-                        reps=20),
+        library = sdpa_cold_ms(qb, deq, mask=valid_mask(valid, S))
+        record(results, "decode_attention_q8", case, err, None,
                timed_ms(lambda: decode_attention_quant_plain(q, kq, vq,
                                                              valid), reps=20),
                q8_bytes, 4 * D * Hq * rows, library)
+        time_cold(results[-1], lambda k, v: decode_attention_quant(
+            q, k, v, valid), q8)
 
         k1, v1, k2, v2 = (QuantizedKV(c.qv.clone(), c.scale.clone())
                           for c in (kq, vq, kq, vq))
@@ -829,13 +909,14 @@ def check_latency_kernels(gen, results):
                 > B * Hkv):
             FAILURES.append(f"int8 fused decode {case}: wrote rows other "
                             f"than pos")
-        record(results, "decode_attention_q8_fused", case, err,
-               timed_ms(lambda: decode_attention_update_quant(
-                   q, k1, v1, xk, xv, pos, valid), reps=20),
+        record(results, "decode_attention_q8_fused", case, err, None,
                timed_ms(lambda: decode_attention_update_quant_plain(
                    q, k2, v2, xk, xv, pos, valid), reps=20),
                q8_bytes + nbytes(xk, xv) + 2 * B * Hkv * (D + 4),
                4 * D * Hq * rows, library)
+        time_cold(results[-1], lambda k, v: decode_attention_update_quant(
+            q, k, v, xk, xv, pos, valid), q8)
+        del k1, v1, k2, v2
 
         for span in (8, 2, 5, 16):  # 8 first: the latency path's draft_k
             qs = randn(B, span, Hq, D, gen=gen)
@@ -843,25 +924,25 @@ def check_latency_kernels(gen, results):
             mask = valid_mask(valid, S, span)
             seen = int(mask.sum())  # visible (row, column) pairs per head
             vcase = f"span={span} {case}"
-            for name, fn, plain, k, v, lk, lv, row_bytes in (
+            for name, fn, plain, caches, lib_caches, row_bytes in (
                     ("verify_attention", verify_attention,
-                     verify_attention_plain, ck, cv, ck, cv, D * 2),
+                     verify_attention_plain, dense, dense, D * 2),
                     ("verify_attention_q8", verify_attention_quant,
-                     verify_attention_quant_plain, kq, vq, kd, vd, D + 4)):
+                     verify_attention_quant_plain, q8, deq, D + 4)):
+                k, v = caches[0]
                 got = fn(qs, k, v, valid)
                 err = compare(f"{name} {vcase}", got,
                               plain(qs, k, v, valid))
-                record(results, name, vcase, err,
-                       timed_ms(lambda: fn(qs, k, v, valid), reps=20),
+                record(results, name, vcase, err, None,
                        timed_ms(lambda: plain(qs, k, v, valid), reps=20),
                        2 * rows * Hkv * row_bytes + nbytes(qs, got),
                        4 * D * Hq * seen,
-                       sdpa_ms(qsb, lk, lv, mask=mask, reps=20))
+                       sdpa_cold_ms(qsb, lib_caches, mask=mask))
                 # every kernel of the call: the verify kernel and its
                 # combine pass (and any copy the wrapper launches)
-                results[-1]["device_ms"] = device_ms(
-                    lambda: fn(qs, k, v, valid))
-                results[-1]["host_ms"] = host_ms(lambda: fn(qs, k, v, valid))
+                time_cold(results[-1],
+                          lambda k, v: fn(qs, k, v, valid), caches)
+        del dense, q8, deq
 
 
 def check_vit(gen, results):
@@ -968,7 +1049,8 @@ def run_main_path(card: str):
           f"(batch 4)")
     print(f"[{card}] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[{card}] generated lengths {[len(o) for o in outs]}")
+    print(f"[{card}] generated lengths {[len(o) for o in outs]}, ids "
+          f"digest {ids_digest(outs)}")
 
     # kernel path against plain path on the same weights
     P = 32  # prefill bucket of the shortest prompt (37 -> 32)
@@ -1091,7 +1173,7 @@ def run_latency_path(card: str, model) -> dict:
               f"{total:.1f} ms for {len(out)} ids = {total / len(out):.2f} "
               f"ms per emitted token; peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"launches {delta}")
+              f"launches {delta}; ids digest {ids_digest(out)}")
         if not out or any(not (0 <= t < 32000) for t in out):
             raise AssertionError(f"{label}: malformed ids {out}")
         for name, per_step in expect.items():
@@ -1259,7 +1341,7 @@ class _QuantRequest:
               f"{st['decode_ms']:.1f} ms over {steps} steps "
               f"({st['decode_ms'] / max(steps, 1):.2f} ms each); peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"launches {delta}")
+              f"launches {delta}; ids digest {ids_digest(outs)}")
         for out in outs:
             if not out or any(not (0 <= t < 32000) for t in out):
                 raise AssertionError(f"{label}: malformed ids {out}")
@@ -1605,7 +1687,8 @@ def main(argv=None) -> int:
     _kernels.lib()
     print(f"[{card}] kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{path.name}")
-    for line in check_build_log(path, TENSOR_CORE_KERNELS):
+    for line in check_build_log(path, TENSOR_CORE_KERNELS
+                                + DECODE_PTXAS_KERNELS):
         print(f"[{card}] ptxas {line}")
 
     # 3. kernels against their plain versions
@@ -1633,13 +1716,15 @@ def main(argv=None) -> int:
                     if r["bound_by"] == "bytes"
                     else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
             rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
-        if r["name"] in VERIFY_KERNELS:
+        if r["name"] in VERIFY_KERNELS + DECODE_KERNELS:
             dev = r["device_ms"]
             rate = (f" device {dev:.4f} ms ({r['bound_ms'] / dev:.0%} of "
-                    f"bound, {dev / r['library_ms']:.2f}x library)"
+                    f"bound, {dev / r['library_ms']:.2f}x library; "
+                    f"{r['launches_per_call']:g} launches a call)"
                     if dev else " device not measured")
             rate += (f" host {r['host_ms']:.4f} ms a call; kernel "
-                     f"{r['ms'] / r['library_ms']:.2f}x library")
+                     f"{r['ms'] / r['library_ms']:.2f}x library; cold L2 "
+                     f"over {r['copies']} copies")
         print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
               f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "

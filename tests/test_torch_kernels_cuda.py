@@ -288,6 +288,177 @@ def test_decode_attention_int8_cuda(gen, B, Hkv, G, S):
     assert not bool((changed & ~expect).any())
 
 
+def _decode_fused_and_attend(q, ck, cv, xk, xv, pos, valid):
+    """Both cache kinds through the fused and the attend-only decode
+    wrappers: each launches once; the fused output holds the plain
+    version's bound, the caches (and scales) equal the plain version's bit
+    for bit with no row but pos[b] changed; attend-only over the written
+    cache gives the fused output's bits."""
+    B, _, Hq, D = q.shape
+    Hkv, S = ck.shape[1], ck.shape[2]
+    G = Hq // Hkv
+    expect = torch.zeros(B, Hkv, S, dtype=torch.bool, device="cuda")
+    expect[torch.arange(B), :, pos.long()] = True
+    nk, nv = xk.reshape(B, Hkv, D), xv.reshape(B, Hkv, D)
+
+    k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    before = dec.decode_attention_update.launches
+    fused = decode_attention_update(q.reshape(B, Hkv, G, D), k1, v1, nk, nv,
+                                    pos, valid)
+    assert dec.decode_attention_update.launches == before + 1
+    _check(fused, decode_attention_update_plain(q.reshape(B, Hkv, G, D), k2,
+                                                v2, nk, nv, pos, valid))
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    changed = (k1 != ck).any(-1) | (v1 != cv).any(-1)
+    assert not bool((changed & ~expect).any())
+    before = dec.decode_attention.launches
+    got = dec.decode_attention(q, k1, v1, valid)
+    assert dec.decode_attention.launches == before + 1
+    assert torch.equal(got.reshape(B, Hkv, G, D), fused)
+
+    kq, vq = _quantized(ck, cv)
+    k1, v1, k2, v2 = (QuantizedKV(c.qv.clone(), c.scale.clone())
+                      for c in (kq, vq, kq, vq))
+    before = dec.decode_attention_update_quant.launches
+    fused = dec.decode_attention_update_quant(q, k1, v1, xk, xv, pos, valid)
+    assert dec.decode_attention_update_quant.launches == before + 1
+    _check(fused, dec.decode_attention_update_quant_plain(q, k2, v2, xk, xv,
+                                                          pos, valid))
+    for a, b in zip((*k1, *v1), (*k2, *v2)):
+        assert torch.equal(a, b)
+    changed = ((k1.qv != kq.qv).any(-1) | (k1.scale != kq.scale)
+               | (v1.qv != vq.qv).any(-1) | (v1.scale != vq.scale))
+    assert not bool((changed & ~expect).any())
+    before = dec.decode_attention_quant.launches
+    got = dec.decode_attention_quant(q, k1, v1, valid)
+    assert dec.decode_attention_quant.launches == before + 1
+    assert torch.equal(got, fused)
+
+
+def _decode_split(quant, B, Hkv, G, S, v):
+    """(cluster size, rows of a block's run at valid == v): what the card's
+    rule gives the decode kernel of this cache kind."""
+    C = dec.decode_splits(B, Hkv, G, S, dec._decode_slots(
+        _kernels.lib(), torch.cuda.current_device(), quant, G))
+    rows = dec.DECODE_STAGE_ROWS[quant]
+    return C, -(-(-(-v // rows)) // C) * rows
+
+
+# Batch 1, 2, 4 and 8; G 1, 5 and 8; S that is no multiple of a stage (1000:
+# stages of 32 bf16 or 64 int8 rows), none of 4 (1001: the int8 scales are
+# read from device memory, not staged), a cache shorter than one stage (24);
+# the card's largest cluster (batch 1 at Hkv 8 or 40) and its smallest
+# (batch 8 at Hkv 40). ``where`` puts pos[b] on the first row of the cache,
+# the first and the last row of a block's run (at valid == S - 7), the last
+# visible row (the decode step's own case), the cache's last row (written,
+# not seen), and on the last row of a valid shorter than one stage.
+_DECODE_EDGE_SHAPES = [(1, 40, 1, 1544), (8, 40, 1, 512), (2, 8, 5, 1000),
+                       (4, 8, 8, 1001), (2, 5, 8, 24), (1, 8, 1, 1001)]
+
+
+@pytest.mark.parametrize("where", ["cache_first", "run_first", "run_last",
+                                   "valid_last", "cache_last", "short"])
+@pytest.mark.parametrize("B,Hkv,G,S", _DECODE_EDGE_SHAPES)
+def test_decode_attention_edges_cuda(gen, B, Hkv, G, S, where):
+    q, ck, cv, xk, xv, _ = _cache_case(gen, B, Hkv, G, S)
+    v = max(S - 7, 1)
+    valid = torch.full((B,), v, dtype=torch.int32, device="cuda")
+    for quant in (False, True):  # the run edges of both kinds' splits
+        C, per = _decode_split(quant, B, Hkv, G, S, v)
+        first = min(per if C > 1 else 0, v - 1)
+        p = {"cache_first": 0, "run_first": first,
+             "run_last": min(per - 1, v - 1), "valid_last": v - 1,
+             "cache_last": S - 1, "short": min(4, S - 1)}[where]
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        if where == "short":
+            valid = pos + 1
+        _decode_fused_and_attend(q, ck, cv, xk, xv, pos, valid)
+
+
+def test_decode_cluster_sizes_cuda(gen):
+    """The edge shapes above reach the rule's largest and smallest cluster
+    on the card."""
+    for quant in (False, True):
+        assert (_decode_split(quant, 1, 8, 1, 1001, 1001)[0]
+                == dec.DECODE_MAX_CLUSTER)
+        assert _decode_split(quant, 8, 40, 1, 512, 512)[0] == 1
+
+
+@pytest.mark.parametrize("B,Hkv,G,S", [(1, 40, 1, 1544), (4, 8, 5, 1001),
+                                       (2, 8, 8, 1000)])
+def test_decode_attention_ignores_rows_past_valid_cuda(gen, B, Hkv, G, S):
+    """Cache rows at or past valid[b] hold NaN (bf16) or NaN scales (int8):
+    the fused and the attend-only outputs equal the plain versions' over
+    the same cache with those rows zeroed, so nothing past the visible
+    prefix reaches them. One row of the batch sees no key at all."""
+    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S)
+    pos = pos - 40
+    valid = pos + 1
+    if B > 1:
+        valid[-1] = 0
+    past = (torch.arange(S, device="cuda")[None, :]
+            >= valid.long()[:, None])[:, None, :].expand(B, Hkv, S)
+    D = 128
+    nk, nv = xk.reshape(B, Hkv, D), xv.reshape(B, Hkv, D)
+    zk = ck.masked_fill(past[..., None], 0)
+    zv = cv.masked_fill(past[..., None], 0)
+    nan_k = ck.masked_fill(past[..., None], float("nan"))
+    nan_v = cv.masked_fill(past[..., None], float("nan"))
+    want = decode_attention_update_plain(q.reshape(B, Hkv, G, D), zk.clone(),
+                                         zv.clone(), nk, nv, pos, valid)
+    _check(decode_attention_update(q.reshape(B, Hkv, G, D), nan_k.clone(),
+                                   nan_v.clone(), nk, nv, pos, valid), want)
+    _check(dec.decode_attention(q, nan_k, nan_v, valid),
+           dec.decode_attention_plain(q, zk, zv, valid))
+    kq, vq = _quantized(ck, cv)
+    zq = [QuantizedKV(c.qv, c.scale.masked_fill(past, 0)) for c in (kq, vq)]
+    nq = [QuantizedKV(c.qv, c.scale.masked_fill(past, float("nan")))
+          for c in (kq, vq)]
+    want = dec.decode_attention_update_quant_plain(
+        q, *(QuantizedKV(c.qv.clone(), c.scale.clone()) for c in zq), xk, xv,
+        pos, valid)
+    _check(dec.decode_attention_update_quant(
+        q, *(QuantizedKV(c.qv.clone(), c.scale.clone()) for c in nq), xk, xv,
+        pos, valid), want)
+    _check(dec.decode_attention_quant(q, *nq, valid),
+           dec.decode_attention_quant_plain(q, *zq, valid))
+
+
+def test_decode_attention_refuses_cuda(gen):
+    """What the decode kernels cannot take raises on the card: a head dim
+    other than 128, float32 queries, a float32 cache, float64 scales."""
+    q, ck, cv, xk, xv, pos = _cache_case(gen, 1, 8, 1, 256)
+    valid = pos + 1
+    kq, vq = _quantized(ck, cv)
+    q64 = q[..., :64].contiguous()
+    k64, v64 = ck[..., :64].contiguous(), cv[..., :64].contiguous()
+    x64 = xk[..., :64].contiguous()
+    calls = [
+        lambda: dec.decode_attention(q64, k64, v64, valid),
+        lambda: dec.decode_attention(q.float(), ck, cv, valid),
+        lambda: dec.decode_attention(q, ck.float(), cv.float(), valid),
+        lambda: decode_attention_update(q64.reshape(1, 8, 1, 64), k64, v64,
+                                        x64.reshape(1, 8, 64),
+                                        x64.reshape(1, 8, 64), pos, valid),
+        lambda: decode_attention_update(q.reshape(1, 8, 1, 128).float(), ck,
+                                        cv, xk.reshape(1, 8, 128),
+                                        xv.reshape(1, 8, 128), pos, valid),
+        lambda: dec.decode_attention_quant(q.float(), kq, vq, valid),
+        lambda: dec.decode_attention_quant(
+            q, QuantizedKV(kq.qv, kq.scale.double()), vq, valid),
+        lambda: dec.decode_attention_quant(
+            q64, QuantizedKV(kq.qv[..., :64].contiguous(), kq.scale),
+            QuantizedKV(vq.qv[..., :64].contiguous(), vq.scale), valid),
+        lambda: dec.decode_attention_update_quant(q, kq, vq, xk.float(),
+                                                  xv.float(), pos, valid),
+        lambda: dec.decode_attention_update_quant(q, kq, vq, xk, xv,
+                                                  pos.long(), valid),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+
+
 # The verify kernels hold ``_check``'s bound on every row, short ones too:
 # they carry the softmax weights as a high and a low part (~16 bits) into
 # the value product, so they do not move rows off the plain versions' f32
