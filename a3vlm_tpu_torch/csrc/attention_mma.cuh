@@ -7,7 +7,10 @@
 // swizzle, brought in by asynchronous copies (TMA boxes, or cp.async.cg for
 // the tiles a block loads once), and warpgroup matrix products (wgmma) that
 // read them through matrix descriptors. mma_probe.cu holds the register-A
-// and shared-A forms of the products against each other bit for bit.
+// and shared-A forms of the products against each other bit for bit. The
+// thread block cluster helpers (ranks, distributed shared memory, remote
+// arrivals) serve the decode attention (decode_common.cuh) and the int4
+// GEMV (int4_matmul.cu).
 //
 // Tiles. A tile of ROWS rows and DP (64 or 128) columns of bf16 is stored as
 // DP / 64 panels of [ROWS][64]: a panel row is 128 bytes, and the 16-byte
@@ -119,6 +122,78 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "@p bra A3_DONE;\n"
       "bra A3_WAIT;\n"
       "A3_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// ------------------------------------------------ thread block clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// One arrival on a barrier of this block.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The two halves of the cluster barrier (every thread of every block).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The generic address of the same shared variable in block ``rank``:
+// plain stores through it write that block's shared memory.
+__device__ __forceinline__ float* map_rank(float* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<float*>(out);
+}
+
+// One arrival on the mbarrier at shared offset ``bar`` of block ``rank``,
+// releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void remote_arrive(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 r;\n"
+      "mapa.shared::cluster.u32 r, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [r];\n}\n" ::
+          "r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// Orders this thread's earlier memory operations, and those it has seen
+// through a block barrier, before its later ones at cluster scope.
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+
+// Waits for the barrier's phase of this parity, acquiring at cluster scope
+// what the arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "DC_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@p bra DC_DONE;\n"
+      "bra DC_WAIT;\n"
+      "DC_DONE:\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
 }

@@ -72,10 +72,18 @@
 namespace {
 
 using a3mma::bf16;
+using a3mma::cluster_arrive;
+using a3mma::cluster_rank;
+using a3mma::cluster_size;
+using a3mma::cluster_wait;
+using a3mma::map_rank;
+using a3mma::mbar_arrive;
 using a3mma::mbar_expect_tx;
 using a3mma::mbar_fence_init;
 using a3mma::mbar_init;
 using a3mma::mbar_wait;
+using a3mma::mbar_wait_cluster;
+using a3mma::remote_arrive;
 using a3mma::smem_u32;
 
 constexpr int DC_D = 128;
@@ -138,76 +146,10 @@ struct DcArgs {
   float scale_log2;
 };
 
-// ---------------------------------------------------------------- cluster
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-
 // A barrier of the consumer warps alone (the producer may be waiting for a
 // slot to empty).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(DC_CONSUMERS) : "memory");
-}
-
-// One arrival on a barrier of this block.
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// The two halves of the cluster barrier (every thread of every block).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The generic address of the same shared variable in block ``rank``:
-// plain stores through it write that block's shared memory.
-__device__ __forceinline__ float* map_rank(float* p, uint32_t rank) {
-  uint64_t out;
-  asm volatile("mapa.u64 %0, %1, %2;\n"
-               : "=l"(out)
-               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
-  return reinterpret_cast<float*>(out);
-}
-
-// One arrival on the mbarrier at shared offset ``bar`` of block ``rank``,
-// releasing this thread's earlier writes at cluster scope.
-__device__ __forceinline__ void remote_arrive(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 r;\n"
-      "mapa.shared::cluster.u32 r, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [r];\n}\n" ::
-          "r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
-// Waits for the barrier's phase of this parity, acquiring at cluster scope
-// what the arrivals released.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "DC_WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
-      "%1;\n"
-      "@p bra DC_DONE;\n"
-      "bra DC_WAIT;\n"
-      "DC_DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
 }
 
 // ``bytes`` (a multiple of 16, both addresses on 16 bytes) from device

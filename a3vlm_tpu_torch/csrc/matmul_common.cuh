@@ -1,7 +1,7 @@
 // Pieces the quantized-matmul kernels share (int4_matmul.cu, int8_matmul.cu,
 // int4_matmul_a8.cu): nibble unpacking, the second pass of the split-K
-// GEMVs, and the tiled route of K1, K1v3, K11 and K6 on Hopper's tensor
-// cores (qmm_tile, below).
+// GEMVs of K6 and K7, and the tiled route of K1, K1v3, K11 and K6 on
+// Hopper's tensor cores (qmm_tile, below).
 
 #pragma once
 

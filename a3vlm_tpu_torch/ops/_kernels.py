@@ -38,11 +38,10 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                   ctypes.c_float)
 # name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
-    "a3_int4_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "a3_int4_gemv": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "a3_int4_gemv_clusters": [_I, _I, _I, _I],
     "a3_int4_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "a3_int4_gemv_v3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_mma_v3": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "a3_int4_gemv_glu": [_P] * 7 + [_I, _I, _I, _I, _P],
     "a3_int4_mma_glu": [_P] * 7 + [_I, _I, _I, _I, _P],
     "a3_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "a3_int8_mma": [_P, _P, _P, _P, _I, _I, _I, _P],

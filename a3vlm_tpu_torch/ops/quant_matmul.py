@@ -3,13 +3,26 @@ a3vlm_tpu/ops/quant_matmul.py; kernels in csrc/int4_matmul.cu,
 csrc/int8_matmul.cu and csrc/int4_matmul_a8.cu).
 
 Every kernel has a wrapper and a plain PyTorch version beside it. A wrapper
-launches its kernel on CUDA tensors (a split-K GEMV for M <= 32, a
-tensor-core tiled product above) or raises; CPU tensors take the plain
-version, as does ``impl="plain"`` on any device. The tiled product
-(csrc/matmul_common.cuh: TMA-fed tiles, wgmma) takes K/2 % 64 == 0 and
-group % 64 == 0 for the int4 modes (a 64-row step of K lies in one group),
-K % 8 == 0 for int8, N % 16 == 0, and 16-byte aligned contiguous operands;
-its wrappers raise on anything else.
+launches its kernel on CUDA tensors (a GEMV for M <= 32, a tensor-core
+tiled product above) or raises; CPU tensors take the plain version, as does
+``impl="plain"`` on any device. The int4 GEMV (csrc/int4_matmul.cu) is one
+launch with no scratch: a thread block cluster of ``gemv_splits`` blocks
+splits K for each 128 output columns, each block streams its stages of
+packed bytes, scales and x by TMA into rings in shared memory and
+multiplies on mma.sync from the weights dequantized once in registers,
+and the blocks add their
+partials through distributed shared memory in a fixed order; it takes any
+group that divides K/2 and N % 16 == 0. The int8 and W4A8 GEMVs are
+split-K with a second pass over a float32 scratch. The tiled products
+(csrc/matmul_common.cuh, and K8's in csrc/int4_matmul_a8.cu: TMA-fed
+tiles, wgmma) take K/2 % 64 == 0 and group % 64 == 0 for the int4 modes
+(a 64-row step of K lies in one group), K % 8 == 0 for int8, N % 16 == 0,
+and 16-byte aligned contiguous operands; their wrappers raise on anything
+else. For K8 that covers every weight of the quantizer here that the JAX
+kernel takes (it needs K/2 % 256 == 0, and the quantizer gives such a
+weight group 64) but not a hand-made group of 32, which the JAX kernel
+takes and this wrapper refuses; weights below 1024 inputs with K/2 % 64 ==
+32 (group 32), which the JAX dispatcher sends to its emulation, raise here.
 
 Wrappers (each ``name`` has its ``name_plain``) and what they compute:
 
@@ -32,6 +45,7 @@ flags are read when a function is traced). The JAX module's tile knobs
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import torch
@@ -46,7 +60,14 @@ from a3vlm_tpu_torch.quant import (
 )
 
 GEMV_MAX_M = 32
-_GEMV_KS = 128  # rows per split of every GEMV: GV_KS, G8_KS, GA_KS in csrc
+_GEMV_KS = 128  # rows per split of the K6 and K7 GEMVs: G8_KS, GA_KS in csrc
+# the int4 GEMV: output columns a block, packed rows a stage, blocks a
+# cluster at most (GV_BN, GV_SR, GV_MAX_CLUSTER in csrc/int4_matmul.cu)
+GEMV_BN = 128
+GEMV_STAGE_ROWS = 64
+GEMV_MAX_CLUSTER = 8
+_GEMV_MODES = {"v1": 0, "v3": 1, "glu": 2}
+_GEMV_CAPACITY: dict[tuple, tuple] = {}
 
 # what variant="auto" means (quant_matmul.py:41): "v1" or "v3"
 _AUTO_VARIANT = os.environ.get("A3VLM_INT4_VARIANT", "v1")
@@ -230,8 +251,57 @@ def _require_int4(name, x, q, scale, group):
 
 
 def _splitk_scratch(rows: int, M: int, N: int, device):
+    """The float32 partials [splits, M, N] of the K6 and K7 GEMVs."""
     return torch.empty((-(-rows // _GEMV_KS), M, N), dtype=torch.float32,
                        device=device)
+
+
+def _gemv_runs(half: int, group: int) -> int:
+    """Runs of whole stages that hold whole groups (the int4 GEMV never
+    splits one between blocks): stages of lcm(64, group) rows."""
+    stage_rows = GEMV_STAGE_ROWS * group // math.gcd(GEMV_STAGE_ROWS, group)
+    return -(-half // stage_rows)
+
+
+def gemv_splits(N: int, half: int, group: int, capacity) -> int:
+    """Blocks of the int4 GEMV's cluster, which split K for each 128 output
+    columns: the most, up to 8, for which the card holds a cluster for
+    every column tile at once (``capacity[C - 1]``: clusters of C blocks
+    resident together, which share a GPC), no more than there are runs of
+    whole groups of stages, and none left without a run. More leave a
+    second wave; fewer leave SMs idle."""
+    tiles = -(-N // GEMV_BN)
+    runs = _gemv_runs(half, group)
+    for C in range(min(GEMV_MAX_CLUSTER, runs), 1, -1):
+        if capacity[C - 1] >= tiles and -(-runs // C) * (C - 1) < runs:
+            return C
+    return 1
+
+
+def _gemv_capacity(lib, device, mode: str, M: int, group: int) -> tuple:
+    """Clusters of 1-8 blocks of the int4 GEMV in ``mode`` for M rows (a
+    kernel per 8 rows) and this group's scale rows a stage that the card
+    holds at once, per card (``device`` an index)."""
+    key = (device, mode, -(-M // 8), group)
+    if key not in _GEMV_CAPACITY:
+        caps = []
+        for C in range(1, GEMV_MAX_CLUSTER + 1):
+            n = lib.a3_int4_gemv_clusters(_GEMV_MODES[mode], M, group, C)
+            _kernels.check(0 if n > 0 else -n, "a3_int4_gemv_clusters")
+            caps.append(n)
+        _GEMV_CAPACITY[key] = tuple(caps)
+    return _GEMV_CAPACITY[key]
+
+
+def _gemv_rows(x, half: int):
+    """x [M, 2 half] as the GEMV reads it: its two halves ``xld`` elements
+    apart, xld % 8 == 0 (the tensor map's strides are multiples of 16
+    bytes). Returns (tensor, xld): x itself, or a zero-padded copy where
+    half % 8 != 0."""
+    if half % 8 == 0:
+        return x, half
+    xld = -(-half // 8) * 8
+    return F.pad(x.view(-1, 2, half), (0, xld - half)).contiguous(), xld
 
 
 def _launch_int4(name: str, mode: str, x, q, scale, group: int, u=None,
@@ -249,13 +319,14 @@ def _launch_int4(name: str, mode: str, x, q, scale, group: int, u=None,
     p = torch.Tensor.data_ptr
     tail = (M, half, N, group, _kernels.stream())
     if M <= GEMV_MAX_M:
-        partial = _splitk_scratch(half, M, N, x.device)
-        if mode == "glu":
-            err = lib.a3_int4_gemv_glu(p(x), p(u), p(q), p(scale), p(res),
-                                       p(partial), p(out), *tail)
-        else:
-            fn = lib.a3_int4_gemv if mode == "v1" else lib.a3_int4_gemv_v3
-            err = fn(p(x), p(q), p(scale), p(partial), p(out), *tail)
+        C = gemv_splits(N, half, group,
+                        _gemv_capacity(lib, x.get_device(), mode, M, group))
+        xr, xld = _gemv_rows(x, half)
+        ur = _gemv_rows(u, half)[0] if mode == "glu" else None
+        err = lib.a3_int4_gemv(_GEMV_MODES[mode], p(xr),
+                               None if ur is None else p(ur), p(q), p(scale),
+                               None if res is None else p(res), p(out), M,
+                               half, N, group, xld, C, _kernels.stream())
         return out, err
     _kernels.require(half % _TILE_MIN == 0 and group % _TILE_MIN == 0,
                      f"{name}: K/2 ({half}) and group ({group}) must be "
@@ -288,8 +359,9 @@ int4_matmul_2d_v3.launches = 0
 def int4_matmul_2d(x, q, scale, group: int, variant: str = "auto"):
     """Wrapper of the int4 kernel (quant_matmul.py:496). x [M, Kpad] bf16,
     q [Kpad/2, N] int8, scale [Kpad/group, N] float32, all contiguous;
-    N % 16 == 0; for M > 32 also Kpad/2 % 64 == 0 and group % 64 == 0.
-    Returns [M, N] bf16.
+    N % 16 == 0; any group that divides Kpad/2 for M <= 32 (the GEMV, one
+    launch), Kpad/2 % 64 == 0 and group % 64 == 0 above. Returns [M, N]
+    bf16.
     ``variant``: "v1", "v3" (``int4_matmul_2d_v3``, which keeps its own
     launch count), or "auto" = ``_AUTO_VARIANT``."""
     if variant == "auto":
@@ -355,13 +427,16 @@ def int4_matmul_2d_w8a8p(x, q, scale, group: int):
     """Wrapper of the W8A8 prefill kernel (quant_matmul.py:299): x [M, Kpad]
     bf16 is quantized per row to int8, and the ratios and column scales are
     formed from ``scale``, here in tensor ops per call, as the JAX package
-    does; the kernel requantizes the weights and contracts int8 x int8.
-    Kpad/2 % 32 == 0. Returns [M, N] bf16."""
+    does; the kernel requantizes the weights and contracts int8 x int8 on
+    the tensor cores. Kpad/2 % 64 == 0 and group % 64 == 0, as the tiled
+    route (see the module docstring for how that stands to the JAX
+    kernel's shapes). Returns [M, N] bf16."""
     if x.device.type == "cpu":
         return int4_matmul_2d_w8a8p_plain(x, q, scale, group)
     M, half, N = _require_int4("int4_matmul_w8a8p", x, q, scale, group)
-    _kernels.require(half % 32 == 0, "int4_matmul_w8a8p: K/2 must be a "
-                     "multiple of 32")
+    _kernels.require(half % _TILE_MIN == 0 and group % _TILE_MIN == 0,
+                     f"int4_matmul_w8a8p: K/2 ({half}) and group ({group}) "
+                     f"must be multiples of {_TILE_MIN}")
     _kernels.require_cuda("int4_matmul_w8a8p", x, dtype=torch.bfloat16)
     xq, xs = quantize_act_int8(x)
     ratio, cs = w8a8p_factors(scale)

@@ -9,27 +9,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc and prints the build time and what ptxas reported of the
    tensor-core kernels (K2, K9a, K9b, K10, the tiled quantized matmuls of
    K1, K1v3, K11 and K6, K11's pre-pass, and the verify kernel of K5 and
-   K5q: registers, spills) and of the decode kernel of K3, K3u, K4 and K4
-   fused; they must not spill and the wgmma products must not have been
-   serialized.
+   K5q, and K8's W8A8 tile: registers, spills) and of the cluster kernels
+   (the decode kernel of K3, K3u, K4 and K4 fused, and the int4 GEMV of
+   K1, K1v3 and K11); they must not spill and the wgmma products must not
+   have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times, for
    the tensor-core kernels (the attention kernels, and the quantized
    matmuls at M > 32) also the achieved rate (TFLOP/s, or GB/s where bytes
    bound it) and its share of the bound; for the decode and verify kernels
-   (K3, K3u, K4, K4 fused, K5, K5q) the device time of a call and the
-   kernels it launches (``torch.profiler``), the wrapper's host time per
-   call, the device time's share of the bound and its ratio to the library
-   call, all timed over a rotation of operand copies that exceeds the L2
-   (``cold_copies``), as the decode step finds each layer's cache.
+   (K3, K3u, K4, K4 fused, K5, K5q), the int4 GEMV rows (K1 at M 1, 4, 9
+   and 32, K1v3 and K11 at M 1, 4, 8 and 32) and K8 the device time of a
+   call and the kernels it launches (``torch.profiler``; for K8 also the
+   kernel's own, apart from the wrapper's quantizer), the wrapper's host
+   time per call, the device time's share of the bound and its ratio to
+   the library call, all timed over a rotation of operand copies that
+   exceeds the L2 (``cold_copies``), as a decode step finds each layer's
+   cache and weights.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
    448x448 image and a prompt of token ids each) go through
    ``MetaModel.generate_tokens``; every serving kernel must have launched
-   there, the flash forward without its log-sum-exp. Then the prefill
-   logits of the kernel path are held against the plain-PyTorch path on
-   the same weights.
+   there, the flash forward without its log-sum-exp; one decode step's
+   device time by kernel name (``torch.profiler``, ``decode_profile``).
+   Then the prefill logits of the kernel path are held against the
+   plain-PyTorch path on the same weights.
 5. training path: the same model trained as ``main_finetune`` trains it
    with ``--quant --quant_bits 4 --lora_rank 16 --checkpointing`` (the
    int4 base frozen, rank-16 adapters, bf16 compute over float32 masters,
@@ -47,7 +52,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the bf16 and the int8 cache (the verify kernels); ``prefill_chunk = 512``
    (the flash kernel with fewer queries than keys); a grammar-constrained
    run, vanilla and with lookup, whose every id must be legal in its DFA
-   state. Each kernel must have launched the expected number of times.
+   state. Each kernel must have launched the expected number of times;
+   after (a), one batch-1 decode step's device time by kernel name.
    Then one decode or verify step of the kernel path is held against the
    plain path on a copy of the same cache, and the chunked prefill's logits
    against the one-shot prefill's.
@@ -67,9 +73,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``w8a8_matmul``. Each mode's kernel must
    have launched exactly as often as its forwards say, the kernel it
    replaces not at all; then the prefill and one decode (or verify) step of
-   the kernel path are held against the plain path of the same mode.
+   the kernel path are held against the plain path of the same mode. One
+   prefill's device time by kernel name in (ref) and in (j).
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
+``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
+holds this run's ids against another run's (a parent commit's, say, with
+this script run over its package) label by label, and where they differ
+prints the first differing index with this run's top-2 logit gap there
+and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the serving, latency, training and quantized-mode runs,
@@ -258,10 +270,16 @@ TILED_MATMULS = ("int4_matmul", "int4_matmul_v3", "int4_matmul_glu",
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", "vit_attn_kernel",
                        "int4_mma_kernel", "int8_mma_kernel",
-                       "glu_prepass_kernel", "verify_mma_kernel")
-# the decode kernel of K3, K3u, K4 and K4 fused (bulk copies, no wgmma):
-# it must not spill either
-DECODE_PTXAS_KERNELS = ("decode_cluster_kernel",)
+                       "glu_prepass_kernel", "verify_mma_kernel",
+                       "w8a8p_mma_kernel")
+# the cluster kernels without wgmma, which must not spill either: the
+# decode attention of K3, K3u, K4 and K4 fused, and the int4 GEMV of K1,
+# K1v3 and K11
+CLUSTER_PTXAS_KERNELS = ("decode_cluster_kernel", "int4_gemv_cluster_kernel")
+# device kernel names (substrings) for the profiles: the K8 kernel, and the
+# int4 GEMV with the second pass the earlier design launched after it
+W8A8P_KERNEL = "w8a8p"
+GEMV_KERNELS = ("int4_gemv", "splitk_reduce")
 # the verify and decode rows also get their device time (every kernel of
 # the call), kernel launches per call, the wrapper's host time per call,
 # the share of the bound and the ratio to the library call; they are timed
@@ -508,40 +526,64 @@ def right_aligned_mask(Sq: int, Skv: int):
     return cols <= rows + (Skv - Sq)
 
 
+def weight_copies(qw):
+    """(q, scale) of ``qw`` and enough clones for a rotation that finds
+    each call's weight evicted from the L2, as a decode step finds each
+    layer's (``cold_copies``)."""
+    return copies_of((qw.q, qw.scale), cold_copies(nbytes(qw.q, qw.scale)))
+
+
 def check_int4(gen, results):
     """K1 at every decoder linear at decode (M 4), at one request's
-    prefill, at the QLoRA step's M (2 x 2048) and at the batch-4
-    prefill."""
-    cases = []
+    prefill, at the QLoRA step's M (2 x 2048) and at the batch-4 prefill,
+    each on a weight of its own; on the M 4 rows' weights also at M 1, 9
+    and 32 (32: a verify round's rows at batch 4), x for those from a
+    generator of their own so that the shared one gives the later checks
+    the inputs they always had. The GEMV rows are timed on a cold L2 over
+    a rotation of weight copies."""
+    extra = torch.Generator(device="cuda").manual_seed(4)
+    if hasattr(qmm, "_gemv_capacity"):  # the cluster GEMV's package
+        lib = _kernels.lib()
+        for mode, M in (("v1", 1), ("v1", 9), ("v1", 32), ("v3", 1),
+                        ("v3", 9), ("glu", 1)):
+            print(f"int4 GEMV {mode} at M={M}: clusters of 1-8 blocks the "
+                  f"card holds at once (group 64): "
+                  f"{qmm._gemv_capacity(lib, 0, mode, M, 64)}")
     for M in (4, 1487, 4096, 4 * 1487):
-        for K, N in ((5120, 5120), (5120, 13824), (13824, 5120),
-                     (5120, 32000)):
-            cases.append((M, K, N))
-    for M, K, N in cases:
-        w = (torch.rand(K, N, generator=gen, device="cuda") * 2 - 1)
-        qw = _quantize_leaf_int4((w / K ** 0.5).to(torch.bfloat16))
-        del w
-        x = randn(M, K, gen=gen)
-        kpad = qw.q.shape[0] * 2
-        x2 = torch.nn.functional.pad(x, (0, kpad - K)).contiguous()
-        got = int4_matmul(x, qw)
-        want = int4_matmul(x, qw, impl="plain")
-        err = compare(f"int4 M={M} K={K} N={N}", got, want)
-        ms = timed_ms(lambda: int4_matmul_2d(x2, qw.q, qw.scale, qw.group),
-                      reps=3)
-        plain = timed_ms(
-            lambda: int4_matmul_2d_plain(x2, qw.q, qw.scale, qw.group),
-            reps=3)
-        # no single library call takes packed int4: dequantize + matmul
-        library = timed_ms(
-            lambda: x @ _dequantize_leaf(qw, torch.bfloat16), reps=3)
-        record(results, "int4_matmul", f"M={M} K={K}(pad {kpad}) N={N}", err,
-               ms, plain, nbytes(x2, qw.q, qw.scale, got), 2 * M * kpad * N,
-               library)
+        for K, N in LINEAR_SHAPES:
+            qw = _quantize_leaf_int4(random_weight(K, N, gen))
+            kpad = qw.q.shape[0] * 2
+            x4 = randn(M, K, gen=gen)
+            gemv = M <= qmm.GEMV_MAX_M
+            copies = weight_copies(qw) if gemv else None
+            for m in INT4_GEMV_MS if gemv else (M,):
+                x = x4 if m == M else randn(m, K, gen=extra)
+                x2 = F.pad(x, (0, kpad - K)).contiguous()
+                got = int4_matmul(x, qw)
+                want = int4_matmul(x, qw, impl="plain")
+                err = compare(f"int4 M={m} K={K} N={N}", got, want)
+                plain = timed_ms(lambda: int4_matmul_2d_plain(
+                    x2, qw.q, qw.scale, qw.group), reps=1 if gemv else 3)
+                # no single library call takes packed int4: dequantize +
+                # matmul
+                library = timed_ms(
+                    lambda: x @ _dequantize_leaf(qw, torch.bfloat16), reps=3)
+                record(results, "int4_matmul",
+                       f"M={m} K={K}(pad {kpad}) N={N}", err, None, plain,
+                       nbytes(x2, qw.q, qw.scale, got), 2 * m * kpad * N,
+                       library)
+                if gemv:
+                    time_cold(results[-1], lambda q, s: int4_matmul_2d(
+                        x2, q, s, qw.group), copies)
+                else:
+                    results[-1]["ms"] = timed_ms(lambda: int4_matmul_2d(
+                        x2, qw.q, qw.scale, qw.group), reps=3)
+            del copies
 
 # Decoder linears of the 13B model: (K, N) of wq/wk/wv/wo, w1/w3, w2, head.
 LINEAR_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000))
 GEMV_MS = (1, 4, 8, 32)        # decode batches and verify spans
+INT4_GEMV_MS = (4, 1, 9, 32)   # K1's: both sides of an 8-row fragment
 TILED_MS = (1487, 4 * 1487)    # prefill of one request and of four
 
 
@@ -588,6 +630,7 @@ def check_int4_variants(gen, results):
         kpad = qw.q.shape[0] * 2
         wargs = (qw.q, qw.scale, qw.group)
         shape = f"K={K}(pad {kpad}) N={N}"
+        copies = weight_copies(qw)
         for M in GEMV_MS + TILED_MS:
             x = padded(randn(M, K, gen=gen), qw)
             reps = reps_for(M)
@@ -607,6 +650,9 @@ def check_int4_variants(gen, results):
                    timed_ms(lambda: int4_matmul_2d_v3_plain(x, *wargs),
                             reps=1),
                    nbytes(x, qw.q, qw.scale, got), flops, library)
+            if M <= qmm.GEMV_MAX_M:  # the GEMV on a cold L2
+                time_cold(results[-1], lambda q, s: int4_matmul_2d_v3(
+                    x, q, s, qw.group), copies)
 
             if M <= 32:
                 got = int4_matmul_2d_w4a8(x, *wargs)
@@ -647,20 +693,31 @@ def check_int4_variants(gen, results):
                         torch.bfloat16)
 
                 record(results, "int4_matmul_w8a8p",
-                       f"M={M} {shape} rel_vs_exact={rel:.2e}", err,
-                       timed_ms(lambda: int4_matmul_2d_w8a8p(x, *wargs), reps),
+                       f"M={M} {shape} rel_vs_exact={rel:.2e}", err, None,
                        timed_ms(lambda: int4_matmul_2d_w8a8p_plain(x, *wargs),
                                 reps=1),
                        nbytes(x, qw.q, qw.scale, got), flops,
                        timed_ms(int_mm, reps), peak_ops=PEAK_INT8_OPS_PER_S)
+                # the wrapper (the activation quantizer and the factors in
+                # tensor ops, then the kernel) and the kernel alone, over
+                # the rotation of weight copies
+                call = rotation(lambda q, s: int4_matmul_2d_w8a8p(
+                    x, q, s, qw.group), copies)
+                time_cold(results[-1], lambda q, s: int4_matmul_2d_w8a8p(
+                    x, q, s, qw.group), copies, reps=reps)
+                results[-1]["kernel_device_ms"] = device_stats(
+                    call, W8A8P_KERNEL, reps=reps)[0]
                 del w8
+        del copies
 
 
 def check_glu(gen, results):
-    """K11 at the FFN tail's shape (w2), and at the square one."""
+    """K11 at the FFN tail's shape (w2), and at the square one; the GEMV
+    rows on a cold L2."""
     for K, N in ((13824, 5120), (5120, 5120)):
         qw = _quantize_leaf_int4(random_weight(K, N, gen))
         kpad = qw.q.shape[0] * 2
+        copies = weight_copies(qw)
         for M in GEMV_MS + TILED_MS:
             g = padded(randn(M, K, gen=gen), qw)
             u = padded(randn(M, K, gen=gen), qw)
@@ -676,6 +733,10 @@ def check_glu(gen, results):
                    nbytes(g, u, qw.q, qw.scale, res, got), 2 * M * kpad * N,
                    timed_ms(lambda: res + (F.silu(g[:, :K]) * u[:, :K])
                             @ _dequantize_leaf(qw, torch.bfloat16), reps))
+            if M <= qmm.GEMV_MAX_M:
+                time_cold(results[-1], lambda q, s: int4_matmul_2d_glu(
+                    g, u, q, s, res, qw.group), copies)
+        del copies
 
 
 def check_flash(gen, results):
@@ -973,6 +1034,193 @@ def check_vit(gen, results):
                   f"call (torch.profiler)")
 
 
+def kernel_times(fn, reps: int) -> dict:
+    """Device ms and launches per call of ``fn``, by kernel name, from a
+    ``torch.profiler`` trace of ``reps`` calls (warm ``fn`` first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            out[e.key] = (t / reps / 1e3, e.count / reps)
+    return out
+
+
+def short_name(key: str) -> str:
+    """A kernel's name without its return type, namespace and arguments."""
+    key = re.sub(r"^void ", "", key)
+    key = re.sub(r"\(.*$", "", key)
+    return key.split("::")[-1][:48]
+
+
+def print_profile(card: str, label: str, times: dict, groups: dict) -> None:
+    """One line: the device time of a call, each group's share (kernel
+    names holding one of its substrings) and the six longest kernels."""
+    total = sum(t for t, _ in times.values())
+    parts = []
+    for name, pats in groups.items():
+        sel = [v for k, v in times.items() if any(q in k for q in pats)]
+        parts.append(f"{name} {sum(t for t, _ in sel):.4f} ms in "
+                     f"{sum(n for _, n in sel):g} launches")
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"[{card}] {label}: device {total:.4f} ms a call ("
+          + "; ".join(parts) + "); longest: "
+          + ", ".join(f"{short_name(k)} {t:.4f} ms x{n:g}"
+                      for k, (t, n) in top))
+
+
+STEP_GROUPS = {"int4 GEMV": GEMV_KERNELS,
+               "decode attention": ("decode_cluster", "decode_attn")}
+
+
+def decode_profile(card: str, label: str, model, prompts, images,
+                   steps: int = 4) -> dict:
+    """One decode step's device time by kernel name (``torch.profiler``
+    over ``steps`` steps after one warm-up step) on a cache prefilled with
+    the prompts' common prefix, the model's cache settings: the device
+    work of a step without the host's eager loop around it."""
+    from a3vlm_tpu_torch.models import llama
+    from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
+
+    args, lp = model.args, model.params["llama"]
+    with torch.inference_mode():
+        img = model.encode_images(images)
+        P = min(len(t) for t in prompts)
+        tokens = torch.tensor([t[:P] for t in prompts], device="cuda")
+        cache = llama.KVCache.create(
+            args, len(prompts), P + img.shape[1] + steps + 2,
+            dtype=kv_cache_dtype(model.kv_cache_bits, "cuda"), device="cuda")
+        logits, cache, S = llama.prefill(lp, args, cache, tokens, img)
+        tok = logits.argmax(-1)[:, None]
+        pos = [S]
+
+        def step():
+            llama.decode_step(lp, args, cache, tok, pos[0])
+            pos[0] += 1
+
+        step()
+        torch.cuda.synchronize()
+        times = kernel_times(step, steps)
+    print_profile(card, f"{label}: one decode step (torch.profiler over "
+                  f"{steps} steps)", times, STEP_GROUPS)
+    return times
+
+
+def prefill_profile(card: str, label: str, model, prompts, images) -> dict:
+    """One prefill's device time by kernel name, after a warm-up prefill,
+    in the mode that is switched on."""
+    from a3vlm_tpu_torch.models import llama
+
+    args, lp = model.args, model.params["llama"]
+    with torch.inference_mode():
+        img = model.encode_images(images)
+        P = min(len(t) for t in prompts)
+        tokens = torch.tensor([t[:P] for t in prompts], device="cuda")
+        cache = llama.KVCache.create(args, len(prompts), P + img.shape[1],
+                                     dtype=torch.bfloat16, device="cuda")
+
+        def prefill():
+            llama.prefill(lp, args, cache, tokens, img)
+
+        prefill()
+        torch.cuda.synchronize()
+        times = kernel_times(prefill, 1)
+    print_profile(card, f"{label}: one prefill", times, {
+        "W8A8 kernel (K8)": (W8A8P_KERNEL,),
+        "int4 tile (K1)": ("int4_mma_kernel",),
+        "flash attention": ("flash_fwd",)})
+    return times
+
+
+# Generated ids of every labelled run, for ``--ids-out``; ``--ids-ref``
+# loads another run's (the parent commit's, say) to hold them against.
+IDS: dict = {}
+IDS_REF: dict = {}
+
+
+def logit_gap(model, prompts, images, outs, row: int, at: int):
+    """The vanilla loop replayed on the kernel path with the model's cache
+    and prefill settings, the run's ids forced, up to the logits that chose
+    generated id ``at`` of ``row``: (their top-2 gap, the max |kernel -
+    plain| of that step's logits, the plain step on a copy of the same
+    cache, and the replay's own choice)."""
+    from a3vlm_tpu_torch.generation import _prefill_bucket
+    from a3vlm_tpu_torch.models import llama
+    from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
+
+    gen = model._get_generator()
+    args, B = gen.args, len(prompts)
+    with torch.inference_mode():
+        img = model.encode_images(images)
+        W = img.shape[1]
+        P = _prefill_bucket(min(len(t) for t in prompts))
+        target = len(prompts[row]) + at  # the position that id fills
+        L = max(target, P) + 1
+        toks = torch.zeros((B, L), dtype=torch.long)
+        for i, (t, o) in enumerate(zip(prompts, outs)):
+            seq = (list(t) + list(o))[:L]
+            toks[i, :len(seq)] = torch.tensor(seq)
+        toks = toks.to("cuda")
+
+        def new_cache():
+            return llama.KVCache.create(
+                args, B, L + W, dtype=kv_cache_dtype(gen.kv_cache_bits,
+                                                     "cuda"), device="cuda")
+
+        kernel, cache, _ = gen._prefill(new_cache(), toks[:, :P], img, "auto")
+        if target == P:
+            plain = gen._prefill(new_cache(), toks[:, :P], img, "plain")[0]
+        else:
+            for pos in range(P, target):
+                if pos == target - 1:
+                    plain = llama.decode_step(gen.params, args,
+                                              clone_cache(cache),
+                                              toks[:, pos:pos + 1], pos + W,
+                                              "plain")[0]
+                kernel, cache = llama.decode_step(
+                    gen.params, args, cache, toks[:, pos:pos + 1], pos + W,
+                    "auto")
+        limit = gen.vocab_limit or kernel.shape[-1]
+        top = kernel[row, :limit].float().topk(2)
+        return (float(top.values[0] - top.values[1]),
+                float((kernel[row] - plain[row]).float().abs().max()),
+                int(top.indices[0]))
+
+
+def note_ids(card: str, label: str, outs, replay=None) -> None:
+    """Keeps a run's ids under ``label``; where ``--ids-ref`` has other ids
+    for it, prints the first differing row and index and, with ``replay``
+    (model, prompts, images) of a vanilla-loop run, this run's top-2 logit gap
+    there against the kernel-vs-plain logit error of the same step: a flip
+    between two summation orders is explained when the gap is no larger
+    than that error."""
+    IDS[label] = outs
+    ref = IDS_REF.get(label)
+    if ref is None:
+        return
+    if ref == outs:
+        print(f"[{card}] ids {label}: equal to the reference run's")
+        return
+    row = next(i for i, (a, b) in enumerate(zip(outs, ref)) if a != b)
+    at = first_difference(outs[row], ref[row])
+    mine = outs[row][at] if at < len(outs[row]) else None
+    theirs = ref[row][at] if at < len(ref[row]) else None
+    line = (f"[{card}] ids {label}: first differ from the reference run's "
+            f"at row {row} index {at} (this run {mine}, reference {theirs})")
+    if replay is not None and mine is not None and theirs is not None:
+        gap, err, pick = logit_gap(*replay, outs, row, at)
+        line += (f"; this run's top-2 logit gap there {gap:.4f} (the "
+                 f"replay picks {pick}), kernel vs plain max |logit diff| "
+                 f"of that step {err:.4f}")
+    print(line)
+
+
 def reset_launches() -> None:
     for _, _, wrapper in KERNELS.values():
         wrapper.launches = 0
@@ -1051,6 +1299,8 @@ def run_main_path(card: str):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[{card}] generated lengths {[len(o) for o in outs]}, ids "
           f"digest {ids_digest(outs)}")
+    note_ids(card, "serve", outs, (model, prompts, images))
+    decode_profile(card, "serving, batch 4", model, prompts, images)
 
     # kernel path against plain path on the same weights
     P = 32  # prefill bucket of the shortest prompt (37 -> 32)
@@ -1129,7 +1379,8 @@ def clone_cache(cache):
 
 def run_latency_path(card: str, model) -> dict:
     """Phase 6; returns the latency kernels' launch counts summed over the
-    requests of all modes (the step checks after them are not counted)."""
+    requests of all modes: the per-request deltas of ``run``, so neither
+    the step profile, the ids replay nor the step checks are counted."""
     from a3vlm_tpu_torch import constrained
     from a3vlm_tpu_torch.generation import _prefill_bucket
     from a3vlm_tpu_torch.lookup_decode import _verify_step
@@ -1153,6 +1404,8 @@ def run_latency_path(card: str, model) -> dict:
     print(f"[{card}] grammar compiled over a 32000-piece table in "
           f"{time.perf_counter() - t0:.1f} s: {fsm.n_states} states")
 
+    totals = {n: 0 for n in KERNELS}
+
     def run(label, expect, **kw):
         """One request; ``expect`` maps kernel name -> launches per layer
         and (decode step | verify round), checked against the run."""
@@ -1163,6 +1416,8 @@ def run_latency_path(card: str, model) -> dict:
         torch.cuda.synchronize()
         st = model.last_stats
         delta = {n: KERNELS[n][2].launches - before[n] for n in KERNELS}
+        for n, c in delta.items():
+            totals[n] += c
         delta = {n: c for n, c in delta.items() if c}
         steps = st["decode_steps"]
         total = st["towers_ms"] + st["prefill_ms"] + st["decode_ms"]
@@ -1176,6 +1431,10 @@ def run_latency_path(card: str, model) -> dict:
               f"launches {delta}; ids digest {ids_digest(out)}")
         if not out or any(not (0 <= t < 32000) for t in out):
             raise AssertionError(f"{label}: malformed ids {out}")
+        # lookup and grammar runs are not the vanilla loop: no replay
+        vanilla = not kw.get("draft_k") and kw.get("fsm") is None
+        note_ids(card, f"latency {label}", [out],
+                 (model, prompt, image) if vanilla else None)
         for name, per_step in expect.items():
             if delta.get(name, 0) != per_step * L * steps:
                 raise AssertionError(
@@ -1194,6 +1453,7 @@ def run_latency_path(card: str, model) -> dict:
     reset_launches()
     # (a) vanilla, bf16 cache: the reference ids
     ref, _ = run("(a) vanilla bf16", {"decode_attention": 1})
+    decode_profile(card, "latency (a), batch 1", model, prompt, image)
     # (b) the two-step path: write, then the attend-only kernel
     dec.FUSE_UPDATE_ATTEND = False
     try:
@@ -1247,7 +1507,8 @@ def run_latency_path(card: str, model) -> dict:
             state = int(table[state, t])
         print(f"[{card}] latency {label}: all {len(ids)} ids legal: "
               + "".join(_PieceTable(32000).pieces[t] for t in ids))
-    launches = require_launched(LATENCY_KERNELS, "latency")
+    launches = {n: totals[n] for n in LATENCY_KERNELS}
+    require_counts(launches, LATENCY_KERNELS, "latency")
 
     # one step of the kernel path against the plain path on copies of one
     # cache: a decode step over the int8 cache (c), a verify step over the
@@ -1345,6 +1606,10 @@ class _QuantRequest:
         for out in outs:
             if not out or any(not (0 <= t < 32000) for t in out):
                 raise AssertionError(f"{label}: malformed ids {out}")
+        note_ids(self.card, f"quant {label}", outs,
+                 None if kw.get("draft_k") else
+                 (model, prompts or self.prompt,
+                  self.image if images is None else images))
         for name, want in expect.items():
             want = want(steps) if callable(want) else want
             if delta.get(name, 0) != want:
@@ -1425,6 +1690,8 @@ def run_quant_modes(card: str, model) -> dict:
         "decode_attention": lambda s: L * s})
     ref_prefill_ms = model.last_stats["prefill_ms"]
     exact_logits = req.forwards("(ref) exact int4")
+    prefill_profile(card, "quant (ref) exact int4", model, req.prompt,
+                    req.image)
 
     def against_exact(label, logits, ids):
         print(f"[{card}] quant {label}: prefill logits rel err against the "
@@ -1459,6 +1726,11 @@ def run_quant_modes(card: str, model) -> dict:
             "int4_matmul_w8a8p": PER_FORWARD - 1,
             "int4_matmul": lambda s: 1 + PER_FORWARD * s,
             "int4_matmul_w4a8": 0})
+        print(f"[{card}] quant (j): prefill "
+              f"{model.last_stats['prefill_ms']:.1f} ms in the W8A8 mode "
+              f"against {ref_prefill_ms:.1f} ms on the exact route ((ref))")
+        prefill_profile(card, "quant (j) W8A8 prefill", model, req.prompt,
+                        req.image)
         against_exact("(j)", req.forwards("(j) W8A8P"), ids)
     finally:
         qmm.W8A8_PREFILL = False
@@ -1670,7 +1942,15 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3 (no result lines)")
+    parser.add_argument("--ids-out", metavar="PATH",
+                        help="write every run's generated ids as JSON")
+    parser.add_argument("--ids-ref", metavar="PATH",
+                        help="ids of another run (--ids-out) to hold this "
+                             "run's against, label by label")
     opts = parser.parse_args(argv)
+    if opts.ids_ref:
+        with open(opts.ids_ref) as f:
+            IDS_REF.update(json.load(f))
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke runs on the GPU only")
@@ -1688,7 +1968,7 @@ def main(argv=None) -> int:
     print(f"[{card}] kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{path.name}")
     for line in check_build_log(path, TENSOR_CORE_KERNELS
-                                + DECODE_PTXAS_KERNELS):
+                                + CLUSTER_PTXAS_KERNELS):
         print(f"[{card}] ptxas {line}")
 
     # 3. kernels against their plain versions
@@ -1716,7 +1996,7 @@ def main(argv=None) -> int:
                     if r["bound_by"] == "bytes"
                     else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
             rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
-        if r["name"] in VERIFY_KERNELS + DECODE_KERNELS:
+        if "device_ms" in r:  # timed cold (``time_cold``)
             dev = r["device_ms"]
             rate = (f" device {dev:.4f} ms ({r['bound_ms'] / dev:.0%} of "
                     f"bound, {dev / r['library_ms']:.2f}x library; "
@@ -1725,6 +2005,11 @@ def main(argv=None) -> int:
             rate += (f" host {r['host_ms']:.4f} ms a call; kernel "
                      f"{r['ms'] / r['library_ms']:.2f}x library; cold L2 "
                      f"over {r['copies']} copies")
+            if r.get("kernel_device_ms"):
+                k = r["kernel_device_ms"]
+                rate += (f"; the kernel alone {k:.4f} ms on the device "
+                         f"({r['bound_ms'] / k:.0%} of bound, "
+                         f"{k / r['library_ms']:.2f}x library)")
         print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
               f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
@@ -1765,6 +2050,9 @@ def main(argv=None) -> int:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
         })
+    if opts.ids_out:
+        with open(opts.ids_out, "w") as f:
+            json.dump(IDS, f)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,7 @@ from a3vlm_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
 )
+from a3vlm_tpu_torch.ops import quant_matmul as qmm
 from a3vlm_tpu_torch.ops.quant_matmul import (
     int4_matmul_2d,
     int4_matmul_2d_plain,
@@ -622,3 +623,75 @@ def test_wrappers_count_no_cpu_launches():
     verify_attention_quant(q2, kq, kq, valid)
     after = [f.launches for f in counted]
     assert before == after
+
+
+# Clusters of 1-8 blocks of the int4 GEMV that an H100 (132 SMs in GPCs of
+# 16-18) holds at once, from cudaOccupancyMaxActiveClusters on the card at
+# three, two and one blocks an SM (v1 up to 8 rows, up to 24, above; v3 up
+# to 8 rows, above: three sets of sums a thread).
+_CAP_3 = (396, 198, 124, 92, 69, 62, 47, 45)
+_CAP_2 = (264, 132, 79, 62, 47, 39, 32, 30)
+_CAP_1 = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
+def _gemv_cap(mode, M):
+    if mode == "v3":
+        return _CAP_2 if M <= 8 else _CAP_1
+    return _CAP_3 if M <= 8 else _CAP_2 if M <= 24 else _CAP_1
+
+
+# The cluster size at the decoder linears (K padded, N) and M 1, 4, 9 and
+# 32; want at three, two and one blocks an SM.
+@pytest.mark.parametrize("mode", ["v1", "v3"])
+@pytest.mark.parametrize("M", [1, 4, 9, 32])
+@pytest.mark.parametrize("K,N,want", [
+    (5120, 5120, (8, 5, 2)), (5120, 13824, (3, 2, 1)),
+    (14336, 5120, (8, 5, 2)), (5120, 32000, (1, 1, 1))])
+def test_gemv_splits_main_path(mode, M, K, N, want):
+    """Every column tile gets its cluster in one wave: at two blocks an SM
+    the 40 tiles of the square linears take 5 blocks each (the card holds
+    47 clusters of 5 but only 39 of 6), w1/w3's 108 take 2, the head's 250
+    take 1."""
+    cap = _gemv_cap(mode, M)
+    C = qmm.gemv_splits(N, K // 2, 64, cap)
+    assert C == want[(_CAP_3, _CAP_2, _CAP_1).index(cap)]
+    assert C == 1 or cap[C - 1] >= -(-N // qmm.GEMV_BN)
+
+
+# (N, K/2, group, capacity, want): small N (one or ten column tiles), a card
+# that holds few clusters, few runs of stages (a rank may get none: fewer
+# blocks), groups that span stages (128) or whose run is 3 stages (48)
+_FEW = (30, 15, 10, 7, 6, 5, 4, 3)
+
+
+@pytest.mark.parametrize("N,half,group,cap,want", [
+    (64, 48, 16, _CAP_2, 1), (1200, 2560, 64, _CAP_2, 8),
+    (5120, 2560, 64, _FEW, 1), (13824, 2560, 64, _CAP_1, 1),
+    (128, 640, 64, _CAP_2, 5), (5120, 2560, 128, _CAP_2, 5),
+    (48, 96, 48, _CAP_2, 1), (128, 1920, 48, _CAP_2, 5),
+    (128, 50, 2, _CAP_2, 1), (1200, 2560, 64, _FEW, 3)])
+def test_gemv_splits(N, half, group, cap, want):
+    """The largest cluster, up to 8, of which the card holds one for every
+    column tile at once, with a run of whole groups of stages for every
+    rank."""
+    C = qmm.gemv_splits(N, half, group, cap)
+    assert C == want
+    assert 1 <= C <= qmm.GEMV_MAX_CLUSTER
+    assert C == 1 or cap[C - 1] >= -(-N // qmm.GEMV_BN)
+    runs = qmm._gemv_runs(half, group)
+    assert -(-runs // C) * (C - 1) < runs
+
+
+@pytest.mark.parametrize("half", [48, 50, 3])
+def test_gemv_rows_pad(half):
+    """The GEMV reads x's two halves through strides of 16 bytes: where
+    K/2 % 8 != 0 it gets a copy with each half zero-padded to a multiple of
+    8, the values in place."""
+    x = torch.randn(5, 2 * half).to(torch.bfloat16)
+    xr, xld = qmm._gemv_rows(x, half)
+    assert xld % 8 == 0 and xld >= half and xld - half < 8
+    if half % 8 == 0:
+        assert xr is x
+    v = xr.view(5, 2, xld)
+    assert torch.equal(v[:, :, :half].reshape(5, 2 * half), x)
+    assert not v[:, :, half:].any()

@@ -41,7 +41,11 @@ from a3vlm_tpu_torch.ops.vit_attention import (
     vit_attention,
     vit_attention_plain,
 )
-from a3vlm_tpu_torch.quant import _quantize_leaf_int4, _quantize_leaf_int8
+from a3vlm_tpu_torch.quant import (
+    QuantizedWeight,
+    _quantize_leaf_int4,
+    _quantize_leaf_int8,
+)
 
 pytestmark = pytest.mark.cuda
 RTOL = 2.0 ** -6
@@ -118,6 +122,33 @@ def test_flash_attention_cuda(gen, hq, hkv, sq, skv, B):
     v = _randn(B, hkv, skv, 128, gen=gen)
     _check(flash_attention_bhsd(q, k, v, causal=True),
            flash_attention_bhsd_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_flash_attention_chunk_cuda(gen, seed):
+    """K2 at a chunk of the chunked prefill (B1, 476 queries against 1500
+    keys) on samples of their own. The kernel rounds the softmax weights to
+    bf16 before the value product, as the TPU kernel does; each moves by at
+    most 2^-8 of itself, in the product and in the row sum, so an output
+    moves by at most 2^-7 sum_i p_i |v_i|, the plain attention over |v|.
+    On some samples one to four near-zero outputs leave ``_check``'s bound
+    (seeds 7, 12 and 15 here; 12 of seeds 0-63, by at most 1.17x, in
+    scripts/torch_flash_chunk_seeds.py; ROADMAP Queue 3): here each output
+    is held to ``_check``'s bound plus that rounding, and a relaunch gives
+    the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = _randn(1, 40, 476, 128, gen=g)
+    k, v = _randn(1, 40, 1500, 128, gen=g), _randn(1, 40, 1500, 128, gen=g)
+    got = flash_attention_bhsd(q, k, v, causal=True)
+    want = flash_attention_bhsd_plain(q, k, v, causal=True).float()
+    spread = flash_attention_bhsd_plain(q.float(), k.float(),
+                                        v.float().abs(), causal=True)
+    err = (got.float() - want).abs()
+    bound = (RTOL * want.abs() + 1e-3 * want.abs().max()
+             + 2.0 ** -7 * spread)
+    assert torch.isfinite(got).all()
+    assert bool((err <= bound).all()), float((err / bound).max())
+    assert torch.equal(got, flash_attention_bhsd(q, k, v, causal=True))
 
 
 # The edges of the tensor-core tiles (128 keys in the forward kernel, 64 in
@@ -828,8 +859,10 @@ def test_int4_w4a8_cuda(gen, M, K, N):
                                 qw.scale, qw.group)
 
 
-@pytest.mark.parametrize("M", [33, 255, 256, 257, 1487])
-@pytest.mark.parametrize("K,N", _EDGE_KN)
+@pytest.mark.parametrize("M,K,N", [
+    (M, K, N) for M in (33, 255, 256, 257, 1487) for K, N in _EDGE_KN
+] + [(M, K, N) for M in (1487, 4 * 1487)
+     for K, N in ((5120, 5120), (13824, 5120))])
 def test_int4_w8a8p_cuda_bit_identical(gen, M, K, N):
     """Integer sums are exact and the epilogue has one order of products:
     the kernel equals its plain version bit for bit."""
@@ -856,3 +889,116 @@ def test_quant_flags_route_on_cuda(gen, monkeypatch):
     int4_matmul(_randn(100, 5120, gen=gen), qw)
     after = [getattr(qmm, n).launches for n in names]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def test_int4_w8a8p_refuses_cuda(gen):
+    """The W8A8 prefill tile takes K/2 and group in multiples of 64, as
+    the tiled route does; anything else raises and launches nothing."""
+    qw = _quantize_leaf_int4(_weight(96, 64, gen))
+    x = _padded(_randn(300, 96, gen=gen), qw)
+    before = qmm.int4_matmul_2d_w8a8p.launches
+    with pytest.raises(ValueError):
+        qmm.int4_matmul_2d_w8a8p(x, qw.q, qw.scale, qw.group)
+    assert qmm.int4_matmul_2d_w8a8p.launches == before
+
+
+# The int4 GEMV (M <= 32) in its three modes: every decode batch and verify
+# span up to 32, on both sides of its 8-row fragments, over the decoder
+# linears, the edge shapes, the smallest weight the quantizer makes (group
+# 16, K/2 48) and one whose K/2 is no multiple of 8 (group 2: x goes in as
+# a padded copy); hand-made groups below (test_int4_gemv_groups_cuda).
+_GEMV_MS = [1, 2, 3, 4, 5, 8, 9, 16, 31, 32]
+_GEMV_KN = ([(5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)]
+            + _EDGE_KN + [(96, 64), (100, 48)])
+_GEMV_WEIGHTS: dict = {}
+_GEMV_WRAPPERS = {"v1": "int4_matmul_2d", "v3": "int4_matmul_2d_v3",
+                  "glu": "int4_matmul_2d_glu"}
+
+
+def _gemv_weight(K, N, gen):
+    if (K, N) not in _GEMV_WEIGHTS:
+        _GEMV_WEIGHTS[(K, N)] = _quantize_leaf_int4(_weight(K, N, gen))
+    return _GEMV_WEIGHTS[(K, N)]
+
+
+def _gemv_case(mode, qw, M, gen):
+    """(call, direct): ``call(impl)`` through the dispatcher of ``mode``,
+    ``direct()`` the 2-D wrapper on the padded operands."""
+    K = qw.in_dim
+    if mode == "glu":
+        g, u = _randn(M, K, gen=gen), _randn(M, K, gen=gen)
+        res = _randn(M, qw.q.shape[1], gen=gen)
+        g2, u2 = _padded(g, qw), _padded(u, qw)
+        return (lambda impl: qmm.int4_ffn_down(g, u, qw, res, impl),
+                lambda: qmm.int4_matmul_2d_glu(g2, u2, qw.q, qw.scale, res,
+                                               qw.group))
+    x = _randn(M, K, gen=gen)
+    x2 = _padded(x, qw)
+    return (lambda impl: int4_matmul(x, qw, impl, variant=mode),
+            lambda: getattr(qmm, _GEMV_WRAPPERS[mode])(x2, qw.q, qw.scale,
+                                                       qw.group))
+
+
+def _kernel_names(fn, calls: int) -> tuple:
+    """(names, outputs) of ``calls`` calls of ``fn``: the device kernels
+    they launch, one entry a launch (``torch.profiler``, which now and then
+    drops a kernel event: a name may be missing, none is invented), and
+    what each call returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [fn() for _ in range(calls)]
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() for _ in range(e.count)
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith("Mem")], outs
+
+
+def _hold_gemv(mode, qw, M, gen):
+    call, direct = _gemv_case(mode, qw, M, gen)
+    wrapper = getattr(qmm, _GEMV_WRAPPERS[mode])
+    before = wrapper.launches
+    got = call("auto")
+    assert wrapper.launches == before + 1
+    _check(got, call("plain"))
+    assert torch.equal(got, call("auto"))  # a relaunch, the same bits
+    # one launch a call: over 10 calls the GEMV is the only kernel (no
+    # second pass; where K/2 % 8 != 0 the inputs come as padded copies,
+    # whose kernels come besides), exactly once a call in at least one of
+    # three profiled runs (the profiler may drop an event, never add one),
+    # and every profiled call gives the same bits
+    for _ in range(3):
+        names, outs = _kernel_names(direct, 10)
+        assert all(torch.equal(out, got) for out in outs)
+        gemv = [n for n in names if "int4_gemv_cluster_kernel" in n]
+        assert len(gemv) <= 10, names
+        assert gemv == names or qw.q.shape[0] % 8 != 0, set(names)
+        assert not any("splitk" in n for n in names), set(names)
+        if len(gemv) == 10:
+            break
+    assert len(gemv) == 10, names
+
+
+@pytest.mark.parametrize("mode", ["v1", "v3", "glu"])
+@pytest.mark.parametrize("M", _GEMV_MS)
+@pytest.mark.parametrize("K,N", _GEMV_KN)
+def test_int4_gemv_cuda(gen, mode, M, K, N):
+    _hold_gemv(mode, _gemv_weight(K, N, gen), M, gen)
+
+
+# Groups no quantizer here makes but the wrapper takes (any divisor of
+# K/2): 48 (its run is 3 stages, and a stage meets two groups) and 24 (a
+# 16-row step meets two groups: v3 takes one masked product a group).
+@pytest.mark.parametrize("mode", ["v1", "v3", "glu"])
+@pytest.mark.parametrize("M", [1, 9, 32])
+@pytest.mark.parametrize("half,N,group", [
+    (96, 64, 48), (96, 64, 24), (1920, 1200, 48), (1920, 1200, 24)])
+def test_int4_gemv_groups_cuda(gen, mode, M, half, N, group):
+    q = torch.randint(-128, 128, (half, N), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    scale = ((torch.rand(2 * half // group, N, generator=gen, device="cuda")
+              + 0.5) / (2 * half) ** 0.5).contiguous()
+    _hold_gemv(mode, QuantizedWeight(q, scale, bits=4, group=group,
+                                     in_dim=2 * half), M, gen)
