@@ -1,24 +1,31 @@
 // int4 weights against int8 activations for Hopper (sm_90a): the W4A8
-// decode kernel and the W8A8 prefill kernel.
+// decode GEMV, the W8A8 prefill kernel, and the per-row activation
+// quantizer both take first.
 //
 // Replace a3vlm_tpu/ops/quant_matmul.py::_int4_kernel_w4a8 (tiled by
-// _int4_matmul_2d_w4a8) and ::_int4_kernel_w8a8p (tiled by
-// _int4_matmul_2d_w8a8p). Both take activations already quantized per row
-// (xq int8 [M, K], xs f32 [M]) and the split-half packed weight of
+// _int4_matmul_2d_w4a8), ::_int4_kernel_w8a8p (tiled by
+// _int4_matmul_2d_w8a8p), and the XLA ops of quantize_act_int8 that their
+// wrappers run first. Both matmuls take activations already quantized per
+// row (xq int8 [M, K], xs f32 [M]) and the split-half packed weight of
 // int4_matmul.cu (byte row r of q [K/2, N] holds weight row r in its low
 // nibble and row r + K/2 in its high nibble).
 //
-// W4A8 (M <= 32), int4_gemv_a8_kernel:
+// The quantizer, quantize_act_kernel: one block a row takes the row's
+// absmax m, then s = max(m, 1e-8) / 127 and q = clamp(rint(x / s), -127,
+// 127), both quotients correctly rounded (__fdiv_rn), rint half to even:
+// the plain version's tensor ops to the bit. It reads each row twice (the
+// second time from L1) and is bound by its launch at decode sizes.
+//
+// W4A8 (M <= 32), gemv_cluster_kernel<MODE_W4A8, MT> (gemv_cluster.cuh):
 //
 //     out[m, n] = xs[m] * sum_g s[g, n] * (xq[m, Kg] . q4[Kg, n])
 //
-// Nibbles unpack to int with two shifts and no float math; the dot over the
-// rows of one group is an int32 sum (exact in any order); each is converted
-// to f32, multiplied by the group's scale and added; xs[m] is applied once
-// in the second pass. The weight stream, K*N/2 bytes, bounds it, so it is
-// a split-K GEMV with integer multiply-adds: a block owns 128 columns and
-// 128 packed rows, K is split at multiples of 16 rows, and
-// splitk_reduce_kernel sums the f32 partials in a fixed order.
+// One launch, no scratch: the cluster GEMV of K1 with xq's int8 rows in the
+// stages, the nibbles turned into s8 operands by byte permutes and masks
+// (no float math), each group's dot an exact int32 sum on mma.sync
+// m16n8k32, converted to f32, multiplied by the group's scale and added;
+// xs[m] is applied once at the store. The weight stream, K*N/2 bytes,
+// bounds it.
 //
 // W8A8 prefill (M >= 256), w8a8p_mma_kernel:
 //
@@ -52,122 +59,60 @@
 //   one fixed order with no contraction, so the result equals the plain
 //   version's bit for bit.
 
-#include "matmul_common.cuh"
+#include "gemv_cluster.cuh"
 
 namespace {
 
-// ------------------------------------------------------------------ W4A8
-constexpr int GA_TX = 32;
-constexpr int GA_TY = 8;
-constexpr int GA_COLS = 4;
-constexpr int GA_BN = GA_TX * GA_COLS;  // 128 columns per block
-constexpr int GA_KS = 128;              // packed rows per split
-constexpr int GA_MT = 8;                // rows of x per block
+// ------------------------------------------------------------- quantizer
+constexpr int QA_THREADS = 256;
 
-__global__ void __launch_bounds__(GA_TX * GA_TY)
-int4_gemv_a8_kernel(const int8_t* __restrict__ xq,
-                    const int8_t* __restrict__ q,
-                    const float* __restrict__ scale,
-                    float* __restrict__ partial,
-                    int M, int half, int N, int group) {
-  __shared__ int xs[2][GA_MT][GA_KS];
-  __shared__ float red[GA_TY][GA_MT][GA_BN];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * GA_TX + tx;
-  const int n0 = blockIdx.x * GA_BN + tx * GA_COLS;
-  const int split = blockIdx.y;
-  const int r0 = split * GA_KS;
-  const int m0 = blockIdx.z * GA_MT;
-  const size_t kpad = 2 * (size_t)half;
+// x as f32, from bf16 or f32.
+__device__ __forceinline__ float qa_float(bf16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float qa_float(float v) { return v; }
 
-  for (int i = tid; i < GA_MT * GA_KS; i += GA_TX * GA_TY) {
-    const int m = i / GA_KS, r = i % GA_KS;
-    int lo = 0, hi = 0;
-    if (m0 + m < M && r0 + r < half) {
-      const int8_t* row = xq + (size_t)(m0 + m) * kpad;
-      lo = row[r0 + r];
-      hi = row[half + r0 + r];
-    }
-    xs[0][m][r] = lo;
-    xs[1][m][r] = hi;
+// Row blockIdx.x of x [M, K] (T: bf16 or float) -> q [M, K] int8 and s [M]
+// f32. VEC elements a load (16 bytes; 1 where K or a row start does not
+// allow it).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(QA_THREADS)
+quantize_act_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                    float* __restrict__ s, int K) {
+  __shared__ float wmax[QA_THREADS / 32];
+  const T* row = x + (size_t)blockIdx.x * K;
+  int8_t* qrow = q + (size_t)blockIdx.x * K;
+  const int tid = threadIdx.x, n = K / VEC;
+  struct alignas(sizeof(T) * VEC) Vec { T v[VEC]; };
+  struct alignas(VEC) QVec { int8_t v[VEC]; };
+  const Vec* rv = reinterpret_cast<const Vec*>(row);
+  float m = 0.f;
+#pragma unroll 4
+  for (int i = tid; i < n; i += QA_THREADS) {
+    const Vec v = rv[i];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) m = fmaxf(m, fabsf(qa_float(v.v[e])));
   }
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((tid & 31) == 0) wmax[tid >> 5] = m;
   __syncthreads();
-
-  float acc[GA_MT][GA_COLS];
-  int pl[GA_MT][GA_COLS], ph[GA_MT][GA_COLS];  // the current group's dots
+  m = wmax[0];
 #pragma unroll
-  for (int m = 0; m < GA_MT; ++m)
+  for (int w = 1; w < QA_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
+  const float sc = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+  if (tid == 0) s[blockIdx.x] = sc;
+#pragma unroll 4
+  for (int i = tid; i < n; i += QA_THREADS) {
+    const Vec v = rv[i];
+    QVec o;
 #pragma unroll
-    for (int c = 0; c < GA_COLS; ++c) {
-      acc[m][c] = 0.f;
-      pl[m][c] = ph[m][c] = 0;
-    }
-
-  if (n0 < N) {
-    const int hg = half / group;
-    const int per_ty = GA_KS / GA_TY;
-    int cur_g = -1;
-    float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
-    auto flush = [&]() {
-#pragma unroll
-      for (int m = 0; m < GA_MT; ++m)
-#pragma unroll
-        for (int c = 0; c < GA_COLS; ++c) {
-          acc[m][c] += (float)pl[m][c] * sl[c];
-          acc[m][c] += (float)ph[m][c] * sh[c];
-          pl[m][c] = ph[m][c] = 0;
-        }
-    };
-    for (int rr = ty * per_ty; rr < (ty + 1) * per_ty; ++rr) {
-      const int r = r0 + rr;
-      if (r >= half) break;
-      const int gi = r / group;
-      if (gi != cur_g) {
-        if (cur_g >= 0) flush();
-        cur_g = gi;
-        const float4 a =
-            *reinterpret_cast<const float4*>(scale + (size_t)gi * N + n0);
-        const float4 b = *reinterpret_cast<const float4*>(
-            scale + (size_t)(hg + gi) * N + n0);
-        sl[0] = a.x; sl[1] = a.y; sl[2] = a.z; sl[3] = a.w;
-        sh[0] = b.x; sh[1] = b.y; sh[2] = b.z; sh[3] = b.w;
-      }
-      const char4 b = *reinterpret_cast<const char4*>(q + (size_t)r * N + n0);
-      const int bytes[4] = {b.x, b.y, b.z, b.w};
-      int wl[4], wh[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        wl[c] = lo_nibble(bytes[c]);
-        wh[c] = hi_nibble(bytes[c]);
-      }
-#pragma unroll
-      for (int m = 0; m < GA_MT; ++m) {
-        const int xl = xs[0][m][rr], xh = xs[1][m][rr];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          pl[m][c] += xl * wl[c];
-          ph[m][c] += xh * wh[c];
-        }
-      }
-    }
-    if (cur_g >= 0) flush();
-  }
-
-#pragma unroll
-  for (int m = 0; m < GA_MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GA_COLS; ++c) red[ty][m][tx * GA_COLS + c] = acc[m][c];
-  __syncthreads();
-
-  for (int i = tid; i < GA_MT * GA_BN; i += GA_TX * GA_TY) {
-    const int m = i / GA_BN, col = i % GA_BN;
-    const int n = blockIdx.x * GA_BN + col;
-    if (m0 + m < M && n < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int t = 0; t < GA_TY; ++t) s += red[t][m][col];
-      partial[((size_t)split * M + m0 + m) * N + n] = s;
-    }
+    for (int e = 0; e < VEC; ++e)
+      o.v[e] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(qa_float(v.v[e]), sc)),
+                                   -127.f),
+                             127.f);
+    reinterpret_cast<QVec*>(qrow)[i] = o;
   }
 }
 
@@ -430,24 +375,50 @@ w8a8p_mma_kernel(const __grid_constant__ CUtensorMap x_map,
 
 }  // namespace
 
-// W4A8 split-K GEMV for M <= 32. xq int8 [M, 2 * half], xscale f32 [M],
-// partial: [ceil(half / 128), M, N] f32 scratch. N % 16 == 0.
+// The W4A8 GEMV for M <= 32, one launch: xq [M] int8 rows of two halves
+// ``xld`` bytes apart (xld % 16 == 0, xld >= half), xscale f32 [M], q
+// [half, N], scale [2 half / group, N], out [M, N]; N % 16 == 0; any group
+// that divides half; Cn blocks a cluster (1-8) split K.
 extern "C" int a3_int4_gemv_a8(const void* xq, const void* xscale,
-                               const void* q, const void* scale, void* partial,
-                               void* out, int M, int half, int N, int group,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int splits = (half + GA_KS - 1) / GA_KS;
-  dim3 grid((N + GA_BN - 1) / GA_BN, splits, (M + GA_MT - 1) / GA_MT);
-  int4_gemv_a8_kernel<<<grid, dim3(GA_TX, GA_TY), 0, s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<float*>(partial), M, half,
-      N, group);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_splitk_reduce(
-      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out),
-      splits, M, N, nullptr, static_cast<const float*>(xscale), nullptr, s);
+                               const void* q, const void* scale, void* out,
+                               int M, int half, int N, int group, int xld,
+                               int Cn, void* stream) {
+  if (!gv_valid(M, half, N, group, xld, 16, Cn))
+    return (int)cudaErrorInvalidValue;
+  return gv_launch_m<MODE_W4A8>(xq, nullptr, q, scale, xscale, nullptr, out,
+                                M, half, N, group, xld, Cn,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of Cn blocks of the W4A8 GEMV at M rows and this group that the
+// card holds at once, or a negative cudaError_t.
+extern "C" int a3_int4_gemv_a8_clusters(int M, int group, int Cn) {
+  return gv_clusters_m<MODE_W4A8>(M, group, Cn);
+}
+
+// The per-row quantizer: x [M, K] (bf16, or f32 where ``is_f32``), q [M, K]
+// int8, s [M] f32; one block a row. Loads of 16 bytes where K allows them
+// (the wrapper gives 16-byte aligned tensors).
+extern "C" int a3_quantize_act_int8(const void* x, void* q, void* s, int M,
+                                    int K, int is_f32, void* stream) {
+  if (M < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* qo = static_cast<int8_t*>(q);
+  float* so = static_cast<float*>(s);
+  if (is_f32) {
+    const float* xf = static_cast<const float*>(x);
+    if (K % 4 == 0)
+      quantize_act_kernel<float, 4><<<M, QA_THREADS, 0, st>>>(xf, qo, so, K);
+    else
+      quantize_act_kernel<float, 1><<<M, QA_THREADS, 0, st>>>(xf, qo, so, K);
+  } else {
+    const bf16* xb = static_cast<const bf16*>(x);
+    if (K % 8 == 0)
+      quantize_act_kernel<bf16, 8><<<M, QA_THREADS, 0, st>>>(xb, qo, so, K);
+    else
+      quantize_act_kernel<bf16, 1><<<M, QA_THREADS, 0, st>>>(xb, qo, so, K);
+  }
+  return (int)cudaGetLastError();
 }
 
 // W8A8 prefill tiled product. xq int8 [M, 2 * half], ratio f32

@@ -1,7 +1,7 @@
 // Pieces the quantized-matmul kernels share (int4_matmul.cu, int8_matmul.cu,
-// int4_matmul_a8.cu): nibble unpacking, the second pass of the split-K
-// GEMVs of K6 and K7, and the tiled route of K1, K1v3, K11 and K6 on
-// Hopper's tensor cores (qmm_tile, below).
+// int4_matmul_a8.cu, and the GEMV of gemv_cluster.cuh): the modes, exact
+// conversions of packed values to numbers, and the tiled route of K1, K1v3,
+// K11 and K6 on Hopper's tensor cores (qmm_tile, below).
 
 #pragma once
 
@@ -15,12 +15,6 @@ namespace {
 
 using namespace a3mma;
 
-__device__ __forceinline__ int lo_nibble(int b) {
-  return ((int)((unsigned)b << 28)) >> 28;
-}
-
-__device__ __forceinline__ int hi_nibble(int b) { return b >> 4; }
-
 // silu(g) * u as the GLU-fused kernels form it: in f32, sigmoid(g) * g * u,
 // rounded to bf16 before the product.
 __device__ __forceinline__ __nv_bfloat16 glu_bf16(__nv_bfloat16 g,
@@ -28,39 +22,6 @@ __device__ __forceinline__ __nv_bfloat16 glu_bf16(__nv_bfloat16 g,
   const float gf = __bfloat162float(g);
   const float sig = 1.f / (1.f + expf(-gf));
   return __float2bfloat16_rn(sig * gf * __bfloat162float(u));
-}
-
-// Second pass of a split-K GEMV: sums the f32 partials [splits, M, N] in a
-// fixed order (so results do not change from run to run), then applies the
-// epilogue once: * col_scale[n], * row_scale[m], + res[m, n], each where the
-// pointer is not null, and rounds to bf16.
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     __nv_bfloat16* __restrict__ out,
-                                     int splits, int M, int N,
-                                     const float* __restrict__ col_scale,
-                                     const float* __restrict__ row_scale,
-                                     const __nv_bfloat16* __restrict__ res) {
-  const size_t mn = (size_t)M * N;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[(size_t)k * mn + i];
-  if (col_scale) s *= col_scale[i % N];
-  if (row_scale) s *= row_scale[i / N];
-  if (res) s += __bfloat162float(res[i]);
-  out[i] = __float2bfloat16_rn(s);
-}
-
-inline cudaError_t launch_splitk_reduce(const float* partial,
-                                        __nv_bfloat16* out, int splits, int M,
-                                        int N, const float* col_scale,
-                                        const float* row_scale,
-                                        const __nv_bfloat16* res,
-                                        cudaStream_t s) {
-  const size_t mn = (size_t)M * N;
-  splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
-      partial, out, splits, M, N, col_scale, row_scale, res);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------- the tiled route (M > 32)
@@ -105,6 +66,7 @@ constexpr int MODE_V1 = 0;    // int4, every weight scaled (K1)
 constexpr int MODE_V3 = 1;    // int4, group scale on the group's sum (K1v3)
 constexpr int MODE_GLU = 2;   // MODE_V1 over silu(g) * u, + residual (K11)
 constexpr int MODE_INT8 = 3;  // int8, column scale at the store (K6)
+constexpr int MODE_W4A8 = 4;  // int4 x int8 activations, the GEMV only (K7)
 
 // Blocks of 256 rows (two warpgroups of 128; on an H100 faster than blocks
 // of 128 at M 1487 and 5948, where the dequantization per product halves),

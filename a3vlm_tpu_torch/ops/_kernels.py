@@ -43,9 +43,12 @@ _SIGNATURES = {
     "a3_int4_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_mma_v3": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3_int4_mma_glu": [_P] * 7 + [_I, _I, _I, _I, _P],
-    "a3_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "a3_int8_gemv": [_P] * 4 + [_I] * 5 + [_P],
+    "a3_int8_gemv_clusters": [_I, _I],
     "a3_int8_mma": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "a3_int4_gemv_a8": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "a3_int4_gemv_a8": [_P] * 5 + [_I] * 6 + [_P],
+    "a3_int4_gemv_a8_clusters": [_I, _I, _I],
+    "a3_quantize_act_int8": [_P] * 3 + [_I] * 3 + [_P],
     "a3_int4_mma_w8a8p": [_P] * 6 + [_I, _I, _I, _I, _P],
     "a3_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],

@@ -5,24 +5,30 @@ csrc/int8_matmul.cu and csrc/int4_matmul_a8.cu).
 Every kernel has a wrapper and a plain PyTorch version beside it. A wrapper
 launches its kernel on CUDA tensors (a GEMV for M <= 32, a tensor-core
 tiled product above) or raises; CPU tensors take the plain version, as does
-``impl="plain"`` on any device. The int4 GEMV (csrc/int4_matmul.cu) is one
-launch with no scratch: a thread block cluster of ``gemv_splits`` blocks
-splits K for each 128 output columns, each block streams its stages of
-packed bytes, scales and x by TMA into rings in shared memory and
-multiplies on mma.sync from the weights dequantized once in registers,
-and the blocks add their
-partials through distributed shared memory in a fixed order; it takes any
-group that divides K/2 and N % 16 == 0. The int8 and W4A8 GEMVs are
-split-K with a second pass over a float32 scratch. The tiled products
-(csrc/matmul_common.cuh, and K8's in csrc/int4_matmul_a8.cu: TMA-fed
-tiles, wgmma) take K/2 % 64 == 0 and group % 64 == 0 for the int4 modes
-(a 64-row step of K lies in one group), K % 8 == 0 for int8, N % 16 == 0,
-and 16-byte aligned contiguous operands; their wrappers raise on anything
-else. For K8 that covers every weight of the quantizer here that the JAX
-kernel takes (it needs K/2 % 256 == 0, and the quantizer gives such a
-weight group 64) but not a hand-made group of 32, which the JAX kernel
-takes and this wrapper refuses; weights below 1024 inputs with K/2 % 64 ==
-32 (group 32), which the JAX dispatcher sends to its emulation, raise here.
+``impl="plain"`` on any device. The GEMVs of every mode (K1, K1v3, K11, the
+W4A8 decode K7 and the int8 K6; csrc/gemv_cluster.cuh) are one launch with
+no scratch: a thread block cluster of ``gemv_splits`` blocks splits K for
+each 128 output columns, each block streams its stages of weight bytes,
+scales and x by TMA into rings in shared memory and multiplies on
+mma.sync from the weights converted once in registers, and the blocks add
+their partials through distributed shared memory in a fixed order; they
+take any group that divides K/2 (int4) and N % 16 == 0. The W4A8 wrapper
+first quantizes x per row with one kernel (``quantize_act_int8``), which
+the W8A8 wrappers share. The tiled products (csrc/matmul_common.cuh, and
+K8's in csrc/int4_matmul_a8.cu: TMA-fed tiles, wgmma) take K/2 % 64 == 0
+and group % 64 == 0 for the int4 modes (a 64-row step of K lies in one
+group), K % 8 == 0 for int8, N % 16 == 0, and 16-byte aligned contiguous
+operands; their wrappers raise on anything else.
+
+The dispatchers (``int4_matmul``, ``int4_ffn_down``, ``int8_matmul``) check
+that domain from the shapes alone, as the JAX dispatcher checks its
+kernels' (``_kernel_eligible``, ``_int8_kernel_eligible``): on the card a
+shape the mode's kernel does not take goes to the reference's route for
+that mode, plain tensor ops (``INT4_FALLBACK``: the dense two-product route
+of ``_int4_matmul_xla`` for v1 and v3, the W4A8 and W8A8 prefill math, the
+unfused FFN tail; ``int8_matmul_dense`` for int8), and adds one to
+``int4_matmul.fallbacks[mode]`` or ``int8_matmul.fallbacks`` instead of a
+kernel's count. Every weight of the 13B decoder lies inside the domain.
 
 Wrappers (each ``name`` has its ``name_plain``) and what they compute:
 
@@ -34,7 +40,8 @@ Wrappers (each ``name`` has its ``name_plain``) and what they compute:
 - ``int4_matmul_2d_w4a8``: per-row int8 activations, int32 group dots;
 - ``int4_matmul_2d_w8a8p``: int8 activations against the weights
   requantized to int8 per column;
-- ``int8_matmul_2d``: ``(x @ W8) * scale``.
+- ``int8_matmul_2d``: ``(x @ W8) * scale``;
+- ``quantize_act_int8``: per-row int8 activations and their scales.
 
 The mode flags below are module attributes, as in the JAX package. PyTorch
 runs eagerly, so a flag set here takes effect at the next call (the JAX
@@ -44,7 +51,6 @@ flags are read when a function is traced). The JAX module's tile knobs
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 
@@ -60,13 +66,13 @@ from a3vlm_tpu_torch.quant import (
 )
 
 GEMV_MAX_M = 32
-_GEMV_KS = 128  # rows per split of the K6 and K7 GEMVs: G8_KS, GA_KS in csrc
-# the int4 GEMV: output columns a block, packed rows a stage, blocks a
-# cluster at most (GV_BN, GV_SR, GV_MAX_CLUSTER in csrc/int4_matmul.cu)
+# the GEMV: output columns a block, weight rows a stage (packed rows for
+# int4, rows of K for int8), blocks a cluster at most (GV_BN, GV_SR,
+# GV_MAX_CLUSTER in csrc/gemv_cluster.cuh)
 GEMV_BN = 128
 GEMV_STAGE_ROWS = 64
 GEMV_MAX_CLUSTER = 8
-_GEMV_MODES = {"v1": 0, "v3": 1, "glu": 2}
+_GEMV_MODES = {"v1": 0, "v3": 1, "glu": 2}  # of a3_int4_gemv
 _GEMV_CAPACITY: dict[tuple, tuple] = {}
 
 # what variant="auto" means (quant_matmul.py:41): "v1" or "v3"
@@ -125,13 +131,16 @@ def _group_dots(xf, q, scale, group: int):
 
 def _int_dot(a, b):
     """Exact int8 [M, K] @ int8 [K, N] -> int32. On the card one library
-    call where it takes the shape; else float32 products over chunks of
-    1024 rows of K, whose sums (<= 127 * 127 * 1024 < 2^24) are exact in
-    float32 in any order. Used by the plain versions and by
-    ``w8a8_matmul``, never by a kernel's wrapper."""
+    call at the shapes of the decoder and the towers (K and N multiples of
+    32, at least 256; the library refuses some small ones, such as K 96
+    against N 64); else float32 products over chunks of 1024 rows of K,
+    whose sums (<= 127 * 127 * 1024 < 2^24) are exact in float32 in any
+    order. Used by the plain versions and by ``w8a8_matmul``, never by a
+    kernel's wrapper."""
     M, K = a.shape
     N = b.shape[1]
-    if a.is_cuda and M > 16 and K % 8 == 0 and N % 8 == 0:
+    if (a.is_cuda and M > 16 and K % 32 == 0 and N % 32 == 0
+            and min(K, N) >= 256):
         return torch._int_mm(a.contiguous(), b.contiguous())
     out = torch.zeros((M, N), dtype=torch.int32, device=a.device)
     for k0 in range(0, K, 1024):
@@ -140,16 +149,47 @@ def _int_dot(a, b):
     return out
 
 
-def quantize_act_int8(x):
+def quantize_act_int8_plain(x):
     """Per-row symmetric int8 of the activations (quant_matmul.py:399):
-    [M, K] -> (int8 [M, K], float32 [M, 1] scale = max(absmax, 1e-8) / 127),
-    round half to even. The divisor is a tensor: a Python divisor on a CUDA
-    tensor becomes a product with its rounded reciprocal."""
+    [..., K] -> (int8 [..., K], float32 [..., 1] scale = max(absmax, 1e-8)
+    / 127), round half to even. The divisor is a tensor: a Python divisor
+    on a CUDA tensor becomes a product with its rounded reciprocal."""
     xf = x.float()
     m = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
     s = m / torch.full_like(m, 127.0)
     q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
     return q, s
+
+
+def quantize_act_int8(x):
+    """Wrapper of the row quantizer (csrc/int4_matmul_a8.cu): on a CUDA
+    tensor (bf16 or float32, [..., K]) one launch, a block a row, equal to
+    ``quantize_act_int8_plain`` bit for bit. Both quotients are correctly
+    rounded, as the tensor ops take them: a reciprocal multiply or
+    ``__fdividef`` would move some values across a rounding boundary and
+    lose the bit-identity with the JAX package."""
+    if x.device.type == "cpu":
+        return quantize_act_int8_plain(x)
+    name = "quantize_act_int8"
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    if M == 0 or K == 0:
+        return q.reshape(*lead, K), s.reshape(*lead, 1)
+    _kernels.require(x.dtype in (torch.bfloat16, torch.float32),
+                     f"{name}: dtype {x.dtype}, want bfloat16 or float32")
+    _kernels.require_cuda(name, x2)
+    err = _kernels.lib().a3_quantize_act_int8(
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), M, K,
+        int(x.dtype == torch.float32), _kernels.stream())
+    quantize_act_int8.launches += 1
+    _kernels.check(err, "a3_quantize_act_int8")
+    return q.reshape(*lead, K), s.reshape(*lead, 1)
+
+
+quantize_act_int8.launches = 0
 
 
 def w8a8p_factors(scale):
@@ -213,7 +253,7 @@ def int4_matmul_2d_w4a8_plain(x, q, scale, group: int):
     """The W4A8 math (``_int4_w4a8_xla``, quant_matmul.py:467): per-row int8
     activations, exact integer dots per group (in float32: |sum| <=
     127 * 8 * group), scaled per group, then by the row scale."""
-    xq, xs = quantize_act_int8(x)
+    xq, xs = quantize_act_int8_plain(x)
     return (_group_dots(xq.float(), q, scale, group) * xs).to(x.dtype)
 
 
@@ -222,10 +262,18 @@ def int4_matmul_2d_w8a8p_plain(x, q, scale, group: int):
     int8 activations against the weights requantized to int8 per column,
     an exact int32 sum over the whole K, then
     ``float(acc) * xs * cs`` in that order."""
-    xq, xs = quantize_act_int8(x)
+    xq, xs = quantize_act_int8_plain(x)
     ratio, cs = w8a8p_factors(scale)
     acc = _int_dot(xq, requantize_w8(q, ratio, group))
     return (acc.float() * xs * cs).to(x.dtype)
+
+
+def int8_matmul_dense(x, q, scale):
+    """The int8 route of the JAX dispatcher for shapes its kernel does not
+    take (quant_matmul.py:1133-1137): the weight dequantized to x's dtype
+    (float32 times the column scale, rounded once), then one product in
+    x's dtype. Plain tensor ops on any device."""
+    return x @ (q.float() * scale.reshape(1, -1)).to(x.dtype)
 
 
 def int8_matmul_2d_plain(x, q, scale):
@@ -248,12 +296,6 @@ def _require_int4(name, x, q, scale, group):
     _kernels.require_cuda(name, q, dtype=torch.int8)
     _kernels.require_cuda(name, scale, dtype=torch.float32)
     return M, half, N
-
-
-def _splitk_scratch(rows: int, M: int, N: int, device):
-    """The float32 partials [splits, M, N] of the K6 and K7 GEMVs."""
-    return torch.empty((-(-rows // _GEMV_KS), M, N), dtype=torch.float32,
-                       device=device)
 
 
 def _gemv_runs(half: int, group: int) -> int:
@@ -279,28 +321,34 @@ def gemv_splits(N: int, half: int, group: int, capacity) -> int:
 
 
 def _gemv_capacity(lib, device, mode: str, M: int, group: int) -> tuple:
-    """Clusters of 1-8 blocks of the int4 GEMV in ``mode`` for M rows (a
-    kernel per 8 rows) and this group's scale rows a stage that the card
-    holds at once, per card (``device`` an index)."""
+    """Clusters of 1-8 blocks of the GEMV in ``mode`` ("v1", "v3", "glu",
+    "w4a8" or "int8") for M rows (a kernel per 8 rows) and this group's
+    scale rows a stage that the card holds at once, per card (``device``
+    an index)."""
     key = (device, mode, -(-M // 8), group)
     if key not in _GEMV_CAPACITY:
         caps = []
         for C in range(1, GEMV_MAX_CLUSTER + 1):
-            n = lib.a3_int4_gemv_clusters(_GEMV_MODES[mode], M, group, C)
-            _kernels.check(0 if n > 0 else -n, "a3_int4_gemv_clusters")
+            if mode == "w4a8":
+                n = lib.a3_int4_gemv_a8_clusters(M, group, C)
+            elif mode == "int8":
+                n = lib.a3_int8_gemv_clusters(M, C)
+            else:
+                n = lib.a3_int4_gemv_clusters(_GEMV_MODES[mode], M, group, C)
+            _kernels.check(0 if n > 0 else -n, "gemv clusters")
             caps.append(n)
         _GEMV_CAPACITY[key] = tuple(caps)
     return _GEMV_CAPACITY[key]
 
 
-def _gemv_rows(x, half: int):
+def _gemv_rows(x, half: int, align: int = 8):
     """x [M, 2 half] as the GEMV reads it: its two halves ``xld`` elements
-    apart, xld % 8 == 0 (the tensor map's strides are multiples of 16
-    bytes). Returns (tensor, xld): x itself, or a zero-padded copy where
-    half % 8 != 0."""
-    if half % 8 == 0:
+    apart, xld % align == 0 (the tensor map's strides are multiples of 16
+    bytes: 8 bf16, 16 int8). Returns (tensor, xld): x itself, or a
+    zero-padded copy where half % align != 0."""
+    if half % align == 0:
         return x, half
-    xld = -(-half // 8) * 8
+    xld = -(-half // align) * align
     return F.pad(x.view(-1, 2, half), (0, xld - half)).contiguous(), xld
 
 
@@ -399,22 +447,28 @@ int4_matmul_2d_glu.launches = 0
 
 def int4_matmul_2d_w4a8(x, q, scale, group: int):
     """Wrapper of the W4A8 kernel (quant_matmul.py:411): x [M, Kpad] bf16
-    with M <= 32 is quantized per row to int8 here, in tensor ops as the
-    JAX package does outside its kernel; the kernel contracts in integers.
-    The weight as ``int4_matmul_2d``. Returns [M, N] bf16."""
+    with M <= 32 is quantized per row to int8 by one kernel
+    (``quantize_act_int8``, which keeps its own launch count), then the
+    GEMV contracts in integers, one launch. The weight as
+    ``int4_matmul_2d``, any group that divides Kpad/2. Returns [M, N]
+    bf16."""
     if x.device.type == "cpu":
         return int4_matmul_2d_w4a8_plain(x, q, scale, group)
     M, half, N = _require_int4("int4_matmul_w4a8", x, q, scale, group)
     _kernels.require(M <= GEMV_MAX_M, f"int4_matmul_w4a8: M={M} > "
                      f"{GEMV_MAX_M}")
     _kernels.require_cuda("int4_matmul_w4a8", x, dtype=torch.bfloat16)
-    xq, xs = quantize_act_int8(x)
+    # padding the halves adds zeros, which leave each row's absmax and
+    # quantize to 0
+    xr, xld = _gemv_rows(x, half, 16)
+    xq, xs = quantize_act_int8(xr.reshape(M, 2 * xld))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    partial = _splitk_scratch(half, M, N, x.device)
-    err = _kernels.lib().a3_int4_gemv_a8(
+    lib = _kernels.lib()
+    C = gemv_splits(N, half, group,
+                    _gemv_capacity(lib, x.get_device(), "w4a8", M, group))
+    err = lib.a3_int4_gemv_a8(
         xq.data_ptr(), xs.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), M, half, N, group,
-        _kernels.stream())
+        out.data_ptr(), M, half, N, group, xld, C, _kernels.stream())
     int4_matmul_2d_w4a8.launches += 1
     _kernels.check(err, "a3_int4_gemv_a8")
     return out
@@ -425,12 +479,12 @@ int4_matmul_2d_w4a8.launches = 0
 
 def int4_matmul_2d_w8a8p(x, q, scale, group: int):
     """Wrapper of the W8A8 prefill kernel (quant_matmul.py:299): x [M, Kpad]
-    bf16 is quantized per row to int8, and the ratios and column scales are
-    formed from ``scale``, here in tensor ops per call, as the JAX package
-    does; the kernel requantizes the weights and contracts int8 x int8 on
-    the tensor cores. Kpad/2 % 64 == 0 and group % 64 == 0, as the tiled
-    route (see the module docstring for how that stands to the JAX
-    kernel's shapes). Returns [M, N] bf16."""
+    bf16 is quantized per row to int8 by one kernel (``quantize_act_int8``),
+    and the ratios and column scales are formed from ``scale`` in tensor
+    ops per call, as the JAX package does; the kernel requantizes the
+    weights and contracts int8 x int8 on the tensor cores. Kpad/2 % 64 ==
+    0 and group % 64 == 0, as the tiled route; the dispatcher sends other
+    shapes to the plain math. Returns [M, N] bf16."""
     if x.device.type == "cpu":
         return int4_matmul_2d_w8a8p_plain(x, q, scale, group)
     M, half, N = _require_int4("int4_matmul_w8a8p", x, q, scale, group)
@@ -455,7 +509,8 @@ int4_matmul_2d_w8a8p.launches = 0
 def int8_matmul_2d(x, q, scale):
     """Wrapper of the int8 kernel (quant_matmul.py:1012). x [M, K] bf16, q
     [K, N] int8, scale [1, N] (or [N]) float32, contiguous; N % 16 == 0,
-    and K % 8 == 0 for M > 32. Returns [M, N] bf16."""
+    and K % 8 == 0 for M > 32 (the GEMV reads x as a padded copy where K %
+    8 != 0). Returns [M, N] bf16."""
     if x.device.type == "cpu":
         return int8_matmul_2d_plain(x, q, scale)
     M, K = x.shape
@@ -470,9 +525,12 @@ def int8_matmul_2d(x, q, scale):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _kernels.lib()
     if M <= GEMV_MAX_M:
-        partial = _splitk_scratch(K, M, N, x.device)
-        err = lib.a3_int8_gemv(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                               partial.data_ptr(), out.data_ptr(), M, K, N,
+        xld = -(-K // 8) * 8
+        xr = x if xld == K else F.pad(x, (0, xld - K)).contiguous()
+        C = gemv_splits(N, K, GEMV_STAGE_ROWS, _gemv_capacity(
+            lib, x.get_device(), "int8", M, GEMV_STAGE_ROWS))
+        err = lib.a3_int8_gemv(xr.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                               out.data_ptr(), M, K, N, xld, C,
                                _kernels.stream())
     else:
         _kernels.require(K % 8 == 0, "int8_matmul: K must be a multiple of "
@@ -498,6 +556,81 @@ def _pad_k(x, qw: QuantizedWeight, name: str):
     return x.reshape(-1, kpad).contiguous()
 
 
+def int4_kernel_takes(mode: str, M: int, half: int, N: int,
+                      group: int) -> bool:
+    """Whether the card's kernel of ``mode`` ("v1", "v3", "glu", "w4a8",
+    "w8a8p") takes x [M, 2 half] against a packed weight [half, N] in groups
+    of ``group``, from the shapes alone: N % 16 == 0 and a group that
+    divides half for all; the GEMV (M <= 32) nothing more; the tiled routes
+    (M > 32, and K8 at any M) half and group in multiples of 64."""
+    if N % 16 or group < 1 or half % group:
+        return False
+    if mode == "w4a8":
+        return M <= GEMV_MAX_M
+    if mode != "w8a8p" and M <= GEMV_MAX_M:
+        return True
+    return half % _TILE_MIN == 0 and group % _TILE_MIN == 0
+
+
+def int8_kernel_takes(M: int, K: int, N: int) -> bool:
+    """Whether the card's int8 kernel takes x [M, K] against [K, N]: N % 16
+    == 0, and K % 8 == 0 for the tiled route (M > 32)."""
+    return N % 16 == 0 and (M <= GEMV_MAX_M or K % 8 == 0)
+
+
+def _int4_v1(x, q, scale, group: int):
+    return int4_matmul_2d(x, q, scale, group, variant="v1")
+
+
+# mode -> (kernel wrapper, its plain version, the reference's route where
+# the kernel does not take the shape: _int4_matmul_xla for v1 and v3,
+# _int4_w4a8_xla, _int4_w8a8p_xla; quant_matmul.py:961-968)
+_INT4_ROUTES = {
+    "v1": (_int4_v1, int4_matmul_2d_plain, int4_matmul_dense),
+    "v3": (int4_matmul_2d_v3, int4_matmul_2d_v3_plain, int4_matmul_dense),
+    "w4a8": (int4_matmul_2d_w4a8, int4_matmul_2d_w4a8_plain,
+             int4_matmul_2d_w4a8_plain),
+    "w8a8p": (int4_matmul_2d_w8a8p, int4_matmul_2d_w8a8p_plain,
+              int4_matmul_2d_w8a8p_plain),
+    "dense": (int4_matmul_dense, int4_matmul_dense, int4_matmul_dense),
+}
+INT4_FALLBACK = {mode: route[2] for mode, route in _INT4_ROUTES.items()
+                 if mode != "dense"}
+
+
+def int4_mode(M: int, variant: str = "auto") -> str:
+    """The math ``int4_matmul`` takes for M rows under the mode flags, in
+    the JAX dispatcher's order (quant_matmul.py:970-983): "w8a8p" (M >=
+    ``W8A8_PREFILL_MIN_M``), "dense" (M >= ``PREFILL_DENSE_MIN_M``),
+    "w4a8" (M <= ``W4A8_MAX_M``), else the exact kernel's variant, "v1" or
+    "v3"."""
+    if W8A8_PREFILL and M >= W8A8_PREFILL_MIN_M:
+        return "w8a8p"
+    if PREFILL_DENSE_MIN_M is not None and M >= PREFILL_DENSE_MIN_M:
+        return "dense"
+    if W4A8_DECODE and M <= W4A8_MAX_M:
+        return "w4a8"
+    variant = _AUTO_VARIANT if variant == "auto" else variant
+    if variant not in ("v1", "v3"):
+        raise ValueError(f"int4_matmul: variant {variant!r}")
+    return variant
+
+
+def int4_route(M: int, half: int, N: int, group: int, variant: str = "auto",
+               impl: str = "auto", card: bool = True):
+    """(function, fallback) that ``int4_matmul`` calls for x [M, 2 half]
+    against a packed weight [half, N] in groups of ``group``: the mode's
+    kernel wrapper (``impl="plain"``: its plain version), or, on the card
+    where the kernel does not take the shape, the reference's route, with
+    ``fallback`` the mode (else None). Shapes and flags alone decide."""
+    mode = int4_mode(M, variant)
+    kernel, plain, fallback = _INT4_ROUTES[mode]
+    if mode != "dense" and card and not int4_kernel_takes(mode, M, half, N,
+                                                          group):
+        return fallback, mode
+    return (plain if impl == "plain" else kernel), None
+
+
 def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto",
                 variant: str = "auto"):
     """x [..., K] @ int4-packed weight -> [..., N] (quant_matmul.py:946):
@@ -507,30 +640,36 @@ def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto",
     (``int4_matmul_dense``); with ``W4A8_DECODE`` set, M <= ``W4A8_MAX_M``
     rows take the W4A8 math; the rest take the exact kernel in
     ``variant``. ``impl="plain"`` takes the same route through the plain
-    versions, on any device. The flags are read at every call."""
+    versions, on any device. On the card a shape the mode's kernel does
+    not take goes to the reference's route (``int4_route``), counted in
+    ``int4_matmul.fallbacks``. The flags are read at every call."""
     lead = x.shape[:-1]
     x2 = _pad_k(x, qw, "int4_matmul")
-    M = x2.shape[0]
-    if W8A8_PREFILL and M >= W8A8_PREFILL_MIN_M:
-        fn, fn_plain = int4_matmul_2d_w8a8p, int4_matmul_2d_w8a8p_plain
-    elif PREFILL_DENSE_MIN_M is not None and M >= PREFILL_DENSE_MIN_M:
-        fn = fn_plain = int4_matmul_dense
-    elif W4A8_DECODE and M <= W4A8_MAX_M:
-        fn, fn_plain = int4_matmul_2d_w4a8, int4_matmul_2d_w4a8_plain
-    elif (_AUTO_VARIANT if variant == "auto" else variant) == "v3":
-        fn, fn_plain = int4_matmul_2d_v3, int4_matmul_2d_v3_plain
-    else:
-        fn = functools.partial(int4_matmul_2d, variant=variant)
-        fn_plain = int4_matmul_2d_plain
-    out = (fn_plain if impl == "plain" else fn)(x2, qw.q, qw.scale, qw.group)
+    half, N = qw.q.shape
+    fn, fallback = int4_route(x2.shape[0], half, N, qw.group, variant, impl,
+                              x2.is_cuda)
+    if fallback is not None:
+        int4_matmul.fallbacks[fallback] += 1
+    out = fn(x2, qw.q, qw.scale, qw.group)
     return out.reshape(*lead, out.shape[-1])
+
+
+int4_matmul.fallbacks = {mode: 0 for mode in ("v1", "v3", "w4a8", "w8a8p",
+                                              "glu")}
 
 
 def int4_ffn_down(g, u, qw: QuantizedWeight, res, impl: str = "auto"):
     """The fused FFN tail ``res + (silu(g) * u) @ W2`` in one kernel
     (quant_matmul.py:658). g, u [..., K], res [..., N]; ``qw`` a single
-    layer's int4 weight."""
+    layer's int4 weight. On the card a shape the fused kernel does not take
+    goes through the unfused ops, as the JAX function's fallback does
+    (counted in ``int4_matmul.fallbacks["glu"]``)."""
     lead = g.shape[:-1]
+    half, N = qw.q.shape
+    M = math.prod(lead)
+    if g.is_cuda and not int4_kernel_takes("glu", M, half, N, qw.group):
+        int4_matmul.fallbacks["glu"] += 1
+        return res + int4_matmul(F.silu(g) * u, qw, impl)
     g2 = _pad_k(g, qw, "int4_ffn_down")
     u2 = _pad_k(u, qw, "int4_ffn_down")
     res2 = res.reshape(-1, res.shape[-1]).contiguous()
@@ -539,14 +678,44 @@ def int4_ffn_down(g, u, qw: QuantizedWeight, res, impl: str = "auto"):
     return out.reshape(*lead, out.shape[-1])
 
 
+def int8_route(M: int, K: int, N: int, impl: str = "auto",
+               card: bool = True):
+    """(function, fallback) that ``int8_matmul`` calls for x [M, K] against
+    [K, N]: the kernel wrapper (``impl="plain"``: its plain version), or on
+    the card, where the kernel does not take the shape,
+    ``int8_matmul_dense`` with ``fallback`` True."""
+    if card and not int8_kernel_takes(M, K, N):
+        return int8_matmul_dense, True
+    return (int8_matmul_2d_plain if impl == "plain" else int8_matmul_2d,
+            False)
+
+
 def int8_matmul(x, qw: QuantizedWeight, impl: str = "auto"):
     """x [..., K] @ int8 weight [K, N] with one scale per output channel
-    (quant_matmul.py:1124)."""
+    (quant_matmul.py:1124); on the card a shape the kernel does not take
+    goes to ``int8_matmul_dense``, counted in ``int8_matmul.fallbacks``."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    fn = int8_matmul_2d_plain if impl == "plain" else int8_matmul_2d
+    fn, fallback = int8_route(x2.shape[0], *qw.q.shape, impl, x2.is_cuda)
+    if fallback:
+        int8_matmul.fallbacks += 1
     out = fn(x2, qw.q, qw.scale.reshape(1, -1))
     return out.reshape(*lead, out.shape[-1])
+
+
+int8_matmul.fallbacks = 0
+
+
+def fallback_count() -> int:
+    """Calls the dispatchers sent to a reference route since the last
+    ``reset_fallbacks``."""
+    return sum(int4_matmul.fallbacks.values()) + int8_matmul.fallbacks
+
+
+def reset_fallbacks() -> None:
+    for mode in int4_matmul.fallbacks:
+        int4_matmul.fallbacks[mode] = 0
+    int8_matmul.fallbacks = 0
 
 
 def w8a8_matmul(x, qw: QuantizedWeight):

@@ -9,23 +9,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc and prints the build time and what ptxas reported of the
    tensor-core kernels (K2, K9a, K9b, K10, the tiled quantized matmuls of
    K1, K1v3, K11 and K6, K11's pre-pass, and the verify kernel of K5 and
-   K5q, and K8's W8A8 tile: registers, spills) and of the cluster kernels
-   (the decode kernel of K3, K3u, K4 and K4 fused, and the int4 GEMV of
-   K1, K1v3 and K11); they must not spill and the wgmma products must not
-   have been serialized.
+   K5q, and K8's W8A8 tile: registers, spills), of the cluster kernels
+   (the decode kernel of K3, K3u, K4 and K4 fused, and the GEMV of K1,
+   K1v3, K11, K7 and K6) and of the row quantizer; they must not spill and
+   the wgmma products must not have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it; prints error and times, for
    the tensor-core kernels (the attention kernels, and the quantized
    matmuls at M > 32) also the achieved rate (TFLOP/s, or GB/s where bytes
    bound it) and its share of the bound; for the decode and verify kernels
-   (K3, K3u, K4, K4 fused, K5, K5q), the int4 GEMV rows (K1 at M 1, 4, 9
-   and 32, K1v3 and K11 at M 1, 4, 8 and 32) and K8 the device time of a
-   call and the kernels it launches (``torch.profiler``; for K8 also the
+   (K3, K3u, K4, K4 fused, K5, K5q), the GEMV rows (K1 at M 1, 4, 9 and
+   32, K1v3, K11, K7 and K6 at M 1, 4, 8 and 32) and K8 the device time of
+   a call and the kernels it launches (``torch.profiler``; for K8 also the
    kernel's own, apart from the wrapper's quantizer), the wrapper's host
    time per call, the device time's share of the bound and its ratio to
    the library call, all timed over a rotation of operand copies that
    exceeds the L2 (``cold_copies``), as a decode step finds each layer's
-   cache and weights.
+   cache and weights; the row quantizer's rows (K7's and K8's shapes) must
+   equal its plain version bit for bit, inputs from a generator of their
+   own.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -33,7 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``MetaModel.generate_tokens``; every serving kernel must have launched
    there, the flash forward without its log-sum-exp; one decode step's
    device time by kernel name (``torch.profiler``, ``decode_profile``).
-   Then the prefill logits of the kernel path are held against the
+   No call may take a dispatcher's fallback route (phases 4-7: every
+   full-width shape lies in the kernels' domain). Then the prefill logits
+   of the kernel path are held against the
    plain-PyTorch path on the same weights.
 5. training path: the same model trained as ``main_finetune`` trains it
    with ``--quant --quant_bits 4 --lora_rank 16 --checkpointing`` (the
@@ -72,9 +76,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``quantize(tower_bits=8)`` on a batch of 4, the towers through
    ``w8a8_matmul``. Each mode's kernel must
    have launched exactly as often as its forwards say, the kernel it
-   replaces not at all; then the prefill and one decode (or verify) step of
-   the kernel path are held against the plain path of the same mode. One
-   prefill's device time by kernel name in (ref) and in (j).
+   replaces not at all (and the row quantizer once per W4A8 and W8A8
+   prefill call); then the prefill and one decode (or verify) step of the
+   kernel path are held against the plain path of the same mode. One
+   prefill's device time by kernel name in (ref) and in (j), one decode
+   step's in (h) and (i).
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
@@ -214,6 +220,13 @@ PEAK_INT8_OPS_PER_S = 1979e12
 # kernels over enough copies of their operands to evict them too.
 L2_BYTES = 50 * 2 ** 20
 
+# The row quantizer's plain version; a parent tree without the kernel has
+# only the tensor-op version, under the wrapper's name (so this script can
+# time a parent's package in the same call).
+quantize_act_int8_plain = getattr(qmm, "quantize_act_int8_plain",
+                                  quantize_act_int8)
+QUANTIZER_KERNEL = hasattr(qmm, "quantize_act_int8_plain")
+
 KERNELS = {
     "int4_matmul": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
                     "a3vlm_tpu/ops/quant_matmul.py:80", int4_matmul_2d),
@@ -261,6 +274,11 @@ KERNELS = {
     "int4_matmul_v3": ("a3vlm_tpu_torch/csrc/int4_matmul.cu",
                        "a3vlm_tpu/ops/quant_matmul.py:147",
                        int4_matmul_2d_v3),
+    # the XLA ops of quantize_act_int8 that K7's and K8's wrappers run
+    # first
+    "quantize_act_int8": ("a3vlm_tpu_torch/csrc/int4_matmul_a8.cu",
+                          "a3vlm_tpu/ops/quant_matmul.py:399",
+                          quantize_act_int8),
 }
 TENSOR_CORE_ATTENTION = ("flash_attention", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv", "vit_attention")
@@ -272,14 +290,17 @@ TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "int4_mma_kernel", "int8_mma_kernel",
                        "glu_prepass_kernel", "verify_mma_kernel",
                        "w8a8p_mma_kernel")
-# the cluster kernels without wgmma, which must not spill either: the
-# decode attention of K3, K3u, K4 and K4 fused, and the int4 GEMV of K1,
-# K1v3 and K11
-CLUSTER_PTXAS_KERNELS = ("decode_cluster_kernel", "int4_gemv_cluster_kernel")
-# device kernel names (substrings) for the profiles: the K8 kernel, and the
-# int4 GEMV with the second pass the earlier design launched after it
+# the kernels without wgmma, which must not spill either: the cluster
+# kernels (the decode attention of K3, K3u, K4 and K4 fused, and the GEMV
+# of K1, K1v3, K11, K7 and K6) and the row quantizer
+CLUSTER_PTXAS_KERNELS = ("decode_cluster_kernel", "gemv_cluster_kernel",
+                         "quantize_act_kernel")
+# device kernel names (substrings) for the profiles: the K8 kernel, the
+# GEMVs (with the second pass an earlier design launched after them) and
+# the row quantizer
 W8A8P_KERNEL = "w8a8p"
-GEMV_KERNELS = ("int4_gemv", "splitk_reduce")
+GEMV_KERNELS = ("gemv", "splitk_reduce")
+QUANTIZER_KERNELS = ("quantize_act",)
 # the verify and decode rows also get their device time (every kernel of
 # the call), kernel launches per call, the wrapper's host time per call,
 # the share of the bound and the ratio to the library call; they are timed
@@ -298,7 +319,8 @@ TRAIN_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
 QUANT_KERNELS = ("int8_matmul", "int4_matmul_w4a8", "int4_matmul_w8a8p",
                  "int4_matmul_glu", "int4_matmul_v3", "int4_matmul",
                  "flash_attention", "decode_attention", "verify_attention",
-                 "vit_attention")
+                 "vit_attention") + (
+                     ("quantize_act_int8",) if QUANTIZER_KERNEL else ())
 
 
 def device_line() -> str:
@@ -544,8 +566,11 @@ def check_int4(gen, results):
     extra = torch.Generator(device="cuda").manual_seed(4)
     if hasattr(qmm, "_gemv_capacity"):  # the cluster GEMV's package
         lib = _kernels.lib()
-        for mode, M in (("v1", 1), ("v1", 9), ("v1", 32), ("v3", 1),
-                        ("v3", 9), ("glu", 1)):
+        modes = (("v1", 1), ("v1", 9), ("v1", 32), ("v3", 1), ("v3", 9),
+                 ("glu", 1))
+        if QUANTIZER_KERNEL:  # K7's and K6's GEMV on the same kernel
+            modes += (("w4a8", 1), ("w4a8", 9), ("int8", 1), ("int8", 32))
+        for mode, M in modes:
             print(f"int4 GEMV {mode} at M={M}: clusters of 1-8 blocks the "
                   f"card holds at once (group 64): "
                   f"{qmm._gemv_capacity(lib, 0, mode, M, 64)}")
@@ -602,9 +627,11 @@ def reps_for(M: int) -> int:
 
 
 def check_int8(gen, results):
-    """K6 at every decoder linear, K unpadded (13824 for w2)."""
+    """K6 at every decoder linear, K unpadded (13824 for w2); the GEMV rows
+    (M <= 32) also on a cold L2 over a rotation of weight copies."""
     for K, N in LINEAR_SHAPES:
         qw = _quantize_leaf_int8(random_weight(K, N, gen))
+        copies = weight_copies(qw)
         for M in GEMV_MS + TILED_MS:
             x = randn(M, K, gen=gen)
             got = int8_matmul_2d(x, qw.q, qw.scale)
@@ -618,6 +645,10 @@ def check_int8(gen, results):
                    nbytes(x, qw.q, qw.scale, got), 2 * M * K * N,
                    timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
                             reps))
+            if M <= qmm.GEMV_MAX_M:
+                time_cold(results[-1], lambda q, s: int8_matmul_2d(x, q, s),
+                          copies)
+        del copies
 
 
 def check_int4_variants(gen, results):
@@ -669,6 +700,13 @@ def check_int4_variants(gen, results):
                                 reps=1),
                        nbytes(x, qw.q, qw.scale, got), flops, library,
                        peak_ops=PEAK_INT8_OPS_PER_S)
+                # the wrapper (the row quantizer, then the GEMV) on a cold
+                # L2, and the GEMV alone
+                time_cold(results[-1], lambda q, s: int4_matmul_2d_w4a8(
+                    x, q, s, qw.group), copies)
+                results[-1]["kernel_device_ms"] = device_stats(
+                    rotation(lambda q, s: int4_matmul_2d_w4a8(
+                        x, q, s, qw.group), copies), "gemv")[0]
             else:
                 got = int4_matmul_2d_w8a8p(x, *wargs)
                 want = int4_matmul_2d_w8a8p_plain(x, *wargs)
@@ -709,6 +747,36 @@ def check_int4_variants(gen, results):
                     call, W8A8P_KERNEL, reps=reps)[0]
                 del w8
         del copies
+
+
+def check_quantizer(results):
+    """The row quantizer at K7's shapes (M 1-32, K 5120 and the padded
+    14336) and K8's (one request's prefill, M 1487), bit for bit against its
+    plain version, inputs from a generator of their own (so the other
+    checks see the inputs they always had). No single library call
+    computes it: ``library_ms`` is None."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for M, K in ((1, 5120), (4, 5120), (32, 14336), (1487, 5120),
+                 (1487, 14336)):
+        x = randn(M, K, gen=gen)
+        q, sc = quantize_act_int8(x)
+        wq, ws = quantize_act_int8_plain(x)
+        same = torch.equal(q, wq) and torch.equal(sc, ws)
+        if not same:
+            FAILURES.append(f"quantizer M={M} K={K}: differs from its plain "
+                            f"version in {int((q != wq).sum())} of "
+                            f"{q.numel()} values")
+        err = float((q.float() - wq.float()).abs().max())
+        reps = reps_for(M)
+        record(results, "quantize_act_int8", f"M={M} K={K}", err,
+               timed_ms(lambda: quantize_act_int8(x), reps=20),
+               timed_ms(lambda: quantize_act_int8_plain(x), reps=reps),
+               nbytes(x, q, sc), 0, None)
+        row = results[-1]
+        row["device_ms"], row["launches_per_call"] = device_stats(
+            lambda: quantize_act_int8(x))
+        row["host_ms"] = host_ms(lambda: quantize_act_int8(x))
+        row["copies"] = 1
 
 
 def check_glu(gen, results):
@@ -1055,6 +1123,7 @@ def kernel_times(fn, reps: int) -> dict:
 def short_name(key: str) -> str:
     """A kernel's name without its return type, namespace and arguments."""
     key = re.sub(r"^void ", "", key)
+    key = key.replace("(anonymous namespace)::", "")
     key = re.sub(r"\(.*$", "", key)
     return key.split("::")[-1][:48]
 
@@ -1075,7 +1144,7 @@ def print_profile(card: str, label: str, times: dict, groups: dict) -> None:
                       for k, (t, n) in top))
 
 
-STEP_GROUPS = {"int4 GEMV": GEMV_KERNELS,
+STEP_GROUPS = {"GEMV": GEMV_KERNELS, "row quantizer": QUANTIZER_KERNELS,
                "decode attention": ("decode_cluster", "decode_attn")}
 
 
@@ -1133,9 +1202,36 @@ def prefill_profile(card: str, label: str, model, prompts, images) -> dict:
         times = kernel_times(prefill, 1)
     print_profile(card, f"{label}: one prefill", times, {
         "W8A8 kernel (K8)": (W8A8P_KERNEL,),
+        "row quantizer": QUANTIZER_KERNELS,
         "int4 tile (K1)": ("int4_mma_kernel",),
         "flash attention": ("flash_fwd",)})
     return times
+
+
+def towers_profile(card: str, label: str, model, images) -> dict:
+    """One call of the towers' device time by kernel name, after a warm-up
+    call, with the towers as they are quantized."""
+    with torch.inference_mode():
+        model.encode_images(images)
+        torch.cuda.synchronize()
+        times = kernel_times(lambda: model.encode_images(images), 1)
+    print_profile(card, f"{label}: the towers", times, {
+        "row quantizer": QUANTIZER_KERNELS,
+        "tower attention (K10)": ("vit_attn",)})
+    return times
+
+
+def require_no_fallback(card: str, path: str) -> None:
+    """No dispatcher call so far took a reference route: every full-width
+    shape lies in the kernels' domain (a parent tree without the routes
+    counts none)."""
+    count = qmm.fallback_count() if hasattr(qmm, "fallback_count") else 0
+    print(f"[{card}] {path}: calls on a fallback route {count}")
+    if count:
+        raise AssertionError(
+            f"{path}: {count} quantized-matmul calls took a fallback route "
+            f"(int4 {qmm.int4_matmul.fallbacks}, int8 "
+            f"{qmm.int8_matmul.fallbacks})")
 
 
 # Generated ids of every labelled run, for ``--ids-out``; ``--ids-ref``
@@ -1675,6 +1771,12 @@ class _QuantRequest:
 PER_FORWARD = 40 * 7 + 1
 
 
+def quantizer(count) -> dict:
+    """The row quantizer's expected launches for ``_QuantRequest.run``
+    (none asked of a parent tree without the kernel)."""
+    return {"quantize_act_int8": count} if QUANTIZER_KERNEL else {}
+
+
 def run_quant_modes(card: str, model) -> dict:
     """Phase 7, modes (i)-(o), on phase 4's int4 model. Returns the launch
     counts summed over the modes' requests (the checks are not counted)."""
@@ -1687,7 +1789,7 @@ def run_quant_modes(card: str, model) -> dict:
     # printed against
     ref = req.run("(ref) exact int4", {
         "int4_matmul": lambda s: PER_FORWARD * (1 + s),
-        "decode_attention": lambda s: L * s})
+        "decode_attention": lambda s: L * s, **quantizer(0)})
     ref_prefill_ms = model.last_stats["prefill_ms"]
     exact_logits = req.forwards("(ref) exact int4")
     prefill_profile(card, "quant (ref) exact int4", model, req.prompt,
@@ -1699,12 +1801,16 @@ def run_quant_modes(card: str, model) -> dict:
         req.report_ids(label, ids, ref, "the exact int4 run's")
 
     # (i) W4A8 decode: every M <= 32 matmul, the prefill's head (one row)
-    # among them, through the W4A8 kernel; the prefill's linears stay
+    # among them, through the W4A8 kernel, each after the row quantizer;
+    # the prefill's linears stay
     qmm.W4A8_DECODE = True
     try:
         ids = req.run("(i) W4A8 decode", {
             "int4_matmul_w4a8": lambda s: 1 + PER_FORWARD * s,
-            "int4_matmul": PER_FORWARD - 1, "int4_matmul_w8a8p": 0})
+            "int4_matmul": PER_FORWARD - 1, "int4_matmul_w8a8p": 0,
+            **quantizer(lambda s: 1 + PER_FORWARD * s)})
+        decode_profile(card, "quant (i) W4A8 decode, batch 1", model,
+                       req.prompt, req.image)
         against_exact("(i)", req.forwards("(i) W4A8"), ids)
         # (k) both A8 modes and lookup: the whole prompt prefilled through
         # the W8A8 kernel, rounds of 8 rows through the W4A8 kernel and K5
@@ -1713,7 +1819,8 @@ def run_quant_modes(card: str, model) -> dict:
             "int4_matmul_w8a8p": PER_FORWARD - 1,
             "int4_matmul_w4a8": lambda s: 1 + PER_FORWARD * s,
             "verify_attention": lambda s: L * s,
-            "int4_matmul": 0}, draft_k=8)
+            "int4_matmul": 0,
+            **quantizer(lambda s: PER_FORWARD * (1 + s))}, draft_k=8)
         print(f"[{card}] quant (k) last_spec_stats {model.last_spec_stats}")
         against_exact("(k)", req.forwards("(k) W4A8 + W8A8P", verify=True),
                       ids)
@@ -1725,7 +1832,7 @@ def run_quant_modes(card: str, model) -> dict:
         ids = req.run("(j) W8A8 prefill", {
             "int4_matmul_w8a8p": PER_FORWARD - 1,
             "int4_matmul": lambda s: 1 + PER_FORWARD * s,
-            "int4_matmul_w4a8": 0})
+            "int4_matmul_w4a8": 0, **quantizer(PER_FORWARD - 1)})
         print(f"[{card}] quant (j): prefill "
               f"{model.last_stats['prefill_ms']:.1f} ms in the W8A8 mode "
               f"against {ref_prefill_ms:.1f} ms on the exact route ((ref))")
@@ -1785,6 +1892,7 @@ def run_quant_modes(card: str, model) -> dict:
         dense_img = model.encode_images(images)
     dense_ids = req.run("(n0) dense towers, batch 4", {}, images=images,
                         prompts=prompts)
+    towers_profile(card, "quant (n0) dense towers, batch 4", model, images)
     try:
         for k in dense_towers:
             model.params[k] = tree_map(lambda t: t, dense_towers[k])
@@ -1794,9 +1902,18 @@ def run_quant_modes(card: str, model) -> dict:
                  {k: model.params[k] for k in dense_towers})
         if sum(n_q) < 4 * 3 + 2:
             raise AssertionError(f"(n): only {sum(n_q)} tower leaves are int8")
+        before = quantize_act_int8.launches
         ids = req.run("(n) tower_bits=8, batch 4", {
             "int4_matmul": lambda s: PER_FORWARD * (1 + s)},
             images=images, prompts=prompts)
+        n_quant = quantize_act_int8.launches - before
+        print(f"[{card}] quant (n): row quantizer launched {n_quant} times "
+              f"in the request")
+        if QUANTIZER_KERNEL and not n_quant:
+            raise AssertionError("(n): the towers never launched the row "
+                                 "quantizer")
+        towers_profile(card, "quant (n) tower_bits=8, batch 4", model,
+                       images)
         with torch.inference_mode():
             q_img = model.encode_images(images)
         rel = rel_err(q_img, dense_img)
@@ -1834,7 +1951,10 @@ def run_int8_mode(card: str) -> dict:
     reset_launches()
     req.run("(h) int8 decoder", {
         "int8_matmul": lambda s: PER_FORWARD * (1 + s),
-        "decode_attention": lambda s: L * s, "int4_matmul": 0})
+        "decode_attention": lambda s: L * s, "int4_matmul": 0,
+        **quantizer(0)})
+    decode_profile(card, "quant (h) int8 decoder, batch 1", model,
+                   req.prompt, req.image)
     req.forwards("(h) int8")
     return req.totals
 
@@ -1978,6 +2098,7 @@ def main(argv=None) -> int:
         check_int4(gen, results)
         check_int8(gen, results)
         check_int4_variants(gen, results)
+        check_quantizer(results)
         check_glu(gen, results)
         check_flash(gen, results)
         check_flash_bwd(gen, results)
@@ -1996,24 +2117,28 @@ def main(argv=None) -> int:
                     if r["bound_by"] == "bytes"
                     else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
             rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
+        lib = r["library_ms"]
+
+        def vs_lib(t):
+            return f"{t / lib:.2f}x library" if lib else "no library call"
+
         if "device_ms" in r:  # timed cold (``time_cold``)
             dev = r["device_ms"]
             rate = (f" device {dev:.4f} ms ({r['bound_ms'] / dev:.0%} of "
-                    f"bound, {dev / r['library_ms']:.2f}x library; "
+                    f"bound, {vs_lib(dev)}; "
                     f"{r['launches_per_call']:g} launches a call)"
                     if dev else " device not measured")
             rate += (f" host {r['host_ms']:.4f} ms a call; kernel "
-                     f"{r['ms'] / r['library_ms']:.2f}x library; cold L2 "
-                     f"over {r['copies']} copies")
+                     f"{vs_lib(r['ms'])}; cold L2 over {r['copies']} copies")
             if r.get("kernel_device_ms"):
                 k = r["kernel_device_ms"]
                 rate += (f"; the kernel alone {k:.4f} ms on the device "
-                         f"({r['bound_ms'] / k:.0%} of bound, "
-                         f"{k / r['library_ms']:.2f}x library)")
+                         f"({r['bound_ms'] / k:.0%} of bound, {vs_lib(k)})")
         print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
               f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) library {r['library_ms']:.4f} ms")
+              f"({r['bound_by']}) library "
+              + (f"{lib:.4f} ms" if lib else "none"))
     if FAILURES:
         raise AssertionError("kernel checks failed:\n" + "\n".join(FAILURES))
     if opts.kernels_only:
@@ -2022,15 +2147,22 @@ def main(argv=None) -> int:
     # 4. serving path, 6. latency path and 7. the quantized modes over the
     # int4 decoder (on phase 4's weights, which phase 5 recasts), 5.
     # training path, then 7. mode (h) on an int8 model of its own
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
     model, serve = run_main_path(card)
+    require_no_fallback(card, "serving")
     latency = run_latency_path(card, model)
+    require_no_fallback(card, "latency")
     quant = run_quant_modes(card, model)
+    require_no_fallback(card, "quantized modes (i)-(o)")
     train = run_training(card, model)
+    require_no_fallback(card, "training")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     for name, count in run_int8_mode(card).items():
         quant[name] += count
+    require_no_fallback(card, "quantized mode (h)")
     require_counts(quant, QUANT_KERNELS, "quantized-mode")
 
     table = []

@@ -4,11 +4,13 @@
 
 Builds ``a3vlm_tpu_torch/csrc/int4_matmul.cu`` three times into the
 git-ignored build directory (in parallel): as the library builds it, and
-from two patched copies of it: copy-only (the producer streams every stage
-into the ring, the consumers wait for each and compute nothing) and
-math-only (no copies; the consumers compute on whatever the ring holds).
-The patches are exact text replacements in the GEMV's consumer loop and
-producer warp; the script stops where the source no longer holds them. At
+over two patched copies of the GEMV's header (``gemv_cluster.cuh``, which
+the copy of int4_matmul.cu beside it includes): copy-only (the producer
+streams every stage into the ring, the consumers wait for each and compute
+nothing) and math-only (no copies; the consumers compute on whatever the
+ring holds). The patches are exact text replacements in the GEMV's
+consumer loop and producer warp; the script stops where the source no
+longer holds them. At
 each decoder linear (K padded, N) and each M, it times the three on the
 device (``torch.profiler``, a rotation of weight copies larger than the L2,
 as ``chip_smoke.py`` times the GEMV rows) in the order full, copy, math,
@@ -44,17 +46,23 @@ VARIANTS = {
 }
 
 
-def patched(src: Path, name: str, out_dir: Path) -> Path:
-    """``src`` with variant ``name``'s replacements, each of whose text the
-    source must hold exactly once, written to ``out_dir``."""
-    text = src.read_text()
+def patched(csrc: Path, name: str, out_dir: Path) -> Path:
+    """A copy of int4_matmul.cu in a directory of its own beside the GEMV's
+    header with variant ``name``'s replacements, each of whose text the
+    header must hold exactly once (a quoted include finds the copy's
+    neighbour first)."""
+    header = csrc / "gemv_cluster.cuh"
+    text = header.read_text()
     for old, new in VARIANTS[name]:
         if text.count(old) != 1:
-            raise RuntimeError(f"{src.name} no longer holds the text the "
+            raise RuntimeError(f"{header.name} no longer holds the text the "
                                f"{name} variant replaces: {old!r}")
         text = text.replace(old, new)
-    path = out_dir / f"gemv_{name}.cu"
-    path.write_text(text)
+    where = out_dir / name
+    where.mkdir(parents=True, exist_ok=True)
+    (where / header.name).write_text(text)
+    path = where / "int4_matmul.cu"
+    path.write_text((csrc / "int4_matmul.cu").read_text())
     return path
 
 
@@ -63,14 +71,14 @@ def build(out_dir: Path) -> dict:
     from a3vlm_tpu_torch.ops import _kernels
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = _kernels.CSRC_DIR / "int4_matmul.cu"
     nvcc = _kernels._nvcc()
     procs = {}
     for name in VARIANTS:
         so = out_dir / f"gemv_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [nvcc, *_kernels.NVCC_FLAGS, "-I", str(_kernels.CSRC_DIR),
-             "-shared", str(patched(src, name, out_dir)), "-o", str(so)],
+             "-shared", str(patched(_kernels.CSRC_DIR, name, out_dir)), "-o",
+             str(so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

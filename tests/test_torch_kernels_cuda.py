@@ -821,28 +821,122 @@ def test_int4_glu_cuda(gen, M, K, N):
 
 
 def test_tiled_route_refuses_cuda(gen):
-    """Shapes the tiled route does not take raise on the card, and nothing
-    is computed in their place (the launch counts stay): an int4 weight
-    whose group (16) and K/2 (48) are no multiple of a 64-row step, and an
-    int8 K that is no multiple of 8. At M <= 32 the GEMVs take the same
-    int4 weight."""
+    """Shapes the tiled route does not take: the 2-D wrappers raise on the
+    card and launch nothing (an int4 weight whose group (16) and K/2 (48)
+    are no multiple of a 64-row step, an int8 K that is no multiple of 8,
+    an N that is no multiple of 16), and the dispatchers compute them
+    through the reference's route (the dense product, the unfused FFN
+    tail), one count up in their fallback counters and none in the
+    kernels', each output that route's bit for bit (which
+    tests/test_torch_quant_domain.py holds against the JAX routes). At M
+    <= 32 the GEMVs take the same int4 weight."""
     qw = _quantize_leaf_int4(_weight(96, 64, gen))
     assert (qw.group, qw.q.shape[0]) == (16, 48)
+    q8 = _quantize_leaf_int8(_weight(100, 64, gen))
     names = ("int4_matmul_2d", "int4_matmul_2d_v3", "int4_matmul_2d_glu",
              "int8_matmul_2d")
     before = [getattr(qmm, n).launches for n in names]
     x = _randn(64, 96, gen=gen)
-    with pytest.raises(ValueError):
-        int4_matmul(x, qw)
-    with pytest.raises(ValueError):
-        int4_matmul(x, qw, variant="v3")
-    with pytest.raises(ValueError):
-        qmm.int4_ffn_down(x, x, qw, _randn(64, 64, gen=gen))
-    with pytest.raises(ValueError):
-        qmm.int8_matmul(_randn(64, 100, gen=gen),
-                        _quantize_leaf_int8(_weight(100, 64, gen)))
+    x2, res = _padded(x, qw), _randn(64, 64, gen=gen)
+    x8 = _randn(64, 100, gen=gen)
+    for call in (lambda: int4_matmul_2d(x2, qw.q, qw.scale, qw.group),
+                 lambda: qmm.int4_matmul_2d_v3(x2, qw.q, qw.scale, qw.group),
+                 lambda: qmm.int4_matmul_2d_glu(x2, x2, qw.q, qw.scale, res,
+                                                qw.group),
+                 lambda: qmm.int8_matmul_2d(x8, q8.q, q8.scale)):
+        with pytest.raises(ValueError):
+            call()
+    assert [getattr(qmm, n).launches for n in names] == before
+
+    def counted(mode, call):
+        was = (dict(qmm.int4_matmul.fallbacks), qmm.int8_matmul.fallbacks)
+        out = call()
+        got = (dict(qmm.int4_matmul.fallbacks), qmm.int8_matmul.fallbacks)
+        want = (dict(was[0]), was[1] + (mode == "int8"))
+        if mode != "int8":
+            want[0][mode] += 1
+        if mode == "glu":  # its unfused product: the dense route of v1
+            want[0]["v1"] += 1
+        assert got == want, (got, was)
+        return out
+
+    for variant in ("v1", "v3"):
+        got = counted(variant, lambda: int4_matmul(x, qw, variant=variant))
+        assert torch.equal(got, qmm.int4_matmul_dense(x2, qw.q, qw.scale,
+                                                      qw.group))
+    g, u = _randn(64, 96, gen=gen), _randn(64, 96, gen=gen)
+    got = counted("glu", lambda: qmm.int4_ffn_down(g, u, qw, res))
+    assert torch.equal(got, res + int4_matmul(
+        torch.nn.functional.silu(g) * u, qw))
+    got = counted("int8", lambda: qmm.int8_matmul(x8, q8))
+    assert torch.equal(got, qmm.int8_matmul_dense(x8, q8.q, q8.scale))
+    # N % 16 != 0: no kernel takes it at any M
+    q40 = _quantize_leaf_int4(_weight(1024, 40, gen))
+    x40 = _randn(4, 1024, gen=gen)
+    got = counted("v1", lambda: int4_matmul(x40, q40))
+    assert torch.equal(got, qmm.int4_matmul_dense(x40, q40.q, q40.scale,
+                                                  q40.group))
     assert [getattr(qmm, n).launches for n in names] == before
     _check(int4_matmul(x[:32], qw), int4_matmul(x[:32], qw, impl="plain"))
+    assert getattr(qmm, names[0]).launches == before[0] + 1
+
+
+def test_quant_fallback_flags_cuda(gen, monkeypatch):
+    """Under the A8 flags a shape their kernel does not take goes to the
+    W4A8 or W8A8 prefill math in plain ops, counted apart: M > 32 rows
+    with ``W4A8_MAX_M`` raised past the GEMV, and a group of 16 at 300
+    rows for the W8A8 tile."""
+    qw = _quantize_leaf_int4(_weight(96, 64, gen))
+    monkeypatch.setattr(qmm, "W4A8_DECODE", True)
+    monkeypatch.setattr(qmm, "W4A8_MAX_M", 64)
+    monkeypatch.setattr(qmm, "W8A8_PREFILL", True)
+    before = (qmm.int4_matmul_2d_w4a8.launches,
+              qmm.int4_matmul_2d_w8a8p.launches,
+              dict(qmm.int4_matmul.fallbacks))
+    for M, mode, plain in ((40, "w4a8", qmm.int4_matmul_2d_w4a8_plain),
+                           (300, "w8a8p", qmm.int4_matmul_2d_w8a8p_plain)):
+        x = _randn(M, 96, gen=gen)
+        got = int4_matmul(x, qw)
+        assert torch.equal(got, plain(_padded(x, qw), qw.q, qw.scale,
+                                      qw.group))
+    after = dict(qmm.int4_matmul.fallbacks)
+    assert after["w4a8"] == before[2]["w4a8"] + 1
+    assert after["w8a8p"] == before[2]["w8a8p"] + 1
+    assert (qmm.int4_matmul_2d_w4a8.launches,
+            qmm.int4_matmul_2d_w8a8p.launches) == before[:2]
+
+
+def test_tiny_decoder_int4_prefill_cuda(gen):
+    """The tiny ens5 config's decoder quantized to int4 (dim 64: K/2 32 and
+    group 32, which the tiled route does not take) prefills on the card:
+    its M > 32 linears take the dense route (counted), the head the GEMV,
+    and the logits hold to the plain path's within 2e-2 relative (both in
+    bf16; the paths differ in summation order and the attention kernel)."""
+    from a3vlm_tpu_torch.config import tiny_ens5_config
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.models import ens5
+    from a3vlm_tpu_torch.models.llama import KVCache
+
+    cfg = tiny_ens5_config(128)
+    model = MetaModel("llama_ens5", with_visual=True, dtype=torch.bfloat16,
+                      vocab_size=128, model_cfg=cfg, seed=0, device="cuda")
+    model.quantize(bits=4)
+    images = torch.rand(1, cfg.image_size, cfg.image_size, 3, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    tokens = torch.randint(3, 128, (1, 40), generator=gen, device="cuda")
+    qmm.reset_fallbacks()
+    got = {}
+    with torch.inference_mode():
+        img = model.encode_images(images, impl="plain")
+        for impl in ("auto", "plain"):
+            cache = KVCache.create(cfg.llama, 1, 40 + img.shape[1],
+                                   dtype=torch.bfloat16, device="cuda")
+            got[impl] = ens5.prefill(model.params, model.cfg, cache, tokens,
+                                     image_tokens=img, impl=impl)[0].float()
+    assert qmm.int4_matmul.fallbacks["v1"] > 0
+    assert torch.isfinite(got["auto"]).all()
+    rel = float((got["auto"] - got["plain"]).norm() / got["plain"].norm())
+    assert rel < 2e-2, rel
 
 
 @pytest.mark.parametrize("M", [1, 8, 32])
@@ -902,29 +996,34 @@ def test_int4_w8a8p_refuses_cuda(gen):
     assert qmm.int4_matmul_2d_w8a8p.launches == before
 
 
-# The int4 GEMV (M <= 32) in its three modes: every decode batch and verify
-# span up to 32, on both sides of its 8-row fragments, over the decoder
-# linears, the edge shapes, the smallest weight the quantizer makes (group
-# 16, K/2 48) and one whose K/2 is no multiple of 8 (group 2: x goes in as
-# a padded copy); hand-made groups below (test_int4_gemv_groups_cuda).
+# The GEMV (M <= 32) in its modes: the int4 modes, W4A8 and int8 at every
+# decode batch and verify span up to 32, on both sides of its 8-row
+# fragments, over the decoder linears, the edge shapes, the smallest weight
+# the quantizer makes (group 16, K/2 48) and one whose K/2 is no multiple
+# of 8 (group 2: x goes in as a padded copy); hand-made groups below
+# (test_int4_gemv_groups_cuda).
 _GEMV_MS = [1, 2, 3, 4, 5, 8, 9, 16, 31, 32]
+_A8_MS = [1, 4, 8, 9, 32]
 _GEMV_KN = ([(5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)]
             + _EDGE_KN + [(96, 64), (100, 48)])
 _GEMV_WEIGHTS: dict = {}
 _GEMV_WRAPPERS = {"v1": "int4_matmul_2d", "v3": "int4_matmul_2d_v3",
-                  "glu": "int4_matmul_2d_glu"}
+                  "glu": "int4_matmul_2d_glu", "w4a8": "int4_matmul_2d_w4a8",
+                  "int8": "int8_matmul_2d"}
 
 
-def _gemv_weight(K, N, gen):
-    if (K, N) not in _GEMV_WEIGHTS:
-        _GEMV_WEIGHTS[(K, N)] = _quantize_leaf_int4(_weight(K, N, gen))
-    return _GEMV_WEIGHTS[(K, N)]
+def _gemv_weight(K, N, gen, bits=4):
+    if (K, N, bits) not in _GEMV_WEIGHTS:
+        quantize = _quantize_leaf_int8 if bits == 8 else _quantize_leaf_int4
+        _GEMV_WEIGHTS[(K, N, bits)] = quantize(_weight(K, N, gen))
+    return _GEMV_WEIGHTS[(K, N, bits)]
 
 
 def _gemv_case(mode, qw, M, gen):
-    """(call, direct): ``call(impl)`` through the dispatcher of ``mode``,
-    ``direct()`` the 2-D wrapper on the padded operands."""
-    K = qw.in_dim
+    """(call, direct): ``call(impl)`` through the dispatcher of ``mode``
+    (W4A8: with its flag set), ``direct()`` the 2-D wrapper on the padded
+    operands."""
+    K = qw.in_dim if mode != "int8" else qw.q.shape[0]
     if mode == "glu":
         g, u = _randn(M, K, gen=gen), _randn(M, K, gen=gen)
         res = _randn(M, qw.q.shape[1], gen=gen)
@@ -933,10 +1032,14 @@ def _gemv_case(mode, qw, M, gen):
                 lambda: qmm.int4_matmul_2d_glu(g2, u2, qw.q, qw.scale, res,
                                                qw.group))
     x = _randn(M, K, gen=gen)
+    if mode == "int8":
+        return (lambda impl: qmm.int8_matmul(x, qw, impl),
+                lambda: qmm.int8_matmul_2d(x, qw.q, qw.scale))
     x2 = _padded(x, qw)
-    return (lambda impl: int4_matmul(x, qw, impl, variant=mode),
-            lambda: getattr(qmm, _GEMV_WRAPPERS[mode])(x2, qw.q, qw.scale,
-                                                       qw.group))
+    wrapper = getattr(qmm, _GEMV_WRAPPERS[mode])
+    return (lambda impl: int4_matmul(x, qw, impl,
+                                     variant="v1" if mode == "w4a8" else mode),
+            lambda: wrapper(x2, qw.q, qw.scale, qw.group))
 
 
 def _kernel_names(fn, calls: int) -> tuple:
@@ -956,26 +1059,35 @@ def _kernel_names(fn, calls: int) -> tuple:
             and not e.key.startswith("Mem")], outs
 
 
-def _hold_gemv(mode, qw, M, gen):
+def _hold_gemv(mode, qw, M, gen, monkeypatch=None):
+    if mode == "w4a8":
+        monkeypatch.setattr(qmm, "W4A8_DECODE", True)
     call, direct = _gemv_case(mode, qw, M, gen)
     wrapper = getattr(qmm, _GEMV_WRAPPERS[mode])
-    before = wrapper.launches
+    before = (wrapper.launches, qmm.fallback_count())
     got = call("auto")
-    assert wrapper.launches == before + 1
+    assert (wrapper.launches, qmm.fallback_count()) == (before[0] + 1,
+                                                        before[1])
     _check(got, call("plain"))
     assert torch.equal(got, call("auto"))  # a relaunch, the same bits
     # one launch a call: over 10 calls the GEMV is the only kernel (no
-    # second pass; where K/2 % 8 != 0 the inputs come as padded copies,
-    # whose kernels come besides), exactly once a call in at least one of
-    # three profiled runs (the profiler may drop an event, never add one),
-    # and every profiled call gives the same bits
-    for _ in range(3):
+    # second pass; W4A8's quantizer comes before it, and where a row is no
+    # multiple of 16 bytes the inputs come as padded copies, whose kernels
+    # come besides), exactly once a call in at least one of five profiled
+    # runs (the profiler may drop an event, or now and then a whole run's,
+    # never add one), and every profiled call gives the same bits
+    rows = qw.q.shape[0]
+    padded = rows % (16 if mode == "w4a8" else 8) != 0
+    for _ in range(5):
         names, outs = _kernel_names(direct, 10)
         assert all(torch.equal(out, got) for out in outs)
-        gemv = [n for n in names if "int4_gemv_cluster_kernel" in n]
-        assert len(gemv) <= 10, names
-        assert gemv == names or qw.q.shape[0] % 8 != 0, set(names)
+        gemv = [n for n in names if "gemv_cluster_kernel" in n]
+        quant = [n for n in names if "quantize_act_kernel" in n]
+        others = [n for n in names if n not in gemv + quant]
+        assert len(gemv) <= 10 and len(quant) <= 10, names
         assert not any("splitk" in n for n in names), set(names)
+        assert not quant or mode == "w4a8", set(names)
+        assert not others or padded, set(names)
         if len(gemv) == 10:
             break
     assert len(gemv) == 10, names
@@ -988,17 +1100,65 @@ def test_int4_gemv_cuda(gen, mode, M, K, N):
     _hold_gemv(mode, _gemv_weight(K, N, gen), M, gen)
 
 
+@pytest.mark.parametrize("M", _A8_MS)
+@pytest.mark.parametrize("K,N", _GEMV_KN)
+def test_int4_w4a8_gemv_cuda(gen, monkeypatch, M, K, N):
+    """K7: the quantizer and one GEMV launch a call, within the plain
+    bound of its twin (the same int8 activations and exact integer group
+    sums; the f32 sum of the groups in another order)."""
+    _hold_gemv("w4a8", _gemv_weight(K, N, gen), M, gen, monkeypatch)
+
+
+@pytest.mark.parametrize("M", _A8_MS)
+@pytest.mark.parametrize("K,N", _GEMV_KN[:-2] + [(1000, 1200), (100, 48),
+                                                 (97, 64)])
+def test_int8_gemv_cuda(gen, M, K, N):
+    """K6's GEMV, K unpadded: 13824, 1000 (no multiple of a 64-row stage),
+    100 and 97 (no multiple of 8: x goes in as a padded copy)."""
+    _hold_gemv("int8", _gemv_weight(K, N, gen, bits=8), M, gen)
+
+
 # Groups no quantizer here makes but the wrapper takes (any divisor of
 # K/2): 48 (its run is 3 stages, and a stage meets two groups) and 24 (a
-# 16-row step meets two groups: v3 takes one masked product a group).
-@pytest.mark.parametrize("mode", ["v1", "v3", "glu"])
+# 16-row step meets two groups: v3 takes one masked product a group; so
+# does a 32-row step of W4A8).
+@pytest.mark.parametrize("mode", ["v1", "v3", "glu", "w4a8"])
 @pytest.mark.parametrize("M", [1, 9, 32])
 @pytest.mark.parametrize("half,N,group", [
     (96, 64, 48), (96, 64, 24), (1920, 1200, 48), (1920, 1200, 24)])
-def test_int4_gemv_groups_cuda(gen, mode, M, half, N, group):
+def test_int4_gemv_groups_cuda(gen, monkeypatch, mode, M, half, N, group):
     q = torch.randint(-128, 128, (half, N), generator=gen, device="cuda",
                       dtype=torch.int32).to(torch.int8)
     scale = ((torch.rand(2 * half // group, N, generator=gen, device="cuda")
               + 0.5) / (2 * half) ** 0.5).contiguous()
     _hold_gemv(mode, QuantizedWeight(q, scale, bits=4, group=group,
-                                     in_dim=2 * half), M, gen)
+                                     in_dim=2 * half), M, gen, monkeypatch)
+
+
+# The row quantizer against its twin bit for bit: decode rows and the
+# prefill's, K a multiple of 8 and not (the one-element loads), rows of
+# zeros (the 1e-8 floor), a single huge value among small ones, values at
+# half steps of the quantization grid, and float32 input.
+@pytest.mark.parametrize("M,K", [(1, 5120), (4, 14336), (9, 5120),
+                                 (32, 13824), (32, 1001), (7, 97),
+                                 (1487, 5120), (3, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_act_int8_cuda(gen, M, K, dtype):
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    if M > 1:  # one huge value among tiny ones
+        x[1, :K // 2] *= 1e-30
+        x[1, K // 2] = 3.0e38
+    if M > 2:  # absmax 127, so s = 1 and x / s lands on halves
+        x[2] = torch.arange(K, device="cuda").remainder(128) - 63.5
+        x[2, 0] = 127.0
+    if M > 3:
+        x[3] = 0.0
+    before = qmm.quantize_act_int8.launches
+    q, s = qmm.quantize_act_int8(x)
+    assert qmm.quantize_act_int8.launches == before + 1
+    wq, ws = qmm.quantize_act_int8_plain(x)
+    assert q.dtype == torch.int8 and s.shape == (M, 1)
+    assert torch.equal(q, wq), int((q != wq).sum())
+    assert torch.equal(s, ws)
+    names, _ = _kernel_names(lambda: qmm.quantize_act_int8(x), 5)
+    assert names and all("quantize_act_kernel" in n for n in names), names
