@@ -12,7 +12,8 @@ from pathlib import Path
 from typing import Any, Optional, Sequence
 
 __all__ = [
-    "ModelArgs", "load_config_union", "model_args_from_json", "ViTConfig", "QFormerConfig", "ConvNeXtConfig",
+    "ModelArgs", "load_config_union", "model_args_from_json",
+    "probe_pretrained_dir", "ViTConfig", "QFormerConfig", "ConvNeXtConfig",
     "Ens5Config", "CLIP_VIT_L14", "BLIP2_VIT_G14", "DINOV2_VIT_G14",
     "BLIP2_QFORMER", "CONVNEXT_XXLARGE", "tiny_ens5_config",
 ]
@@ -73,6 +74,22 @@ def model_args_from_json(
     cfg.update(overrides)
     fields = {f.name for f in dataclasses.fields(ModelArgs)}
     return ModelArgs(**{k: v for k, v in cfg.items() if k in fields})
+
+
+def probe_pretrained_dir(path: str | Path) -> dict[str, Any]:
+    """Probe a checkpoint dir for meta.json / config.json like
+    meta.py:164-194. Returns {"llama_type": ..., "llama_config": {...}}."""
+    path = Path(path)
+    out: dict[str, Any] = {}
+    meta = path / "meta.json"
+    if meta.exists():
+        with open(meta) as f:
+            out["llama_type"] = json.load(f).get("llama_type")
+    cfg = path / "config.json"
+    if cfg.exists():
+        with open(cfg) as f:
+            out["llama_config"] = json.load(f)
+    return out
 
 
 @dataclass(frozen=True)

@@ -588,6 +588,23 @@ __device__ __forceinline__ void pack_a(const float (&s)[NS],
       a[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
+// pack_a for a product that takes P in two parts: ``hi`` gets bf16(s) and
+// ``lo`` bf16(s - hi), so hi + lo holds s to ~16 bits.
+template <int NS>
+__device__ __forceinline__ void pack_a_split(const float (&s)[NS],
+                                             uint32_t (&hi)[NS / 8][4],
+                                             uint32_t (&lo)[NS / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = s[8 * kk + 2 * e], b = s[8 * kk + 2 * e + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][e] = pack_bf16(a - __low2float(h), b - __high2float(h));
+    }
+}
+
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));

@@ -20,9 +20,14 @@
 // - both products run as wgmma over 128-key tiles, m64n128k16 for
 //   S = Q K^T with both operands read from shared memory and m64nDk16 for
 //   O += P V with P as the A operand in registers: P goes from the S
-//   accumulator to A fragments without leaving the registers (rounded to
-//   bf16 as the TPU kernel rounds it, :148). K tiles are K-major B operands
-//   as they lie, V tiles MN-major ones through the transpose flag. (With
+//   accumulator to A fragments without leaving the registers. K tiles are
+//   K-major B operands as they lie, V tiles MN-major ones through the
+//   transpose flag. P enters the value product as a high and a low part,
+//   p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products over the same V
+//   tile, so the weights keep ~16 bits where the TPU kernel rounds them to
+//   bf16 (:148): with 8 bits, a few near-zero outputs of a long row (1500
+//   keys) left the bound the plain f32 version is held to. The row sum
+//   adds the f32 weights. (With
 //   64-key tiles the n = 64 products read as many bytes of A as of B and
 //   shared memory could not feed them; Q in registers cured that but cost
 //   the registers the wider tile needs, and the wider tile was faster.)
@@ -160,7 +165,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l_i[2] = {0.f, 0.f};              // this lane's share of the row sum
   float alpha[2];
   float acc[DP / 2], s[NS];
-  uint32_t p[NS / 8][4];
+  uint32_t p[NS / 8][4], p_lo[NS / 8][4];  // P's high and low parts
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
@@ -176,11 +181,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     desc_kmajor(k_tile(t), BN, 0, ks), ks > 0);
     wgmma_commit();
   };
-  auto values = [&](int t) {  // O += P V_t, issued, not waited for
+  auto values = [&](int t) {  // O += (P_hi + P_lo) V_t, issued, not waited for
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
       wgmma_rs_tb(acc, p[kk], desc_mnmajor(k_tile(t) + C::KV_BYTES, BN, kk));
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_tb(acc, p_lo[kk], desc_mnmajor(k_tile(t) + C::KV_BYTES, BN, kk));
     wgmma_commit();
+  };
+  auto fence_p = [&] {
+    fence_frags(p);
+    fence_frags(p_lo);
   };
 
   // Q (and, on the slow path, the first tiles) has landed and is visible
@@ -196,7 +208,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     softmax_tile(s, m_i, l_i, alpha, 0, r_lo, cq, offset, skv_actual, causal,
                  masked(0), scale_log2);
-    pack_a(s, p);
+    pack_a_split(s, p, p_lo);
   }
   for (int it = 1; it < n_tiles; ++it) {
     // tile ``it`` has landed (waited for here, where the wait hides behind
@@ -220,16 +232,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    causal, masked(it * BN), scale_log2);
       wgmma_wait<0>();
       fence_regs(acc);
-      fence_frags(p);
+      fence_p();
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      pack_a(s, p);
+      pack_a_split(s, p, p_lo);
     } else if (it == n_wg && n_wg > 0) {
       wgmma_fence();
       values(it - 1);
       wgmma_wait<0>();
       fence_regs(acc);
-      fence_frags(p);
+      fence_p();
     }
   }
   if (n_wg == n_tiles && n_wg > 0) {
@@ -237,7 +249,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     values(n_tiles - 1);
     wgmma_wait<0>();
     fence_regs(acc);
-    fence_frags(p);
+    fence_p();
   }
 
   float inv[2];

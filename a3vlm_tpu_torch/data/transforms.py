@@ -15,7 +15,11 @@ Point-cloud loaders (:82-158): 6-dim xyzrgb clouds, normalization, FPS.
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
+
+try:  # the image transforms need Pillow; the point-cloud loaders do not
+    from PIL import Image
+except ImportError:
+    Image = None
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)

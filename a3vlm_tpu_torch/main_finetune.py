@@ -111,8 +111,6 @@ def _refuse_unported(args) -> None:
         (args.cache_tower_features, "--cache_tower_features",
          "Queue 1 item 14 (feature_cache)"),
         (bool(args.resume), "--resume", "Queue 1 item 16"),
-        (bool(args.pretrained_path), "--pretrained_path",
-         "Queue 1 item 8 (from_pretrained)"),
         (args.llama_type != "llama_ens5", f"llama_type {args.llama_type}",
          "Queue 1 item 15"),
         (bool(args.profile_dir), "--profile_dir",
@@ -135,6 +133,15 @@ def build_model(args, tokenizer):
     )
     from a3vlm_tpu_torch.meta import MetaModel
 
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.pretrained_path and not args.tiny_random_model:
+        # (main_finetune.py:108-117) the towers come from the checkpoint or,
+        # when it holds the decoder alone, at random from the seed
+        return MetaModel.from_pretrained(
+            args.pretrained_path, llama_type=args.llama_type,
+            llama_config=args.llama_config, tokenizer=tokenizer,
+            with_visual=True, max_seq_len=args.max_words, dtype=dtype,
+            device=args.device)
     if args.tiny_random_model:
         cfg = tiny_ens5_config()
     elif args.llama_config:
@@ -142,7 +149,6 @@ def build_model(args, tokenizer):
             args.llama_config, max_seq_len=args.max_words))
     else:
         cfg = Ens5Config(llama=ModelArgs(max_seq_len=args.max_words))
-    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     return MetaModel("llama_ens5", with_visual=True,
                      max_seq_len=args.max_words, dtype=dtype,
                      tokenizer=tokenizer, model_cfg=cfg, seed=args.seed,

@@ -82,6 +82,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefill's device time by kernel name in (ref) and in (j), one decode
    step's in (h) and (i).
 
+8. eval path (run right after phase 4, on its weights; the model carries a
+   synthetic 32000-piece tokenizer, ``_PieceTable``): probes whether
+   Pillow, transformers, tokenizers and sentencepiece import; writes a task
+   file of 2 images x 4 questions (PNG at 640x480 where Pillow imports,
+   else point clouds) and sends it through ``VQADataset`` + ``run_eval``
+   (batch 4, greedy) twice: 32 new ids unconstrained, whose ids must equal
+   ``MetaModel.generate_tokens`` on the same prompts and images, and 64
+   under the joint grammar (``fsm_for_task``), whose every answer must
+   parse as a joint triad. Prints wall ms, towers, prefill and decode ms
+   and tokens per batch, with the launch counts (K1, K2, K3 and K10 must
+   have launched, no fallback route taken); writes the results file, reads
+   it back against the record schema and scores it
+   (``tools.score_results``), the scores equal to those of the same
+   records with ``format_answer`` taken out. Then a full-width decoder cut
+   to 2 layers is written as a consolidated checkpoint with its
+   ``meta.json`` and ``config.json`` and loaded by
+   ``MetaModel.from_pretrained(..., device="cuda")``
+   (``load_consolidated_dir`` -> ``import_llama_consolidated`` ->
+   ``params_from_numpy``), every decoder leaf on the card equal to what
+   was written; and the CLI, ``eval_affordance.main`` with ``--device cuda
+   --quant --score``, runs the task file on that checkpoint (K1, K2, K3
+   and K10 launched, no fallback, the records in order and in the
+   schema).
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -831,6 +855,20 @@ def check_flash(gen, results):
                f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}", err, ms,
                plain, nbytes(q, k, v, got),
                4 * D * B * Hq * causal_pairs(Sq, Skv), library)
+    # the chunk shape on samples of their own (a generator per seed, as the
+    # card test and scripts/torch_flash_chunk_seeds.py draw them): with the
+    # softmax weights in bf16 alone, 12 of seeds 0-63 left the plain bound
+    worst = 0.0
+    for seed in range(16):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q = randn(1, 40, 476, 128, gen=g)
+        k, v = randn(1, 40, 1500, 128, gen=g), randn(1, 40, 1500, 128, gen=g)
+        worst = max(worst, compare(
+            f"flash chunk sample seed {seed}",
+            flash_attention_bhsd(q, k, v, causal=True),
+            flash_attention_bhsd_plain(q, k, v, causal=True)))
+    print(f"flash B=1 Sq=476 Skv=1500, seeds 0-15: max_abs_err {worst:.3e} "
+          f"(plain bound)")
 
 
 def sdpa_backward_ms(q, k, v, do, mask, reps=3) -> float:
@@ -1348,7 +1386,8 @@ def run_main_path(card: str):
     cfg = Ens5Config()
     model = MetaModel(
         "llama_ens5", with_visual=True, max_seq_len=2048,
-        dtype=torch.bfloat16, vocab_size=32000, model_cfg=cfg, seed=0,
+        dtype=torch.bfloat16, tokenizer=_PieceTable(32000), model_cfg=cfg,
+        seed=0,
     )
     model.quantize(bits=4)
     torch.cuda.synchronize()
@@ -1432,22 +1471,378 @@ def run_main_path(card: str):
 
 
 class _PieceTable:
-    """A synthetic tokenizer table for ``constrained.compile_grammar``: ids
-    0..2 are specials (id 2 EOS), then one piece per character the triad
-    grammars use, then every two-digit string, then pieces no grammar
-    accepts, up to ``n_words``."""
+    """A synthetic tokenizer table: ids 0..2 are specials (id 1 BOS, id 2
+    EOS), then one piece per character the triad grammars use, then every
+    two-digit string, then one piece per other printable character, then
+    pieces no text holds, up to ``n_words``. It serves
+    ``constrained.compile_grammar`` (``id_to_piece``) and the text path
+    (``encode``, ``decode``, ``encode_segment``, ``encode_wo_prefix_space``):
+    encoding takes the longest piece at each position. ``decoded`` keeps
+    every id list ``decode`` was given, when it is a list."""
 
     def __init__(self, n_words: int):
         chars = "0123456789.,[]<>/- abcdefghijklmnopqrstuvwxyz_:"
         pieces = ["", "", ""] + list(chars)
         pieces += [f"{a}{b}" for a in "0123456789" for b in "0123456789"]
+        pieces += [chr(c) for c in range(32, 127) if chr(c) not in chars]
+        pieces += ["\n", "\t"]
         pieces += [f"~{i}" for i in range(n_words - len(pieces))]
         self.pieces = pieces
         self.n_words = n_words
+        self.bos_id = 1
         self.eos_id = 2
+        self._ids = {p: i for i, p in enumerate(pieces) if p}
+        self._longest = max(len(p) for p in pieces)
+        self.decoded = None
 
     def id_to_piece(self, t: int) -> str:
         return self.pieces[t]
+
+    def encode(self, s: str, bos: bool, eos: bool) -> list[int]:
+        ids, i = [], 0
+        while i < len(s):
+            for n in range(min(self._longest, len(s) - i), 0, -1):
+                t = self._ids.get(s[i:i + n])
+                if t is not None:
+                    ids.append(t)
+                    i += n
+                    break
+            else:  # a character the table lacks: unknown, id 0
+                ids.append(0)
+                i += 1
+        return [self.bos_id] * bos + ids + [self.eos_id] * eos
+
+    def encode_segment(self, s: str) -> list[int]:
+        return self.encode(s, bos=False, eos=False)
+
+    def encode_wo_prefix_space(self, s: str) -> list[int]:
+        return self.encode(s, bos=False, eos=False)
+
+    def decode(self, ids) -> str:
+        if self.decoded is not None:
+            self.decoded.append(list(ids))
+        return "".join(self.pieces[t] for t in ids)
+
+
+EVAL_QUESTIONS = (
+    "Please provide the joint's type and its 2D rotated bounding box linked "
+    "to the object part door",
+    "Please provide the joint's type and its 2D rotated bounding box linked "
+    "to the object part drawer",
+    "Please provide the joint's type and its 2D rotated bounding box linked "
+    "to the object part lid",
+    "<image>\nPlease provide the joint's type and its 2D rotated bounding "
+    "box linked to the object part handle",
+)
+EVAL_ANSWER = re.compile(r"\s?<rb>(revolute|prismatic|fixed|continuous)</rb>"
+                         r"\[-?\d{1,3}\.\d\d(,-?\d{1,3}\.\d\d){4}\]")
+EVAL_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
+                "vit_attention")
+
+
+def write_eval_tasks(root, card: str) -> str:
+    """Phase 8's task file: 2 images x 4 questions, made from a seed. PNG
+    at 640x480 where Pillow imports, else point clouds (``.npy``, xyz +
+    rgb), which ``VQADataset`` renders to an image; the file name routes
+    ``fsm_for_task`` to the joint grammar."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    paths = []
+    for i in range(2):
+        if Image is not None:
+            path = root / f"object{i}.png"
+            pixels = rng.integers(0, 256, (480, 640, 3)).astype(np.uint8)
+            Image.fromarray(pixels).save(path)
+        else:
+            path = root / f"object{i}.npy"
+            cloud = rng.uniform(-1, 1, (8192, 6)).astype(np.float32)
+            cloud[:, 3:] = rng.uniform(0, 1, (8192, 3))
+            np.save(path, cloud)
+        paths.append(str(path))
+    print(f"[{card}] eval task images: "
+          + ("PNG 640x480" if Image is not None else "point clouds (.npy)"))
+    task = root / "joint_rec_tasks.json"
+    task.write_text(json.dumps([
+        {"image": p, "conversations": [
+            {"from": "human", "value": q},
+            {"from": "gpt", "value": "<rb>revolute</rb>"
+             "[0.50,0.50,0.30,0.20,0.00]"}]}
+        for p in paths for q in EVAL_QUESTIONS]))
+    return str(task)
+
+
+def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
+    """A consolidated checkpoint of a full-width decoder cut to 2 layers
+    (bf16, weights from a seed) written with ``torch.save`` beside its
+    ``meta.json`` and ``config.json``, then loaded as a user loads it:
+    ``MetaModel.from_pretrained(..., device="cuda")`` (the checkpoint holds
+    no towers, so the random towers stay and the random decoder is freed
+    before the loaded one lands), every decoder leaf equal to what was
+    written (linears transposed to [in, out]); then the CLI,
+    ``eval_affordance.main`` with ``--device cuda --quant --score``, on
+    that checkpoint over the task file, its records in order and in the
+    schema. Returns the CLI run's launch counts."""
+    from a3vlm_tpu_torch.config import ModelArgs
+    from a3vlm_tpu_torch.eval_affordance import _question_of
+    from a3vlm_tpu_torch.eval_affordance import main as eval_main
+    from a3vlm_tpu_torch.generation import synchronize
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    args = ModelArgs(n_layers=2, vocab_size=32000)
+    D, F_, V = args.dim, args.ffn_hidden_dim, args.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = {"tok_embeddings.weight": (V, D), "norm.weight": (D,),
+              "output.weight": (V, D)}
+    for i in range(args.n_layers):
+        for w in ("wq", "wk", "wv", "wo"):
+            shapes[f"layers.{i}.attention.{w}.weight"] = (D, D)
+        for w, shape in (("w1", (F_, D)), ("w2", (D, F_)), ("w3", (F_, D))):
+            shapes[f"layers.{i}.feed_forward.{w}.weight"] = shape
+        for n in ("attention_norm", "ffn_norm"):
+            shapes[f"layers.{i}.{n}.weight"] = (D,)
+    sd = {f"llma.{k}": torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for k, shape in shapes.items()}
+    ckpt = root / "ckpt"
+    ckpt.mkdir()
+    torch.save({"model": {k: v.cpu() for k, v in sd.items()}},
+               ckpt / "consolidated.00-of-01.model.pth")
+    (ckpt / "meta.json").write_text(json.dumps({"llama_type": "llama_ens5"}))
+    (ckpt / "config.json").write_text(json.dumps(
+        {"dim": D, "multiple_of": args.multiple_of, "n_heads": args.n_heads,
+         "n_layers": args.n_layers, "norm_eps": args.norm_eps,
+         "vocab_size": -1}))
+    t0 = time.perf_counter()
+    model = MetaModel.from_pretrained(str(ckpt), with_visual=True,
+                                      device="cuda",
+                                      tokenizer=_PieceTable(V))
+    synchronize(model.device)
+    secs = time.perf_counter() - t0
+    params = model.params["llama"]
+    checked = 0
+
+    def hold(got, key, transpose):
+        nonlocal checked
+        want = sd[f"llma.{key}"]
+        want = want.t() if transpose else want
+        if (got.device != want.device or got.dtype != torch.bfloat16
+                or not torch.equal(got, want)):
+            raise AssertionError(f"from_pretrained: {key} differs")
+        checked += 1
+
+    hold(params["tok_embeddings"]["weight"], "tok_embeddings.weight", False)
+    hold(params["norm"]["weight"], "norm.weight", False)
+    hold(params["output"]["weight"], "output.weight", True)
+    for i, lp in enumerate(params["layers"]):
+        for group, names in (("attention", ("wq", "wk", "wv", "wo")),
+                             ("feed_forward", ("w1", "w2", "w3"))):
+            for w in names:
+                hold(lp[group][w]["weight"], f"layers.{i}.{group}.{w}.weight",
+                     True)
+        for n in ("attention_norm", "ffn_norm"):
+            hold(lp[n]["weight"], f"layers.{i}.{n}.weight", False)
+    size = sum(v.numel() * 2 for v in sd.values()) / 2 ** 30
+    print(f"[{card}] from_pretrained (dim {D}, {len(params['layers'])} "
+          f"layers, vocab {V}, {size:.2f} GiB bf16, random towers): "
+          f"{checked} of {len(sd)} decoder leaves on the card equal to what "
+          f"was written; load + import + to the card {secs:.1f} s")
+    if checked != len(sd):
+        raise AssertionError("from_pretrained: leaves missing")
+    del model, params, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = eval_main(
+        ["--pretrained_path", str(ckpt), "--dataset", task, "--output_dir",
+         str(root / "cli"), "--batch_size", "4", "--max_gen_len", "8",
+         "--temperature", "0", "--quant", "--score", "--device", "cuda"],
+        tokenizer=_PieceTable(V))
+    secs = time.perf_counter() - t0
+    launches = {n: KERNELS[n][2].launches for n in KERNELS}
+    require_counts(launches, EVAL_KERNELS, "eval CLI")
+    require_no_fallback(card, "eval CLI")
+    with open(results) as f:
+        records = json.load(f)
+    keys = {"answer", "format_answer", "annotation", "question", "image",
+            "fail"}
+    if [(r["image"], r["question"]) for r in records] != [
+            (d["image"], _question_of(d)) for d in ds.data] or any(
+                set(r) != keys for r in records):
+        raise AssertionError("eval CLI: records out of order or schema")
+    print(f"[{card}] eval CLI (--device cuda --quant --score, 2-layer "
+          f"checkpoint): {len(records)} records in order, {secs:.1f} s "
+          f"with the load; launches "
+          f"{ {n: launches[n] for n in EVAL_KERNELS} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_eval_path(card: str, model) -> dict:
+    """Phase 8: the eval CLI's path on phase 4's model, then on a
+    checkpoint of its own. Returns the eval kernels' launch counts of the
+    two ``run_eval`` runs and the CLI run."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from a3vlm_tpu_torch.codecs.triad import (parse_rotated_box,
+                                              parse_tagged_answer)
+    from a3vlm_tpu_torch.constrained import fsm_for_task
+    from a3vlm_tpu_torch.data.conversation import conv_templates
+    from a3vlm_tpu_torch.eval_affordance import (VQADataset, _question_of,
+                                                 run_eval)
+    from a3vlm_tpu_torch.generation import synchronize
+    from a3vlm_tpu_torch.tools.score_results import main as score_main
+
+    for mod in ("PIL", "transformers", "tokenizers", "sentencepiece"):
+        try:
+            __import__(mod)
+            found = "imports"
+        except ImportError:
+            found = "missing"
+        print(f"[{card}] eval: package {mod} {found}")
+    tok = model.tokenizer
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        task = write_eval_tasks(root, card)
+        ds = VQADataset(task, input_size=448)
+        device = model.device
+        t0 = time.perf_counter()
+        fsm = fsm_for_task(Path(task).stem, tok)
+        print(f"[{card}] eval: grammar of {Path(task).stem}: "
+              f"{fsm.n_states} states, compiled in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        class Timed:
+            """``model`` as run_eval sees it, timing each batch's call."""
+
+            def __init__(self):
+                self.rows = []
+
+            def generate(self, prompts, **kw):
+                synchronize(device)
+                t = time.perf_counter()
+                out = model.generate(prompts, **kw)
+                synchronize(device)
+                self.rows.append(((time.perf_counter() - t) * 1e3,
+                                  dict(model.last_stats)))
+                return out
+
+        # warm-up batch (library plans, the allocator), then the runs
+        run_eval(model, ds, batch_size=4, max_gen_len=2, temperature=0.0)
+        if hasattr(qmm, "reset_fallbacks"):
+            qmm.reset_fallbacks()
+        totals = {n: 0 for n in KERNELS}
+        runs = {}
+        for label, fsm_, n_new in (("unconstrained", None, 32),
+                                   ("grammar", fsm, 64)):
+            timed = Timed()
+            tok.decoded = []
+            reset_launches()
+            records = run_eval(timed, ds, batch_size=4, max_gen_len=n_new,
+                               temperature=0.0, fsm=fsm_)
+            launches = {n: KERNELS[n][2].launches for n in KERNELS}
+            for n, c in launches.items():
+                totals[n] += c
+            require_counts(launches, EVAL_KERNELS, f"eval ({label})")
+            ids, tok.decoded = tok.decoded, None
+            runs[label] = (records, ids)
+            for b, (ms, st) in enumerate(timed.rows):
+                print(f"[{card}] eval {label} batch {b} of 4: wall "
+                      f"{ms:.1f} ms, towers {st['towers_ms']:.1f} ms, "
+                      f"prefill {st['prefill_ms']:.1f} ms, decode "
+                      f"{st['decode_ms']:.1f} ms over {st['decode_steps']} "
+                      f"steps; tokens "
+                      f"{[len(x) for x in ids[4 * b: 4 * b + 4]]}")
+            print(f"[{card}] eval {label}: launches "
+                  f"{ {n: launches[n] for n in EVAL_KERNELS} }, ids digest "
+                  f"{ids_digest(ids)}")
+        require_no_fallback(card, "eval")
+
+        # the text path's ids against the token-id path's, batch by batch
+        records, ids = runs["unconstrained"]
+        sep = conv_templates["v1"]().response_end_signal
+        stops = [(tok.eos_id,), tuple(tok.encode_segment(sep)),
+                 tuple(tok.encode_wo_prefix_space(sep))]
+        for b in range(0, len(ds), 4):
+            items = [ds[i] for i in range(b, min(b + 4, len(ds)))]
+            images = torch.tensor(np.stack([it["image"] for it in items]),
+                                  device=device).to(
+                model.params["start_img"].dtype)
+            want = model.generate_tokens(
+                [tok.encode(it["prompt"], bos=True, eos=False)
+                 for it in items], images=images, max_gen_len=32,
+                temperature=0.0, stop_tokens=stops)
+            if want != ids[b: b + 4]:
+                raise AssertionError(
+                    f"eval batch {b // 4}: run_eval's ids differ from "
+                    "generate_tokens' on the same prompts and images")
+        print(f"[{card}] eval unconstrained: run_eval's ids equal "
+              "generate_tokens' on the same prompts and images")
+
+        # the grammar run: every answer a complete joint triad
+        g_records, g_ids = runs["grammar"]
+        for rec, raw_ids in zip(g_records, g_ids):
+            raw = tok.decode(raw_ids)
+            tag, _, rest = parse_tagged_answer(raw)
+            box = parse_rotated_box(rest)
+            if (not EVAL_ANSWER.fullmatch(raw) or tag != "rb"
+                    or box is None or len(box) != 5
+                    or len(rec["format_answer"]) != 5):
+                raise AssertionError(f"eval grammar: answer {raw!r} does "
+                                     "not parse as a joint triad")
+        print(f"[{card}] eval grammar: {len(g_records)} of "
+              f"{len(g_records)} answers parse as joint triads "
+              f"(e.g. {tok.decode(g_ids[0])!r}); fail flags "
+              f"{sum(r['fail'] for r in g_records)} (the reference's check "
+              "wants a 4-number 2-D box; a rotated box has 5)")
+
+        # the results file: written, read back, held to the schema, scored
+        results = root / "results_joint_rec_tasks.json"
+        with open(results, "w") as f:
+            json.dump(records, f, ensure_ascii=False)
+        with open(results) as f:
+            back = json.load(f)
+        keys = {"answer", "format_answer", "annotation", "question", "image",
+                "fail"}
+        if back != records or len(back) != len(ds) or any(
+                set(r) != keys or not isinstance(r["fail"], bool)
+                or not isinstance(r["answer"], str)
+                or not all(isinstance(x, float) for x in r["format_answer"])
+                for r in back):
+            raise AssertionError("eval results file: schema or content")
+        if [(r["image"], r["question"]) for r in back] != [
+                (d["image"], _question_of(d)) for d in ds.data]:
+            raise AssertionError("eval results file: records out of order")
+        summary = score_main([str(results)])
+        # the copy scores ``answer`` where ``format_answer`` is the
+        # repaired list, on which the original raises: the same records
+        # with ``format_answer`` taken out, which the original can score,
+        # must score the same
+        stripped = root / "results_stripped.json"
+        stripped.write_text(json.dumps(
+            [{k: v for k, v in r.items() if k != "format_answer"}
+             for r in records]))
+        if json.dumps(score_main([str(stripped)]), sort_keys=True) != \
+                json.dumps(summary, sort_keys=True):
+            raise AssertionError("eval results: the scores differ with "
+                                 "format_answer taken out")
+        print(f"[{card}] eval results: {len(back)} records, schema held; "
+              f"scored: { {k: v['n'] for k, v in summary.items()} }, the "
+              "same with format_answer taken out")
+        for n, c in run_checkpoint_path(card, root, task, ds).items():
+            totals[n] += c
+    return totals
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2144,13 +2539,17 @@ def main(argv=None) -> int:
     if opts.kernels_only:
         return 0
 
-    # 4. serving path, 6. latency path and 7. the quantized modes over the
-    # int4 decoder (on phase 4's weights, which phase 5 recasts), 5.
-    # training path, then 7. mode (h) on an int8 model of its own
+    # 4. serving path, 8. the eval path, 6. latency path and 7. the
+    # quantized modes over the int4 decoder (on phase 4's weights, which
+    # phase 5 recasts), 5. training path, then 7. mode (h) on an int8 model
+    # of its own
     if hasattr(qmm, "reset_fallbacks"):
         qmm.reset_fallbacks()
     model, serve = run_main_path(card)
     require_no_fallback(card, "serving")
+    evals = run_eval_path(card, model)
+    print(f"[{card}] launches in the eval path: "
+          f"{ {n: evals[n] for n in EVAL_KERNELS} }")
     latency = run_latency_path(card, model)
     require_no_fallback(card, "latency")
     quant = run_quant_modes(card, model)

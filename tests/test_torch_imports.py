@@ -40,6 +40,9 @@ def test_port_file_imports_no_jax_package(path):
 
 def test_port_entry_points_load_neither_package():
     code = ("import sys, a3vlm_tpu_torch.meta, a3vlm_tpu_torch.main_finetune, "
+            "a3vlm_tpu_torch.eval_affordance, "
+            "a3vlm_tpu_torch.tools.score_results, "
+            "a3vlm_tpu_torch.checkpoint.ens5_import, "
             "a3vlm_tpu_torch.lookup_decode, a3vlm_tpu_torch.constrained, "
             "a3vlm_tpu_torch.tokenizer, a3vlm_tpu_torch.data.dialog, "
             "a3vlm_tpu_torch.data.alpaca, a3vlm_tpu_torch.data.loader; "
@@ -64,9 +67,14 @@ def test_entry_points_default_to_the_card():
     def default(fn):
         return inspect.signature(fn).parameters["device"].default
 
-    for fn in (MetaModel.__init__, bridge.params_from_numpy,
-               bridge.kv_cache_from_numpy):
+    for fn in (MetaModel.__init__, MetaModel.from_pretrained,
+               bridge.params_from_numpy, bridge.kv_cache_from_numpy):
         assert default(fn) == "cuda", fn
+    from a3vlm_tpu_torch import eval_affordance, main_finetune
+
+    for cli in (eval_affordance.get_args_parser(),
+                main_finetune.get_args_parser()):
+        assert cli.get_default("device") == "cuda"
     for fn in (KVCache.create, attention.right_aligned_causal_mask,
                rope.precompute_freqs_cis, resize.weight_matrix,
                decode_attention.make_quantized_kv):
@@ -279,8 +287,184 @@ def _case_data_transforms(tmp_path, tok_dir):
                                   orig.pc_norm(pc.copy()))
 
 
+def _defs(path: Path) -> dict:
+    """Top-level functions, classes and assignments of a file by name, as
+    their AST dumps (imports and the module docstring left out)."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            out[ast.dump(node.targets[0])] = ast.dump(node)
+    return out
+
+
+def _same_defs(rel: str, differ: tuple = ()) -> None:
+    """The port's copy of ``rel`` defines what the original defines, each
+    definition the same to the AST but those in ``differ``."""
+    orig = _defs(ROOT / "a3vlm_tpu" / rel)
+    port = _defs(ROOT / "a3vlm_tpu_torch" / rel)
+    assert orig.keys() == port.keys()
+    for name in orig:
+        assert (orig[name] == port[name]) != (name in differ), name
+
+
+def _both(rel: str):
+    import importlib
+
+    mod = rel.removesuffix(".py").replace("/", ".")
+    return (importlib.import_module(f"a3vlm_tpu.{mod}"),
+            importlib.import_module(f"a3vlm_tpu_torch.{mod}"))
+
+
+def _case_codecs_geometry(tmp_path, tok_dir):
+    _same_defs("codecs/geometry.py")
+    orig, port = _both("codecs/geometry.py")
+    rng = np.random.default_rng(2)
+    pts = rng.normal(size=(40, 3))
+    boxes = []
+    for mod in (orig, port):
+        box = mod.BBox3D()
+        box.create_minimum_projected_bbox(pts)
+        boxes.append((box.center, box.extent, box.R,
+                      mod.matrix_to_rotvec(mod.rotvec_to_matrix(pts[0])),
+                      mod.normalize_and_round_angle(187.4)))
+    _assert_same(boxes[1], boxes[0])
+
+
+def _case_codecs_triad(tmp_path, tok_dir):
+    _same_defs("codecs/triad.py")
+    orig, port = _both("codecs/triad.py")
+    box = [412.3, 377.9, 120.5, 64.2, 0.7]
+    for mod in (orig, port):
+        s = mod.format_joint_answer("revolute",
+                                    mod.format_rotated_box(box, 960, 720))
+        assert s == orig.format_joint_answer(
+            "revolute", orig.format_rotated_box(box, 960, 720))
+        assert mod.parse_tagged_answer(s) == orig.parse_tagged_answer(s)
+        assert mod.parse_rotated_box(s) == orig.parse_rotated_box(s)
+
+
+def _case_codecs_bbox_util(tmp_path, tok_dir):
+    _same_defs("codecs/bbox_util.py")
+    orig, port = _both("codecs/bbox_util.py")
+    assert port.denorm_bboxes(640, 480, [0.1, 0.2, 0.5, 0.9]) == \
+        orig.denorm_bboxes(640, 480, [0.1, 0.2, 0.5, 0.9])
+    assert port.expand2square_offsets(640, 480) == \
+        orig.expand2square_offsets(640, 480)
+
+
+def _case_codecs_repair(tmp_path, tok_dir):
+    _same_defs("codecs/repair.py")
+    orig, port = _both("codecs/repair.py")
+    for raw in ("<rb>revolute</rb>[12.34,56.78,90.12,34.56]###junk",
+                "the answer is 0.25,0.5, 1234 ,75", "garbage"):
+        a = port.extract_answer(raw)
+        assert a == orig.extract_answer(raw)
+        box = port.format_bounding_box(a)
+        assert box == orig.format_bounding_box(a)
+        assert port.check_box_failed(box) == orig.check_box_failed(box)
+
+
+def _case_codecs_vqa_tasks(tmp_path, tok_dir):
+    import random
+
+    _same_defs("codecs/vqa_tasks.py")
+    orig, port = _both("codecs/vqa_tasks.py")
+    got = []
+    for mod in (orig, port):
+        random.seed(4)
+        got.append(mod.create_single_link_rec_rotated_task(
+            "door", [300.0, 200.0, 80.0, 40.0, 0.3], "a.png"))
+    assert got[1] == got[0]
+
+
+def _case_checkpoint_torch_import(tmp_path, tok_dir):
+    """Every definition but ``_stack`` is the original's; ``_stack``
+    walks the tree itself and stacks as the original (a JAX tree map)
+    does, on a nested tree with lists and a None leaf."""
+    _same_defs("checkpoint/torch_import.py", differ=("_stack",))
+    orig, port = _both("checkpoint/torch_import.py")
+    rng = np.random.default_rng(5)
+    trees = [{"a": {"w": rng.normal(size=(3, 2)), "b": None},
+              "l": [rng.normal(size=4), {"x": rng.normal(size=(2,))}]}
+             for _ in range(3)]
+    _assert_same(port._stack(trees), orig._stack(trees))
+    sd = {"llma.tok_embeddings.weight": rng.normal(size=(8, 4)),
+          "llma.norm.weight": rng.normal(size=4),
+          "llma.output.weight": rng.normal(size=(8, 4))}
+    for group, names in (("attention", ("wq", "wk", "wv", "wo")),
+                         ("feed_forward", ("w1", "w2", "w3"))):
+        for w in names:
+            for i in range(2):
+                sd[f"llma.layers.{i}.{group}.{w}.weight"] = rng.normal(
+                    size=(4, 4))
+    for i in range(2):
+        for n in ("attention_norm", "ffn_norm"):
+            sd[f"llma.layers.{i}.{n}.weight"] = rng.normal(size=4)
+    _assert_same(port.import_llama_consolidated(sd, n_layers=2),
+                 orig.import_llama_consolidated(sd, n_layers=2))
+
+
+def _case_checkpoint_ens5_import(tmp_path, tok_dir):
+    _same_defs("checkpoint/ens5_import.py")
+    orig, port = _both("checkpoint/ens5_import.py")
+    for keys in (["llma.clip.visual.x"], ["llma.layers.0.x"]):
+        sd = dict.fromkeys(keys)
+        assert port.has_ens5_towers(sd) == orig.has_ens5_towers(sd)
+
+
+def _case_datagen_utils(tmp_path, tok_dir):
+    _same_defs("datagen/utils.py")
+    orig, port = _both("datagen/utils.py")
+    rng = np.random.default_rng(6)
+    corners = [rng.normal(size=(8, 3)) for _ in range(2)]
+    assert port.obb_iou_3d(*corners) == orig.obb_iou_3d(*corners)
+    boxes = ([50.0, 40.0, 30.0, 20.0, 15.0], [55.0, 42.0, 30.0, 25.0, 40.0])
+    assert port.rotated_box_iou(*boxes) == orig.rotated_box_iou(*boxes)
+
+
+def _case_tools_score_results(tmp_path, tok_dir):
+    """The scorer differs only where the original fails: a record whose
+    ``format_answer`` is not a string (tests/test_torch_eval.py)."""
+    _same_defs("tools/score_results.py", differ=("score_records",))
+    orig, port = _both("tools/score_results.py")
+    box = "[0.50,0.50,0.30,0.20,0.00]"
+    records = [{"question": q, "answer": a, "format_answer": a,
+                "annotation": box, "image": "a", "fail": False}
+               for q, a in (("2D rotated bounding box of the door", box),
+                            ("Detect all manipulable object parts", box),
+                            ("provide the 3D axis", "garbage"))]
+    assert port.score_records(records) == orig.score_records(records)
+    for q in ("provide the 3D bounding box", "What is the status?"):
+        assert port.classify(q) == orig.classify(q)
+
+
+def _case_config_probe(tmp_path, tok_dir):
+    import a3vlm_tpu.config as orig
+    import a3vlm_tpu_torch.config as port
+
+    assert port.probe_pretrained_dir(tmp_path) == \
+        orig.probe_pretrained_dir(tmp_path) == {}
+    (tmp_path / "meta.json").write_text(json.dumps(
+        {"llama_type": "llama_ens5"}))
+    (tmp_path / "config.json").write_text(json.dumps({"dim": 64}))
+    assert port.probe_pretrained_dir(tmp_path) == \
+        orig.probe_pretrained_dir(tmp_path)
+
+
 _CASES = {
     "config": _case_config,
+    "config.probe_pretrained_dir": _case_config_probe,
+    "codecs.geometry": _case_codecs_geometry,
+    "codecs.triad": _case_codecs_triad,
+    "codecs.bbox_util": _case_codecs_bbox_util,
+    "codecs.repair": _case_codecs_repair,
+    "codecs.vqa_tasks": _case_codecs_vqa_tasks,
+    "checkpoint.torch_import": _case_checkpoint_torch_import,
+    "checkpoint.ens5_import": _case_checkpoint_ens5_import,
+    "datagen.utils": _case_datagen_utils,
+    "tools.score_results": _case_tools_score_results,
     "tokenizer": _case_tokenizer,
     "constrained": _case_constrained,
     "codecs.vocab": _case_codecs_vocab,
