@@ -22,10 +22,13 @@
 // - each warpgroup walks 64-row query tiles (its Q tile a TMA box too):
 //   S = Q K^T as wgmma m64n128k16 over shared-memory operands, an online
 //   softmax in f32 on the accumulator layout, O += P V with P from
-//   registers (rounded to bf16 as the TPU kernel rounds it, :44-46) and V
-//   as an MN-major B operand; the product of one 128-key chunk runs beside
-//   the softmax of the next, as in K2. The ragged end (one key at S 257)
-//   takes 16-key steps (m64n16k16), the only masked ones;
+//   registers as a high and a low bf16 part (p_hi = bf16(p), p_lo =
+//   bf16(p - p_hi), two products over the same V tile, as K2 carries it;
+//   the TPU kernel rounds P to bf16 once, :44-46, which leaves outputs
+//   that cancel near zero outside the plain version's bound) and V as an
+//   MN-major B operand; the product of one 128-key chunk runs beside the
+//   softmax of the next, as in K2. The ragged end (one key at S 257) takes
+//   16-key steps (m64n16k16), the only masked ones;
 // - D 88 takes the 128-wide tile with 6 k16 steps for S = Q K^T (KS), the
 //   columns past D zero;
 // - one block a (crop, head), its two warpgroups taking query tiles in
@@ -150,7 +153,7 @@ vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float l_i[2] = {0.f, 0.f};
     float alpha[2];
     float acc[DP / 2], s[NS];
-    uint32_t p[NS / 8][4];
+    uint32_t p[NS / 8][4], p_lo[NS / 8][4];  // P's high and low parts
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     auto scores = [&](int c) {  // S = Q K_c^T, issued, not waited for
@@ -164,6 +167,10 @@ vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
         wgmma_rs_tb(acc, p[kk], desc_mnmajor(vs_u, kv_rows, c * BN / 16 + kk));
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_tb(acc, p_lo[kk],
+                    desc_mnmajor(vs_u, kv_rows, c * BN / 16 + kk));
       wgmma_commit();
     };
 
@@ -175,7 +182,7 @@ vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence_regs(s);
       softmax_tile(s, m_i, l_i, alpha, 0, r_lo, cq, 0, S, false, false,
                    scale_log2);
-      pack_a(s, p);
+      pack_a_split(s, p, p_lo);
     }
     for (int c = 1; c < n_full; ++c) {
       wait_keys(c * BN);
@@ -189,9 +196,10 @@ vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_wait<0>();
       fence_regs(acc);
       fence_frags(p);
+      fence_frags(p_lo);
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      pack_a(s, p);
+      pack_a_split(s, p, p_lo);
     }
     if (n_full > 0) {
       wgmma_fence();
@@ -199,12 +207,13 @@ vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_wait<0>();
       fence_regs(acc);
       fence_frags(p);
+      fence_frags(p_lo);
     }
     // the ragged end, 16 keys a step; keys past S are masked
     for (int kt = n_full * BN; kt < S; kt += 16) {
       wait_keys(kt);
       float t[8];
-      uint32_t pt[1][4];
+      uint32_t pt[1][4], pt_lo[1][4];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
@@ -217,13 +226,15 @@ vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    scale_log2);
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      pack_a(t, pt);
+      pack_a_split(t, pt, pt_lo);
       wgmma_fence();
       wgmma_rs_tb(acc, pt[0], desc_mnmajor(vs_u, kv_rows, kt / 16));
+      wgmma_rs_tb(acc, pt_lo[0], desc_mnmajor(vs_u, kv_rows, kt / 16));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
       fence_frags(pt);
+      fence_frags(pt_lo);
     }
 
     float inv[2];

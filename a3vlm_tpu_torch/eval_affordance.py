@@ -11,8 +11,10 @@ One process drives one device: ``--device`` (default ``cuda``) takes the
 place of the JAX CLI's ``JAX_PLATFORMS``, and the CLI never falls back to
 the CPU by itself. The flags and their defaults are the JAX CLI's. The
 quantized-matmul flags set the port's mode switches
-(``ops.quant_matmul.W4A8_DECODE``, ``W8A8_PREFILL``); the flags of parts
-not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+(``ops.quant_matmul.W4A8_DECODE``, ``W8A8_PREFILL``);
+``--continuous_batching`` serves the task file through the slot pool
+(``run_eval_continuous``); the flags of parts not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Behaviour carried over from the reference:
 - VQADataset over task JSON with sampling cap and resume-by-results-file
@@ -189,12 +191,102 @@ def run_eval(
     return outputs
 
 
-def run_eval_continuous(*args, **kwargs):
-    """(eval_affordance.py:183) serves through the continuous batcher,
-    which the port does not have yet."""
-    raise NotImplementedError(
-        "run_eval_continuous / --continuous_batching is not ported yet "
-        "(ROADMAP Queue 1 item 10: continuous batching)")
+def run_eval_continuous(
+    model,
+    dataset: VQADataset,
+    batch_size: int = 4,
+    max_gen_len: int = 2048,
+    temperature: float = 0.1,
+    top_p: float = 0.75,
+    draft_k: int = 0,
+    fsm=None,
+) -> list[dict]:
+    """Continuous-batching eval (eval_affordance.py:183): the items are
+    grouped by the image each one actually loaded, each image's [BOS |
+    image words] KV prefix is computed once (``make_prefix``) and every
+    question about it admits as a text-only extension into a pool of
+    ``batch_size`` slots (``serving_batch.ContinuousBatcher``). The task
+    files ask about 12 questions per object render. Same records as
+    ``run_eval``; ``fsm`` grammar-constrains every slot's tokens."""
+    from a3vlm_tpu_torch.serving_batch import ContinuousBatcher
+
+    cb = ContinuousBatcher(
+        model._decoder_params(),
+        model.args,
+        model.tokenizer,
+        slots=batch_size,
+        kv_cache_bits=model.kv_cache_bits,
+        ens5_params=model.params,
+        ens5_cfg=model.cfg,
+        vocab_limit=model.true_vocab,
+        draft_k=draft_k,
+        fsm=fsm,
+        device=model.device,
+    )
+    # every admission here extends a [BOS | image words] prefix with a
+    # question, which lands in the small buckets
+    cb.warmup(
+        buckets=(16, 32, 64, 128),
+        prefix_len=1 + model.cfg.image_words,
+        temperature=temperature, top_p=top_p,
+    )
+    # group the MATERIALIZED items by their image path: VQADataset
+    # substitutes the next item for a corrupt image, so a resampled item
+    # must decode against the render it actually loaded
+    groups: dict[str, list[dict]] = {}
+    for i in range(len(dataset)):
+        it = dataset[i]
+        groups.setdefault(it["image_path"], []).append(it)
+
+    outputs = []
+    agg = {"tokens": 0, "total_s": 0.0, "tpots": [], "ttfts": []}
+    for items in groups.values():
+        prefix = cb.make_prefix(image=np.asarray(items[0]["image"]))
+        results = cb.generate(
+            [it["prompt"] for it in items],
+            max_gen_len=max_gen_len,
+            temperature=temperature,
+            top_p=top_p,
+            prefixes=[prefix] * len(items),
+            additional_stop_symbols=[
+                conv_templates["v1"]().response_end_signal
+            ],
+        )
+        del prefix  # one image's KV prefix at a time
+        s = cb.last_stats
+        if s and s.get("requests"):
+            agg["tokens"] += s["tokens"]
+            agg["total_s"] += s["total_s"]
+            agg["tpots"] += [p["tpot_ms"] for p in s["per_request"]
+                             if p["tokens"] > 1]
+            agg["ttfts"] += [p["ttft_s"] for p in s["per_request"]]
+        for it, raw in zip(items, results):
+            answer = extract_answer(raw)
+            dt_bbox = format_bounding_box(answer)
+            outputs.append(
+                {
+                    "answer": answer,
+                    "format_answer": dt_bbox,
+                    "annotation": it["annotation"],
+                    "question": it["question"],
+                    "image": it["image_path"],
+                    "fail": check_box_failed(dt_bbox),
+                }
+            )
+    if agg["ttfts"]:
+        def pct(v, q):
+            v = sorted(v)
+            return v[min(int(q * (len(v) - 1) + 0.5), len(v) - 1)]
+
+        tp = agg["tpots"] or [0.0]
+        print(
+            f"serving: {agg['tokens']} tokens in {agg['total_s']:.1f}s "
+            f"({agg['tokens'] / max(agg['total_s'], 1e-9):.1f} tok/s), "
+            f"ttft p50/p95 {pct(agg['ttfts'], .5):.3f}/"
+            f"{pct(agg['ttfts'], .95):.3f} s, "
+            f"tpot p50/p95 {pct(tp, .5):.1f}/{pct(tp, .95):.1f} ms"
+        )
+    return outputs
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -253,10 +345,15 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "name; malformed triads become impossible, EOS "
                         "only at grammar-complete answers)")
     parser.add_argument("--continuous_batching", action="store_true",
-                        help="not ported yet (ROADMAP Queue 1 item 10)")
+                        help="slot-pool serving with per-image KV-prefix "
+                        "reuse (serving_batch.py): the questions about one "
+                        "render share its 1456-token prefix")
     parser.add_argument("--draft_k", type=int, default=0,
                         help="prompt-lookup speculative decoding: verify K "
-                        "drafted tokens per round; batch_size 1 routes "
+                        "drafted tokens per round. With "
+                        "--continuous_batching it speculates per slot "
+                        "(serving_batch.py; greedy only: requires "
+                        "--temperature 0); without, batch_size 1 routes "
                         "through the lookup loop (lookup_decode.py), whose "
                         "output equals the vanilla loop's, greedy or "
                         "sampled")
@@ -271,8 +368,6 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.continuous_batching, "--continuous_batching",
-         "Queue 1 item 10 (continuous batching)"),
         (bool(args.adapter_path), "--adapter_path",
          "Queue 1 item 16 (the checkpoint manager)"),
         (args.model_parallel_size > 1, "--model_parallel_size > 1",
@@ -294,6 +389,11 @@ def main(argv=None, tokenizer=None):
     parser = get_args_parser()
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    if args.draft_k and args.temperature != 0.0 and args.continuous_batching:
+        # the slot pool's speculative verify is greedy only; the batch-1
+        # lookup loop samples as the vanilla loop does
+        parser.error("--continuous_batching --draft_k is greedy-only: "
+                     "pass --temperature 0")
 
     import torch
 
@@ -383,7 +483,8 @@ def main(argv=None, tokenizer=None):
             f"constrained decoding: "
             f"{'grammar FSM with %d states' % fsm.n_states if fsm else 'no grammar family matches this task; running unconstrained'}"
         )
-    outputs = run_eval(
+    run = run_eval_continuous if args.continuous_batching else run_eval
+    outputs = run(
         model,
         dataset,
         batch_size=args.batch_size,

@@ -298,3 +298,48 @@ def decode_step(params: Params, args: ModelArgs, cache: KVCache,
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
     logits = qmat(h[:, -1, :], params["output"]["weight"], impl)
     return logits.float(), cache
+
+
+def decode_step_ragged(params: Params, args: ModelArgs, cache: KVCache,
+                       token: torch.Tensor, seq_pos: torch.Tensor,
+                       impl: str = "auto"):
+    """One-token decode with a position per row, the continuous-batching
+    step (llama.py:599). ``token`` [B, 1]; ``seq_pos`` [B]: row b's token
+    sits at position seq_pos[b], its cache row is written there and it
+    attends [0, seq_pos[b]]; RoPE takes a row of frequencies per batch row.
+    No mask, so a single-token step takes the fused write + attend kernel.
+    Returns ([B, V] float32 logits, cache)."""
+    h = embed_tokens(params, token)
+    # the write rows and the visible prefixes, built once a step for every
+    # layer's fused write + attend
+    pos = seq_pos.to(device=h.device, dtype=torch.int32).contiguous()
+    h, cache = forward_hidden(params, args, h, pos[:, None], None,
+                              cache=cache, write_pos=pos,
+                              kv_valid_len=pos + 1, impl=impl)
+    h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
+    logits = qmat(h[:, -1, :], params["output"]["weight"], impl)
+    return logits.float(), cache
+
+
+def decode_step_ragged_multi(params: Params, args: ModelArgs, cache: KVCache,
+                             tokens: torch.Tensor, seq_pos: torch.Tensor,
+                             impl: str = "auto"):
+    """T-token ragged decode, the continuous-batching speculative verify
+    step (llama.py:633). Row b's window ``tokens[b]`` occupies positions
+    [seq_pos[b], seq_pos[b] + T): its T cache rows are written there and
+    window token i attends rows <= seq_pos[b] + i (causal within the window
+    over the row's populated prefix). Callers advance a row by its accepted
+    count only, so rejected rows hold garbage the next window rewrites
+    before any query can see it; a pool needs T - 1 spare rows past the
+    last position a row can emit. Returns ([B, T, V] float32 logits, one
+    next-token distribution per window position, and the cache)."""
+    T = tokens.shape[1]
+    h = embed_tokens(params, tokens)
+    pos = seq_pos.to(device=h.device, dtype=torch.int32).contiguous()
+    positions = pos[:, None] + torch.arange(T, device=h.device)[None, :]
+    h, cache = forward_hidden(params, args, h, positions, "causal",
+                              cache=cache, write_pos=pos,
+                              kv_valid_len=pos + T, impl=impl)
+    h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
+    logits = qmat(h, params["output"]["weight"], impl)
+    return logits.float(), cache

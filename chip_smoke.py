@@ -14,7 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    K1v3, K11, K7 and K6) and of the row quantizer; they must not spill and
    the wgmma products must not have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16, at the shapes the main path gives it; prints error and times, for
+   bf16, at the shapes the main path gives it (K2 also at phase 9's
+   prefix extensions, 16-128 queries over 1472-1584 keys at batch 1 and
+   4 and 512 over 1968 at batch 4, and K1 at the slot pool's M 36, 512
+   and 2048);
+   prints error and times, for
    the tensor-core kernels (the attention kernels, and the quantized
    matmuls at M > 32) also the achieved rate (TFLOP/s, or GB/s where bytes
    bound it) and its share of the bound; for the decode and verify kernels
@@ -106,6 +110,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    and K10 launched, no fallback, the records in order and in the
    schema).
 
+9. continuous batching (right after phase 8, on phase 4's model): phase
+   8's task file through ``eval_affordance.run_eval_continuous`` with 4
+   slots (one [BOS | image words] prefix a render, its questions, 278-281
+   ids each from the synthetic tokenizer, admitted as one text-only
+   extension at bucket 512: the flash kernel with 512 queries over 1968
+   keys, K1 at M 2048): (a) greedy, 32 new ids; (b) the joint grammar, 64;
+   (c) ``draft_k = 8``; (d) the int8 cache, vanilla and with
+   ``draft_k = 8``; (e) ``steps_per_dispatch = 8``; then (f) an
+   ``OnlineSession`` of one render's four requests, two submitted three
+   rounds late, against
+   ``generate`` on the same pool. K1, K2 and K10 launch in every run; K3
+   in the bf16 vanilla runs, K5 in (c), K4 fused and K5q in (d); no
+   fallback route. (e)'s ids equal (a)'s, (f)'s equal ``generate``'s, and
+   a full-width ``decode_step_ragged`` with every row at one position
+   equals ``decode_step`` bit for bit. (c) is held against (a) and (d)'s
+   speculative run against its vanilla one: where ids differ, the kernel
+   path's top-2 logit gap at the first differing id must not exceed its
+   kernel-vs-plain logit error there. Every grammar answer parses as a
+   joint triad, the records follow phase 8's schema in order. Prints per
+   render the towers, prefix prefill and admission ms, the decode steps and
+   ms a step, TTFT and TPOT p50 and p90, and each run's wall time beside
+   phase 8's ``run_eval`` on the same items.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -114,7 +141,8 @@ prints the first differing index with this run's top-2 logit gap there
 and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
-the serving, latency, training and quantized-mode runs,
+the serving, continuous-batching, latency, training and quantized-mode
+runs,
 ``launches_by_path`` splits them; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
@@ -138,6 +166,8 @@ import time
 import torch
 import torch.nn.functional as F
 
+from a3vlm_tpu_torch import serving_batch
+from a3vlm_tpu_torch.generation import synchronize
 from a3vlm_tpu_torch.ops import _kernels
 from a3vlm_tpu_torch.ops import decode_attention as dec
 from a3vlm_tpu_torch.ops.decode_attention import (
@@ -583,7 +613,10 @@ def check_int4(gen, results):
     """K1 at every decoder linear at decode (M 4), at one request's
     prefill, at the QLoRA step's M (2 x 2048) and at the batch-4 prefill,
     each on a weight of its own; on the M 4 rows' weights also at M 1, 9
-    and 32 (32: a verify round's rows at batch 4), x for those from a
+    and 32 (32: a verify round's rows at batch 4), then at the slot pool's
+    M 36 (a verify round of 4 slots, 9 rows each), 512 and 2048 (an
+    admission of 4 questions at bucket 128, and at phase 9's bucket 512),
+    x for those and the pool's weights from a
     generator of their own so that the shared one gives the later checks
     the inputs they always had. The GEMV rows are timed on a cold L2 over
     a rotation of weight copies."""
@@ -598,11 +631,12 @@ def check_int4(gen, results):
             print(f"int4 GEMV {mode} at M={M}: clusters of 1-8 blocks the "
                   f"card holds at once (group 64): "
                   f"{qmm._gemv_capacity(lib, 0, mode, M, 64)}")
-    for M in (4, 1487, 4096, 4 * 1487):
+    for M, g in ((4, gen), (1487, gen), (4096, gen), (4 * 1487, gen),
+                 (36, extra), (512, extra), (2048, extra)):
         for K, N in LINEAR_SHAPES:
-            qw = _quantize_leaf_int4(random_weight(K, N, gen))
+            qw = _quantize_leaf_int4(random_weight(K, N, g))
             kpad = qw.q.shape[0] * 2
-            x4 = randn(M, K, gen=gen)
+            x4 = randn(M, K, gen=g)
             gemv = M <= qmm.GEMV_MAX_M
             copies = weight_copies(qw) if gemv else None
             for m in INT4_GEMV_MS if gemv else (M,):
@@ -869,6 +903,40 @@ def check_flash(gen, results):
             flash_attention_bhsd_plain(q, k, v, causal=True)))
     print(f"flash B=1 Sq=476 Skv=1500, seeds 0-15: max_abs_err {worst:.3e} "
           f"(plain bound)")
+
+
+# the prefix-cache admission of phase 9: a bucket of question tokens,
+# right-aligned causal over the [BOS | image words] prefix (1456 rows) and
+# the bucket itself, one request or a group of four: 16-128 for questions
+# as a subword tokenizer cuts them, 512 for phase 9's own (278-281 ids a
+# prompt from the synthetic tokenizer, about one a character)
+PREFIX_ROWS = 1456
+EXTENSION_SHAPES = ((1, 16), (1, 64), (1, 128), (4, 16), (4, 64), (4, 128),
+                    (4, 512))
+
+
+def check_flash_extension(gen, results):
+    """K2 at the extension shapes, with the keys' extent passed as the
+    cache dispatch passes it (``skv_actual``)."""
+    D, H = 128, 40
+    for B, Sq in EXTENSION_SHAPES:
+        Skv = PREFIX_ROWS + Sq
+        q = randn(B, H, Sq, D, gen=gen)
+        k = randn(B, H, Skv, D, gen=gen)
+        v = randn(B, H, Skv, D, gen=gen)
+        got = flash_attention_bhsd(q, k, v, causal=True, skv_actual=Skv)
+        want = flash_attention_bhsd_plain(q, k, v, causal=True,
+                                          skv_actual=Skv)
+        err = compare(f"flash extension B={B} Sq={Sq} Skv={Skv}", got, want)
+        ms = timed_ms(lambda: flash_attention_bhsd(q, k, v, causal=True,
+                                                   skv_actual=Skv))
+        plain = timed_ms(lambda: flash_attention_bhsd_plain(
+            q, k, v, causal=True, skv_actual=Skv))
+        library = sdpa_ms(q, k, v, mask=right_aligned_mask(Sq, Skv))
+        record(results, "flash_attention",
+               f"extension B={B} Hq={H} Sq={Sq} Skv={Skv} D={D}", err, ms,
+               plain, nbytes(q, k, v, got),
+               4 * D * B * H * causal_pairs(Sq, Skv), library)
 
 
 def sdpa_backward_ms(q, k, v, do, mask, reps=3) -> float:
@@ -1590,7 +1658,6 @@ def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
     from a3vlm_tpu_torch.config import ModelArgs
     from a3vlm_tpu_torch.eval_affordance import _question_of
     from a3vlm_tpu_torch.eval_affordance import main as eval_main
-    from a3vlm_tpu_torch.generation import synchronize
     from a3vlm_tpu_torch.meta import MetaModel
 
     args = ModelArgs(n_layers=2, vocab_size=32000)
@@ -1686,10 +1753,11 @@ def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
     return launches
 
 
-def run_eval_path(card: str, model) -> dict:
+def run_eval_path(card: str, model):
     """Phase 8: the eval CLI's path on phase 4's model, then on a
     checkpoint of its own. Returns the eval kernels' launch counts of the
-    two ``run_eval`` runs and the CLI run."""
+    two ``run_eval`` runs and the CLI run, and each run's (wall ms,
+    records) by label, which phase 9 is held beside."""
     import tempfile
     from pathlib import Path
 
@@ -1701,7 +1769,6 @@ def run_eval_path(card: str, model) -> dict:
     from a3vlm_tpu_torch.data.conversation import conv_templates
     from a3vlm_tpu_torch.eval_affordance import (VQADataset, _question_of,
                                                  run_eval)
-    from a3vlm_tpu_torch.generation import synchronize
     from a3vlm_tpu_torch.tools.score_results import main as score_main
 
     for mod in ("PIL", "transformers", "tokenizers", "sentencepiece"):
@@ -1743,14 +1810,18 @@ def run_eval_path(card: str, model) -> dict:
         if hasattr(qmm, "reset_fallbacks"):
             qmm.reset_fallbacks()
         totals = {n: 0 for n in KERNELS}
-        runs = {}
+        runs, lockstep = {}, {}
         for label, fsm_, n_new in (("unconstrained", None, 32),
                                    ("grammar", fsm, 64)):
             timed = Timed()
             tok.decoded = []
             reset_launches()
+            synchronize(device)
+            t0 = time.perf_counter()
             records = run_eval(timed, ds, batch_size=4, max_gen_len=n_new,
                                temperature=0.0, fsm=fsm_)
+            synchronize(device)
+            lockstep[label] = ((time.perf_counter() - t0) * 1e3, records)
             launches = {n: KERNELS[n][2].launches for n in KERNELS}
             for n, c in launches.items():
                 totals[n] += c
@@ -1842,6 +1913,368 @@ def run_eval_path(card: str, model) -> dict:
               "same with format_answer taken out")
         for n, c in run_checkpoint_path(card, root, task, ds).items():
             totals[n] += c
+    return totals, lockstep
+
+
+CB_KERNELS = ("int4_matmul", "flash_attention", "vit_attention")
+
+
+class _TimedBatcher(serving_batch.ContinuousBatcher):
+    """The batcher ``run_eval_continuous`` builds (phase 9 puts this class
+    in its place), each stage timed on the host clock between device
+    synchronisations into ``log``, and each generate call's raw ids (stop
+    tokens included) kept there. ``spd`` is the ``steps_per_dispatch`` of
+    every batcher built."""
+
+    spd = 1
+    log: list = []
+
+    def __init__(self, *args, **kw):
+        kw.setdefault("steps_per_dispatch", _TimedBatcher.spd)
+        super().__init__(*args, **kw)
+        self._warming = False
+
+    def _timed(self, fn, *args):
+        synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        synchronize(self.device)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def warmup(self, *args, **kw):
+        self._warming = True
+        _, ms = self._timed(lambda: super(_TimedBatcher, self).warmup(
+            *args, **kw))
+        self._warming = False
+        self.log.append(("warmup", ms))
+
+    def _encode_image(self, image):
+        out, ms = self._timed(super()._encode_image, image)
+        self.log.append(("towers", ms))
+        return out
+
+    def make_prefix(self, image=None, tokens=None):
+        out, ms = self._timed(super().make_prefix, image, tokens)
+        self.log.append(("prefix", ms))
+        return out
+
+    def _admit_many(self, items):
+        out, ms = self._timed(super()._admit_many, items)
+        if not self._warming:
+            self.log.append(("admit", ms))
+        return out
+
+    def _build_stats(self, t0, out_tokens):
+        stats = super()._build_stats(t0, out_tokens)
+        self.log.append(("generate", [list(out_tokens[i])
+                                      for i in sorted(out_tokens)], stats,
+                         self.steps))
+        return stats
+
+
+def pct(vals, q):
+    """The batcher's percentile rule (nearest rank)."""
+    v = sorted(vals)
+    return v[min(int(q * (len(v) - 1) + 0.5), len(v) - 1)]
+
+
+def cb_report(card: str, label: str, log: list, wall_ms: float) -> list:
+    """Prints one phase-9 run's stages from its ``_TimedBatcher.log``:
+    per image the towers and the prefix prefill, the admissions, then the
+    decode steps, ms a step, tokens, and TTFT / TPOT p50 and p90 over the
+    run's requests. Returns the run's raw ids, request by request."""
+    ids, per, steps0, towers, admit = [], [], 0, 0.0, []
+    warm = sum(e[1] for e in log if e[0] == "warmup")
+    image = 0
+    for entry in log:
+        kind = entry[0]
+        if kind == "towers":
+            towers = entry[1]
+        elif kind == "prefix":
+            prefix = entry[1]
+        elif kind == "admit":
+            admit.append(entry[1])
+        elif kind == "generate":
+            _, rows, stats, steps = entry
+            ids += rows
+            per += stats["per_request"]
+            n_steps = steps - steps0
+            steps0 = steps
+            decode = stats["total_s"] * 1e3 - sum(admit)
+            print(f"[{card}] cb {label}, image {image}: prefix "
+                  f"{prefix:.1f} ms (towers {towers:.1f} + prefill "
+                  f"{prefix - towers:.1f}); admission "
+                  f"{' + '.join(f'{a:.1f}' for a in admit)} ms; decode "
+                  f"{decode:.1f} ms over {n_steps} steps = "
+                  f"{decode / max(n_steps, 1):.2f} ms a step; tokens "
+                  f"{[len(r) for r in rows]}")
+            image, admit = image + 1, []
+    ttft = [p["ttft_s"] * 1e3 for p in per]
+    tpot = [p["tpot_ms"] for p in per if p["tokens"] > 1] or [0.0]
+    print(f"[{card}] cb {label}: wall {wall_ms:.1f} ms for {len(ids)} "
+          f"items (warmup {warm:.1f} ms of it); TTFT p50 "
+          f"{pct(ttft, 0.5):.1f} p90 {pct(ttft, 0.9):.1f} ms, TPOT p50 "
+          f"{pct(tpot, 0.5):.2f} p90 {pct(tpot, 0.9):.2f} ms; ids digest "
+          f"{ids_digest(ids)}")
+    return ids
+
+
+def cb_logit_gap(model, item, ids: list, at: int):
+    """The kernel path's top-2 logit gap where id ``at`` of a request was
+    chosen, and the max |kernel - plain| of those logits: a prefill of
+    [BOS | image | prompt + ids[:at]] through each path on the same image
+    tokens (the position a decode step or a verify window chose it at)."""
+    from a3vlm_tpu_torch.models import llama
+
+    tok = model.tokenizer
+    toks = tok.encode(item["prompt"], bos=True, eos=False) + list(ids[:at])
+    with torch.inference_mode():
+        image = torch.tensor(item["image"][None], device=model.device).to(
+            model.params["start_img"].dtype)
+        img = model.encode_images(image)
+        logits = {}
+        for impl in ("auto", "plain"):
+            cache = llama.KVCache.create(model.args, 1,
+                                         len(toks) + img.shape[1],
+                                         dtype=img.dtype, device=model.device)
+            logits[impl] = llama.prefill(
+                model.params["llama"], model.args, cache,
+                torch.tensor([toks], device=model.device), img,
+                impl)[0][0, :model.true_vocab]
+            del cache
+    top = logits["auto"].topk(2).values
+    return (float(top[0] - top[1]),
+            float((logits["auto"] - logits["plain"]).abs().max()))
+
+
+def hold_speculative(card: str, label: str, ids: list, ref: list, ref_label,
+                     model, ds) -> None:
+    """Prints how many requests' ids differ from the reference run's and,
+    at the first differing id, the kernel path's top-2 logit gap beside
+    its kernel-vs-plain logit error there; a gap above that error fails
+    (the two runs then chose differently where the logits are clear)."""
+    rows = [i for i, (a, b) in enumerate(zip(ids, ref)) if a != b]
+    line = (f"[{card}] cb {label}: {len(rows)} of {len(ids)} requests' ids "
+            f"differ from ({ref_label})'s")
+    if rows:
+        row = rows[0]
+        at = first_difference(ids[row], ref[row])
+        gap, err = cb_logit_gap(model, ds[row], ref[row], at)
+        line += (f"; first at request {row} id {at}: top-2 logit gap "
+                 f"{gap:.4f}, kernel vs plain max |logit diff| {err:.4f}")
+        if gap > err:
+            raise AssertionError(line + ": the gap exceeds the error")
+    print(line)
+
+
+def run_cb_path(card: str, model, lockstep: dict) -> dict:
+    """Phase 9: continuous batching on phase 4's model. Returns the kernels'
+    launch counts over runs (a)-(f)."""
+    import tempfile
+    from pathlib import Path
+
+    from a3vlm_tpu_torch.codecs.triad import (parse_rotated_box,
+                                              parse_tagged_answer)
+    from a3vlm_tpu_torch.constrained import fsm_for_task
+    from a3vlm_tpu_torch.data.conversation import conv_templates
+    from a3vlm_tpu_torch.eval_affordance import (VQADataset, _question_of,
+                                                 run_eval_continuous)
+    from a3vlm_tpu_torch.models import llama
+
+    tok, args = model.tokenizer, model.args
+    per_row = args.n_layers * 2 * args.kv_heads * args.head_dim * 2
+    pool = 4 * (args.max_seq_len + 9) * per_row
+    print(f"[{card}] cb: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated before phase 9; a pool of 4 x ({args.max_seq_len} + "
+          f"9) rows takes {pool / 2**30:.2f} GiB (bf16, draft_k 8), a "
+          f"[BOS | image words] prefix "
+          f"{(1 + model.cfg.image_words) * per_row / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    totals = {n: 0 for n in KERNELS}
+    sep = conv_templates["v1"]().response_end_signal
+    keys = {"answer", "format_answer", "annotation", "question", "image",
+            "fail"}
+    real = serving_batch.ContinuousBatcher
+    serving_batch.ContinuousBatcher = _TimedBatcher
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            task = write_eval_tasks(Path(tmp), card)
+            ds = VQADataset(task, input_size=model.cfg.image_size)
+            fsm = fsm_for_task(Path(task).stem, tok)
+            runs = {}
+            # label: (run_eval_continuous options, int8 cache, steps a
+            # dispatch, the kernels it must launch beside CB_KERNELS)
+            for label, kw, kv8, spd, need in (
+                    ("a", dict(max_gen_len=32), False, 1,
+                     ("decode_attention",)),
+                    ("b", dict(max_gen_len=64, fsm=fsm), False, 1,
+                     ("decode_attention",)),
+                    ("c", dict(max_gen_len=32, draft_k=8), False, 1,
+                     ("verify_attention",)),
+                    ("d", dict(max_gen_len=32), True, 1,
+                     ("decode_attention_q8_fused",)),
+                    ("d8", dict(max_gen_len=32, draft_k=8), True, 1,
+                     ("verify_attention_q8",)),
+                    ("e", dict(max_gen_len=32), False, 8,
+                     ("decode_attention",))):
+                model.kv_cache_bits = 8 if kv8 else None
+                _TimedBatcher.spd = spd
+                _TimedBatcher.log = []
+                reset_launches()
+                synchronize(model.device)
+                t0 = time.perf_counter()
+                records = run_eval_continuous(model, ds, batch_size=4,
+                                              temperature=0.0, **kw)
+                synchronize(model.device)
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = {n: KERNELS[n][2].launches for n in KERNELS}
+                for n, c in launches.items():
+                    totals[n] += c
+                require_counts(launches, CB_KERNELS + need, f"cb ({label})")
+                name = {"a": "(a) greedy", "b": "(b) grammar",
+                        "c": "(c) draft_k 8", "d": "(d) int8 cache",
+                        "d8": "(d) int8 cache, draft_k 8",
+                        "e": "(e) steps_per_dispatch 8"}[label]
+                ids = cb_report(card, name, _TimedBatcher.log, wall)
+                print(f"[{card}] cb {name}: launches "
+                      f"{ {n: c for n, c in launches.items() if c} }")
+                if [(r["image"], r["question"]) for r in records] != [
+                        (d["image"], _question_of(d)) for d in ds.data] or \
+                        any(set(r) != keys for r in records):
+                    raise AssertionError(f"cb {name}: records out of order "
+                                         "or schema")
+                runs[label] = (records, ids, wall)
+            model.kv_cache_bits = None
+
+            # exact agreement where the same kernels see the same operands
+            if runs["e"][1] != runs["a"][1]:
+                raise AssertionError("cb (e): ids differ from (a)'s")
+            print(f"[{card}] cb (e) steps_per_dispatch 8: ids equal (a)'s")
+            hold_speculative(card, "(c) draft_k 8", runs["c"][1],
+                             runs["a"][1], "a", model, ds)
+            hold_speculative(card, "(d) int8 cache, draft_k 8",
+                             runs["d8"][1], runs["d"][1], "d int8 cache",
+                             model, ds)
+            differ = sum(a != b for a, b in zip(runs["d"][1], runs["a"][1]))
+            print(f"[{card}] cb (d) int8 cache: {differ} of 8 requests' ids "
+                  "differ from (a)'s (the cache's quantization)")
+
+            # the grammar run: every answer a complete joint triad
+            for rec, raw_ids in zip(*runs["b"][:2]):
+                if tok.eos_id in raw_ids:
+                    raw_ids = raw_ids[: raw_ids.index(tok.eos_id)]
+                raw = tok.decode(raw_ids)
+                tag, _, rest = parse_tagged_answer(raw)
+                box = parse_rotated_box(rest)
+                if (not EVAL_ANSWER.fullmatch(raw) or tag != "rb"
+                        or box is None or len(box) != 5
+                        or len(rec["format_answer"]) != 5):
+                    raise AssertionError(f"cb grammar: answer {raw!r} does "
+                                         "not parse as a joint triad")
+            print(f"[{card}] cb (b) grammar: 8 of 8 answers parse as joint "
+                  "triads")
+            for label, ref in (("a", "unconstrained"), ("b", "grammar")):
+                same = sum(x["answer"] == y["answer"] for x, y in
+                           zip(runs[label][0], lockstep[ref][1]))
+                print(f"[{card}] cb ({label}) against phase 8's {ref} "
+                      f"run_eval on the same 8 items: wall "
+                      f"{runs[label][2]:.1f} ms against "
+                      f"{lockstep[ref][0]:.1f} ms; {same} of 8 answers "
+                      "equal")
+
+            # (f) an online session of image 0's four requests, two of them
+            # submitted three rounds late, against generate on one pool
+            items = [ds[i] for i in range(4)]
+            prompts = [it["prompt"] for it in items]
+            _TimedBatcher.spd = 1
+            _TimedBatcher.log = []
+            reset_launches()
+            cb = _TimedBatcher(model._decoder_params(), args, tok, slots=4,
+                               ens5_params=model.params, ens5_cfg=model.cfg,
+                               vocab_limit=model.true_vocab,
+                               device=model.device)
+            prefix = cb.make_prefix(image=items[0]["image"])
+            texts = cb.generate(prompts, max_gen_len=32,
+                                prefixes=[prefix] * 4,
+                                additional_stop_symbols=[sep])
+            want = _TimedBatcher.log[-1][1]
+            sess = cb.online(additional_stop_symbols=[sep])
+            rids = [sess.submit(p, max_gen_len=32, prefix=prefix)
+                    for p in prompts[:2]]
+            for _ in range(3):
+                sess.step()
+            rids += [sess.submit(p, max_gen_len=32, prefix=prefix)
+                     for p in prompts[2:]]
+            sess.drain()
+            got = [sess.poll(r) for r in rids]
+            launches = {n: KERNELS[n][2].launches for n in KERNELS}
+            for n, c in launches.items():
+                totals[n] += c
+            require_counts(launches, CB_KERNELS + ("decode_attention",),
+                           "cb (f)")
+            if [g["tokens"] for g in got] != want or [
+                    g["text"] for g in got] != texts:
+                raise AssertionError("cb (f): the online session's ids "
+                                     "differ from generate's")
+            st = sess.stats()
+            print(f"[{card}] cb (f) online session, 2 + 2 staggered "
+                  f"submits: ids equal generate's; TTFT from submit p50 "
+                  f"{st['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+                  f"{st['tpot_p50_ms']:.2f} ms")
+
+            # where an admission's time goes: one group of the four
+            # questions against the prefix, by kernel (after the counts)
+            @torch.inference_mode()
+            def admit():
+                cb._admit_many([
+                    (s, s, tok.encode(p, bos=True, eos=False), None, prefix)
+                    for s, p in enumerate(prompts)])
+                cb._active = [None] * 4
+
+            admit()
+            _, wall = cb._timed(admit)
+            times = kernel_times(admit, 1)
+            print_profile(card, f"cb one admission of 4 questions against "
+                          f"the prefix (wall {wall:.1f} ms)", times, {
+                              "int4 tile (K1)": ("int4_mma_kernel",),
+                              "GEMV": GEMV_KERNELS,
+                              "flash attention (K2)": ("flash_fwd",),
+                              "copies and fills": ("copy", "ndex", "Fill")})
+            del cb, prefix, sess
+    finally:
+        serving_batch.ContinuousBatcher = real
+        model.kv_cache_bits = None
+    print(f"[{card}] cb: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the ragged step with every row at one position is decode_step, bit
+    # for bit (kernel path, full width)
+    device = model.device
+    gen = torch.Generator(device=device).manual_seed(9)
+    params = model.params["llama"]
+    with torch.inference_mode():
+        toks = torch.randint(3, model.true_vocab, (4, 40), generator=gen,
+                             device=device)
+        cache = llama.KVCache.create(args, 4, 48,
+                                     dtype=params["norm"]["weight"].dtype,
+                                     device=device)
+        logits, cache, _ = llama.prefill(params, args, cache, toks)
+        nxt = logits.argmax(-1, keepdim=True)
+        other = clone_cache(cache)
+        want, cache = llama.decode_step(params, args, cache, nxt, 40)
+        got, other = llama.decode_step_ragged(
+            params, args, other, nxt,
+            torch.full((4,), 40, dtype=torch.int32, device=device))
+    if not torch.equal(got, want) or not all(
+            torch.equal(a, b) for a, b in zip((*cache.k, *cache.v),
+                                              (*other.k, *other.v))):
+        raise AssertionError("cb: decode_step_ragged at one position differs "
+                             "from decode_step")
+    print(f"[{card}] cb: decode_step_ragged with every row at one position "
+          "equals decode_step bit for bit (logits and cache)")
+    del cache, other
+    gc.collect()
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -2496,6 +2929,7 @@ def main(argv=None) -> int:
         check_quantizer(results)
         check_glu(gen, results)
         check_flash(gen, results)
+        check_flash_extension(gen, results)
         check_flash_bwd(gen, results)
         check_decode(gen, results)
         check_latency_kernels(gen, results)
@@ -2539,17 +2973,19 @@ def main(argv=None) -> int:
     if opts.kernels_only:
         return 0
 
-    # 4. serving path, 8. the eval path, 6. latency path and 7. the
-    # quantized modes over the int4 decoder (on phase 4's weights, which
-    # phase 5 recasts), 5. training path, then 7. mode (h) on an int8 model
-    # of its own
+    # 4. serving path, 8. the eval path, 9. continuous batching, 6.
+    # latency path and 7. the quantized modes over the int4 decoder (on
+    # phase 4's weights, which phase 5 recasts), 5. training path, then 7.
+    # mode (h) on an int8 model of its own
     if hasattr(qmm, "reset_fallbacks"):
         qmm.reset_fallbacks()
     model, serve = run_main_path(card)
     require_no_fallback(card, "serving")
-    evals = run_eval_path(card, model)
+    evals, lockstep = run_eval_path(card, model)
     print(f"[{card}] launches in the eval path: "
           f"{ {n: evals[n] for n in EVAL_KERNELS} }")
+    cb = run_cb_path(card, model, lockstep)
+    require_no_fallback(card, "continuous batching")
     latency = run_latency_path(card, model)
     require_no_fallback(card, "latency")
     quant = run_quant_modes(card, model)
@@ -2568,6 +3004,7 @@ def main(argv=None) -> int:
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in results if r["name"] == name]
         by_path = {"serve": serve.get(name, 0),
+                   "cb": cb.get(name, 0),
                    "latency": latency.get(name, 0),
                    "train": train.get(name, 0),
                    "quant": quant.get(name, 0)}

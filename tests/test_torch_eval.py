@@ -276,7 +276,6 @@ def test_main_modes_on_the_cpu(tiny_towers, ckpt, tasks, tmp_path, extra,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--continuous_batching"], "item 10"),
     (["--adapter_path", "x"], "item 16"),
     (["--model_parallel_size", "2"], "item 17"),
     (["--llama_type", "falcon"], "item 15"),
@@ -286,8 +285,6 @@ def test_unported_flags_name_their_item(tmp_path, extra, item):
             "--device", "cpu"] + extra
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         teval.main(argv)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        teval.run_eval_continuous(None, None)
 
 
 def test_scoring_apis_match_jax(models):

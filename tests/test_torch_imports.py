@@ -44,6 +44,7 @@ def test_port_entry_points_load_neither_package():
             "a3vlm_tpu_torch.tools.score_results, "
             "a3vlm_tpu_torch.checkpoint.ens5_import, "
             "a3vlm_tpu_torch.lookup_decode, a3vlm_tpu_torch.constrained, "
+            "a3vlm_tpu_torch.serving_batch, "
             "a3vlm_tpu_torch.tokenizer, a3vlm_tpu_torch.data.dialog, "
             "a3vlm_tpu_torch.data.alpaca, a3vlm_tpu_torch.data.loader; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
