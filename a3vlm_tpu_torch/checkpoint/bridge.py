@@ -44,23 +44,29 @@ def _tensor(x, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def _convert(x, key, device, dtype):
+def _convert(x, key, leaf):
+    """``x`` in the port's layout, each tensor made by ``leaf(x, dtype)``
+    (``dtype`` the one a float leaf of this place takes); a stacked
+    ``"layers"`` subtree becomes a per-layer list, ``None`` if it holds no
+    tensor at all (every leaf a hole). ``None`` holes stay."""
     if x is None:
         return None
     if isinstance(x, dict):
-        return {k: _convert_child(k, v, device, dtype) for k, v in x.items()}
+        out = {k: _convert(v, k, leaf) for k, v in x.items()}
+        if isinstance(x.get("layers"), dict):
+            out["layers"] = _unstack_or_none(out["layers"])
+        return out
     if isinstance(x, (list, tuple)):
-        return [_convert(v, None, device, dtype) for v in x]
+        return [_convert(v, None, leaf) for v in x]
     if _is_quantized(x):
-        q, scale = np.asarray(x.q), np.asarray(x.scale)
+        q, scale = x.q, x.scale
         if getattr(x, "k_chunks", 1) != 1:
-            q, scale = repack_chunked_int4(q, scale)
+            q, scale = repack_chunked_int4(np.asarray(q), np.asarray(scale))
         return QuantizedWeight(
-            _tensor(q, device, torch.int8),
-            _tensor(scale, device, torch.float32),
+            leaf(q, torch.int8), leaf(scale, torch.float32),
             bits=int(x.bits), group=int(x.group), in_dim=int(x.in_dim),
         )
-    t = _tensor(x, device, dtype)
+    t = leaf(x, None)
     if key == "kernel" and t.dim() == 4:
         t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
     return t
@@ -83,13 +89,6 @@ def repack_chunked_int4(q: np.ndarray, scale: np.ndarray):
     return packed.astype(np.int8), scale.reshape(*lead, -1, N)
 
 
-def _convert_child(key, value, device, dtype):
-    out = _convert(value, key, device, dtype)
-    if key == "layers" and isinstance(value, dict):
-        return unstack_layers(out)
-    return out
-
-
 def unstack_layers(stacked: dict) -> list:
     """Per-layer list of a tree stacked on axis 0 (llama.py:225)."""
     leaves = []
@@ -103,6 +102,12 @@ def unstack_layers(stacked: dict) -> list:
     ]
 
 
+def _unstack_or_none(stacked: dict):
+    leaves = []
+    tree_map(leaves.append, stacked)
+    return unstack_layers(stacked) if leaves else None
+
+
 def params_from_numpy(tree: dict[str, Any],
                       device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.float32) -> dict[str, Any]:
@@ -110,47 +115,85 @@ def params_from_numpy(tree: dict[str, Any],
     slice: the llama decoder alone or the whole llama_ens5 tree, with or
     without a ``"lora"`` adapter tree, whose stacked ``layers`` become
     per-layer lists like the decoder's)."""
-    return {k: _convert_child(k, v, device, dtype) for k, v in tree.items()}
+    return _convert(tree, None,
+                    lambda x, dt: _tensor(x, device, dt or dtype))
 
 
-def _to_numpy(x, key, stack: bool = False):
-    """``stack``: turn a ``"layers"`` list in this subtree into arrays
-    stacked on axis 0."""
+def _hwio(t: torch.Tensor, key) -> torch.Tensor:
+    t = t.detach()
+    if key == "kernel" and t.dim() == 4:
+        t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    return t
+
+
+def _host_leaf(t: torch.Tensor, numpy: bool):
+    """A copy of ``t`` on the host: numpy with bf16 as float32, or a tensor
+    of ``t``'s dtype."""
+    if numpy and t.dtype == torch.bfloat16:
+        t = t.float()
+    t = t.to("cpu", copy=True)
+    return t.numpy() if numpy else t
+
+
+# The most bytes of one leaf's layers stacked on their device at a time
+# before the copy to the host: few copies for small leaves (an adapter's
+# 40 layers in one), and no second device copy of a large tree.
+STACK_CHUNK_BYTES = 256 << 20
+
+
+def _stack_host(ts: list, key, numpy: bool):
+    """Per-layer trees stacked on a new axis 0 on the host (the inverse of
+    ``unstack_layers``), leaf by leaf, each leaf's layers stacked on their
+    device in chunks of at most ``STACK_CHUNK_BYTES`` (one layer at least)
+    and copied to the host chunk by chunk."""
+    first = ts[0]
+    if isinstance(first, dict):
+        return {k: _stack_host([lp[k] for lp in ts], k, numpy)
+                for k in first}
+    if first is None:
+        return None
+    if isinstance(first, QuantizedWeight):
+        return SimpleNamespace(
+            q=_stack_host([lp.q for lp in ts], None, numpy),
+            scale=_stack_host([lp.scale for lp in ts], None, numpy),
+            bits=first.bits, group=first.group, in_dim=first.in_dim)
+    first = _hwio(first, key)
+    dtype = torch.float32 if numpy and first.dtype == torch.bfloat16 \
+        else first.dtype
+    out = torch.empty((len(ts), *first.shape), dtype=dtype)
+    step = max(1, STACK_CHUNK_BYTES
+               // max(1, first.numel() * first.element_size()))
+    for i in range(0, len(ts), step):
+        out[i:i + step].copy_(torch.stack(
+            [_hwio(t, key) for t in ts[i:i + step]]))
+    return out.numpy() if numpy else out
+
+
+def _to_host(x, key, stack: bool, numpy: bool):
+    """``x`` in the JAX package's layout on the host: conv kernels HWIO,
+    int4 and int8 weights as ``SimpleNamespace``; ``stack``: a
+    ``"layers"`` list in this subtree stacked on axis 0. ``None`` holes
+    stay."""
     if x is None:
         return None
     if isinstance(x, dict):
-        out = {k: _to_numpy(v, k, stack) for k, v in x.items()}
-        if stack and isinstance(x.get("layers"), list):
-            out["layers"] = stack_layers(out["layers"])
-        return out
+        return {k: _stack_host(v, None, numpy)
+                if stack and k == "layers" and isinstance(v, list)
+                else _to_host(v, k, stack, numpy) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return [_to_numpy(v, None, stack) for v in x]
+        return [_to_host(v, None, stack, numpy) for v in x]
     if isinstance(x, QuantizedWeight):
-        return SimpleNamespace(q=_to_numpy(x.q, None),
-                               scale=_to_numpy(x.scale, None), bits=x.bits,
+        return SimpleNamespace(q=_host_leaf(x.q, numpy),
+                               scale=_host_leaf(x.scale, numpy), bits=x.bits,
                                group=x.group, in_dim=x.in_dim)
-    t = x.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    if key == "kernel" and t.dim() == 4:
-        t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
-    return t.numpy().copy()
+    return _host_leaf(_hwio(x, key), numpy)
 
 
-def stack_layers(layers: list) -> Any:
-    """A list of per-layer numpy trees stacked on a new axis 0 (the inverse
-    of ``unstack_layers``)."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
-    if first is None:
-        return None
-    if isinstance(first, SimpleNamespace):
-        return SimpleNamespace(
-            q=np.stack([lp.q for lp in layers]),
-            scale=np.stack([lp.scale for lp in layers]), bits=first.bits,
-            group=first.group, in_dim=first.in_dim)
-    return np.stack(layers)
+def _host_tree(tree: dict[str, Any], numpy: bool) -> dict[str, Any]:
+    return {k: _stack_host(v, None, numpy)
+            if k == "layers" and isinstance(v, list)
+            else _to_host(v, k, k in ("llama", "lora"), numpy)
+            for k, v in tree.items()}
 
 
 def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
@@ -162,12 +205,25 @@ def params_to_numpy(tree: dict[str, Any]) -> dict[str, Any]:
     ``params_from_numpy`` reads back). Other lists of layers (the
     Q-Former's, which are not alike) stay lists, as in the JAX tree. For
     comparing gradients and parameters with the JAX package leaf by
-    leaf."""
-    out = {k: _to_numpy(v, k, stack=k in ("llama", "lora"))
-           for k, v in tree.items()}
-    if isinstance(tree.get("layers"), list):
-        out["layers"] = stack_layers(out["layers"])
-    return out
+    leaf, and for the export tools."""
+    return _host_tree(tree, numpy=True)
+
+
+def params_to_host(tree: dict[str, Any]) -> dict[str, Any]:
+    """``params_to_numpy``'s layout as tensors on the host, each dtype kept
+    (bf16 stays bf16) and each leaf a copy: the checkpoint's form. The
+    copies are synchronous, so they hold the values of the moment of the
+    call. ``None`` holes stay ``None``."""
+    return _host_tree(tree, numpy=False)
+
+
+def params_from_host(tree: dict[str, Any],
+                     device: torch.device | str = "cuda") -> dict[str, Any]:
+    """The inverse of ``params_to_host``: the port's layout on ``device``,
+    each dtype kept. A stacked ``layers`` subtree becomes a per-layer list
+    of views into one tensor a leaf; one with no tensor at all (every leaf
+    a hole) becomes ``None``."""
+    return _convert(tree, None, lambda t, dt: t.to(device))
 
 
 def kv_cache_from_numpy(k_layers, v_layers,

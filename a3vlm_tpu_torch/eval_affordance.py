@@ -309,7 +309,10 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "eval_affordance_with_quant.py:327-342 path)")
     parser.add_argument("--quant_bits", type=int, default=4, choices=[4, 8])
     parser.add_argument("--adapter_path", default=None,
-                        help="not ported yet (ROADMAP Queue 1 item 16)")
+                        help="a trainable-only train checkpoint of the "
+                        "port (main_finetune --only_save_trainable): its "
+                        "dense trainables overlay the model and its LoRA "
+                        "adapters are served unmerged")
     parser.add_argument("--w4a8", action="store_true",
                         help="int8-activation decode matmuls on the int4 "
                         "base (ops/quant_matmul.W4A8_DECODE). NOT "
@@ -368,8 +371,6 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (bool(args.adapter_path), "--adapter_path",
-         "Queue 1 item 16 (the checkpoint manager)"),
         (args.model_parallel_size > 1, "--model_parallel_size > 1",
          "Queue 1 item 17 (several devices)"),
         (args.llama_type != "llama_ens5", f"llama_type {args.llama_type}",
@@ -453,6 +454,9 @@ def main(argv=None, tokenizer=None):
             bits=args.quant_bits if args.quant else None,
             tower_bits=args.tower_bits,
         )
+    if args.adapter_path:
+        # after quantize(), which drops attached adapters
+        model.load_adapter_checkpoint(args.adapter_path)
     if args.kv_cache_bits:
         model.kv_cache_bits = args.kv_cache_bits
 

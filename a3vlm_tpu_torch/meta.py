@@ -240,29 +240,38 @@ class MetaModel:
         ``params_from_numpy``). Adapters wider than the base (trained
         against a padded base) are sliced to fit. Call after
         ``quantize()``, which drops them."""
-        from a3vlm_tpu_torch.train.lora import _weight_geometry
+        from a3vlm_tpu_torch.train.lora import fit_lora_to
 
-        decoder = self.params["llama"]
-        fitted = []
-        for lp, ab_layer in zip(decoder["layers"], lora_tree["layers"]):
-            layer = {}
-            for group, items in ab_layer.items():
-                for name, ab in items.items():
-                    in_dim, out_dim = _weight_geometry(
-                        lp[group][name]["weight"])
-                    layer.setdefault(group, {})[name] = {
-                        "a": ab["a"][:in_dim, :], "b": ab["b"][:, :out_dim]}
-            fitted.append(layer)
-        self._loras.append({"layers": fitted})
+        fitted = fit_lora_to(self.params["llama"], lora_tree)
+        self._loras.append(fitted)
         self._generator = None
 
     def load_adapter_checkpoint(self, ckpt_dir: str,
                                 merge: bool = False) -> None:
-        """(meta.py:381) reads a trainable-only train checkpoint, which the
-        port cannot write or read yet."""
-        raise NotImplementedError(
-            "load_adapter_checkpoint is not ported yet (ROADMAP Queue 1 "
-            "item 16: the checkpoint manager)")
+        """Consume a trainable-only train checkpoint of the port
+        (``--only_save_trainable`` from a ``--lora_rank`` / ``--quant``
+        run; meta.py:381): the dense trainables it holds (norms, biases,
+        projectors, image tags) replace the current leaves of the same
+        path and shape, in the current leaf's dtype and device, and the
+        adapters are served unmerged (``load_lora``) or, with
+        ``merge=True``, folded into the dense decoder weights
+        (``merge_lora``; a packed base refuses)."""
+        from a3vlm_tpu_torch.checkpoint.bridge import params_from_host
+        from a3vlm_tpu_torch.checkpoint.manager import restore_raw_checkpoint
+        from a3vlm_tpu_torch.train.lora import fit_lora_to, merge_lora
+
+        raw = params_from_host(restore_raw_checkpoint(ckpt_dir),
+                               device=self.device)
+        lora_tree = raw.pop("lora", None)
+        self.params = _overlay(self.params, raw)
+        if lora_tree is not None:
+            if merge:
+                decoder = self.params["llama"]
+                self.params = {**self.params, "llama": merge_lora(
+                    decoder, fit_lora_to(decoder, lora_tree))}
+            else:
+                self.load_lora(lora_tree)
+        self._generator = None
 
     # -- API ----------------------------------------------------------------
 
@@ -533,6 +542,22 @@ class MetaModel:
                 bool((item_logits.argmax(-1) == labels).all()))
             result["non_context_logits"].append(item_logits)
         return result
+
+
+def _overlay(base, new):
+    """``new``'s leaves over ``base`` where path and shape agree, cast to
+    the base leaf's dtype; everything else keeps the base (meta.py:394)."""
+    if new is None:
+        return base
+    if isinstance(base, dict) and isinstance(new, dict):
+        return {k: _overlay(v, new[k]) if k in new else v
+                for k, v in base.items()}
+    if isinstance(base, list) and isinstance(new, list):
+        return [_overlay(b, n) for b, n in zip(base, new)] + base[len(new):]
+    if (isinstance(base, torch.Tensor) and isinstance(new, torch.Tensor)
+            and base.shape == new.shape):
+        return new.to(base.dtype)
+    return base
 
 
 def _import_ens5_extras(sd) -> dict:

@@ -4,7 +4,8 @@
 The adapters are a tree of their own, ``{"layers": [per-layer {group:
 {name: {"a": [in, r], "b": [r, out]}}}]}``, the decode layout of the
 JAX package's stacked ``[L, in, r]`` / ``[L, r, out]`` tree; ``attach_lora``
-wraps each targeted base weight in a ``LoraWeight`` for the forward."""
+wraps each targeted base weight in a ``LoraWeight`` for the forward, and
+``merge_lora`` folds ``W + A @ B`` into dense base weights."""
 
 from __future__ import annotations
 
@@ -71,6 +72,49 @@ def attach_lora_into_model(params: dict, lora: dict,
                            llama_key: str = "llama") -> dict:
     """For wrapped models (ens5): attach into the decoder subtree."""
     return {**params, llama_key: attach_lora(params[llama_key], lora)}
+
+
+def fit_lora_to(decoder_params: dict, lora_tree: dict) -> dict:
+    """Adapters sliced to the geometry of the given decoder's weights
+    (lora.py:99): adapters trained against a padded base may carry rows
+    or columns a dense serving base lacks."""
+    layers = []
+    for lp, ab_layer in zip(decoder_params["layers"], lora_tree["layers"]):
+        layer: dict = {}
+        for group, items in ab_layer.items():
+            for name, ab in items.items():
+                in_dim, out_dim = _weight_geometry(lp[group][name]["weight"])
+                layer.setdefault(group, {})[name] = {
+                    "a": ab["a"][:in_dim, :], "b": ab["b"][:, :out_dim]}
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def merge_lora(llama_params: dict, lora: dict) -> dict:
+    """A new decoder tree whose targeted weights are ``W + A @ B``, the
+    product and the sum in the weight's dtype (lora.py:149); the input
+    tree is unchanged. A packed base cannot take the sum."""
+    layers = []
+    for lp, ab_layer in zip(llama_params["layers"], lora["layers"]):
+        lp = dict(lp)
+        for group, items in ab_layer.items():
+            lp[group] = dict(lp[group])
+            for name, ab in items.items():
+                w = lp[group][name]["weight"]
+                if isinstance(w, QuantizedWeight):
+                    raise ValueError("merge_lora needs a dense base: serve "
+                                     "adapters on a packed base unmerged "
+                                     "(MetaModel.load_lora)")
+                delta = ab["a"].to(w.dtype) @ ab["b"].to(w.dtype)
+                lp[group][name] = {"weight": w + delta}
+        layers.append(lp)
+    return {**llama_params, "layers": layers}
+
+
+def merge_lora_into_model(params: dict, lora: dict,
+                          llama_key: str = "llama") -> dict:
+    """For wrapped models (ens5): merge into the decoder subtree."""
+    return {**params, llama_key: merge_lora(params[llama_key], lora)}
 
 
 def lora_base_trainable_mask(decoder_params: dict) -> dict:

@@ -90,15 +90,21 @@ class AdamWState:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(...,
-    mask=ndim > 1))`` (step.py:88), updating parameters in place."""
+    mask=ndim > 1))`` (step.py:88), updating parameters in place. With
+    ``update_scales`` (a tree of the parameters' structure, e.g.
+    ``param_groups.layerwise_scale_tree``) each leaf's update is
+    multiplied by its scale before the step: the chain's third member
+    ``param_groups.scale_updates_by(scales)`` in the JAX package."""
 
     def __init__(self, learning_rate: Union[float, Schedule], *,
                  max_grad_norm: float = 8.0, weight_decay: float = 0.0,
-                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                 update_scales: Optional[Any] = None):
         self.learning_rate = learning_rate
         self.max_grad_norm = max_grad_norm
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.update_scales = update_scales
 
     def lr_at(self, count: int) -> float:
         lr = self.learning_rate
@@ -122,15 +128,22 @@ class AdamW:
         bc1 = 1 - torch.tensor(self.b1, **f32) ** count
         bc2 = 1 - torch.tensor(self.b2, **f32) ** count
         step_size = torch.tensor(-self.lr_at(state.count), **f32)
-        for g, p, mu, nu in zip(g_leaves, tree_leaves(params),
-                                tree_leaves(state.mu), tree_leaves(state.nu)):
+        scales = ([None] * len(g_leaves) if self.update_scales is None
+                  else tree_leaves(tree_map(lambda _, s: s, params,
+                                            self.update_scales)))
+        for g, p, mu, nu, s in zip(g_leaves, tree_leaves(params),
+                                   tree_leaves(state.mu),
+                                   tree_leaves(state.nu), scales):
             g = torch.where(clip, g / g_norm * self.max_grad_norm, g)
             mu.mul_(self.b1).add_(g * (1 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1 - self.b2))
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if p.dim() > 1:
                 u = u + self.weight_decay * p
-            p.add_(step_size * u)
+            u = step_size * u
+            if s is not None:
+                u = u * s.to(u.device)
+            p.add_(u)
         return AdamWState(count, state.mu, state.nu), g_norm
 
 

@@ -1,7 +1,7 @@
 """Metric logging for training (counterpart of the part of
 a3vlm_tpu/utils/logging.py that the epoch loop and the CLI use):
 windowed meters, a printing iterator with iteration/data times and the
-device's peak memory, and per-epoch JSON lines."""
+device's peak memory, per-epoch JSON lines, and the TensorBoard facade."""
 
 from __future__ import annotations
 
@@ -118,3 +118,23 @@ class JsonlLogger:
     def write(self, record: dict) -> None:
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+class TensorBoardLogger:
+    """SummaryWriter facade; no-op if tensorboard is unavailable."""
+
+    def __init__(self, log_dir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._writer = SummaryWriter(log_dir=log_dir)
+        except Exception:
+            self._writer = None
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        if self._writer is not None:
+            self._writer.add_scalar(tag, value, step)
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()

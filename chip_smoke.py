@@ -133,6 +133,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms a step, TTFT and TPOT p50 and p90, and each run's wall time beside
    phase 8's ``run_eval`` on the same items.
 
+10. the fine-tuning loop (right after phase 5, on its model and trained
+   state): (a) ``CheckpointManager.save`` of the trainables and both
+   moments with ``wait=False``, two train steps while the files are
+   written, ``wait_until_finished`` (``_DONE``, ``find_latest_checkpoint``
+   names it); a restore into a fresh ``TrainState`` (``restore_params``
+   over the live base, ``restore_train_state``) equal to what was saved
+   leaf for leaf, step 4; the same two steps from there must equal the
+   uninterrupted ones within the kernels' spread, measured by running them
+   twice from one state. Prints the checkpoint's size, the save's blocking
+   ms (the host copy), the write's seconds, the restore's seconds and peak
+   memory. (b) the final state saved and served on the int4 model:
+   ``load_adapter_checkpoint`` + ``generate_tokens`` on phase 4's requests
+   gives the ids of ``load_lora`` of the state in memory; K1, K2, K3 and
+   K10 launch, no fallback. (c) ``main_finetune.main`` at full width on a
+   2-layer consolidated checkpoint as phase 8 writes it (8 dialog items
+   over the task file's 2 images, batch 2, ``--quant --lora_rank 16
+   --only_save_trainable --checkpointing --epochs 2
+   --save_iteration_interval 2 --cache_tower_features``, a constant
+   learning rate) writes ``epoch_0-iter_2``, ``epoch_0``,
+   ``epoch_1-iter_2`` and ``epoch_1``; without the epoch-1 directories,
+   ``--resume auto`` goes on from ``epoch_0`` and gives epoch 1's log and
+   checkpoint as before, the towers replayed from the disk cache (no K10
+   launch); one epoch uncached gives epoch 0's log, K10 as often; then
+   ``eval_affordance.main --quant --adapter_path .../epoch_1`` over the
+   task file (records in order and in the schema). (d) the dense 2-layer
+   model with the adapters merged (``load_adapter_checkpoint(...,
+   merge=True)``) against the same model with them unmerged: prefill
+   logits within ``MERGE_REL_TOL``.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -141,9 +170,9 @@ prints the first differing index with this run's top-2 logit gap there
 and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
-the serving, continuous-batching, latency, training and quantized-mode
-runs,
-``launches_by_path`` splits them; ``bound_ms`` is the larger of the bytes
+the serving, continuous-batching, latency, training, quantized-mode and
+fine-tuning-loop runs, ``launches_by_path`` splits them as ``serve``,
+``cb``, ``latency``, ``train``, ``quant`` and ``ckpt``; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
 PyTorch library call on the same inputs, timed here and used nowhere in
@@ -161,7 +190,9 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -1442,6 +1473,24 @@ def require_launched(names, path: str) -> dict:
     return launches
 
 
+def serving_inputs():
+    """Phase 4's four requests, made from a seed: prompts of 37, 41, 45
+    and 52 ids and 448x448 images (CLIP-normalized, bf16)."""
+    from a3vlm_tpu_torch.models import ens5
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
+    std = torch.tensor(ens5.CLIP_STD, device="cuda")
+    pixels = torch.rand(4, 448, 448, 3, generator=gen, device="cuda")
+    images = ((pixels - mean) / std).to(torch.bfloat16)
+    prompts = [
+        [1] + torch.randint(3, 32000, (n - 1,), generator=gen,
+                            device="cuda").tolist()
+        for n in (37, 41, 45, 52)
+    ]
+    return prompts, images
+
+
 def run_main_path(card: str):
     """Phase 4; returns the model and the serving kernels' launch counts
     from the generate run."""
@@ -1462,17 +1511,8 @@ def run_main_path(card: str):
     print(f"[{card}] model built (random weights, int4 decoder) in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
-    std = torch.tensor(ens5.CLIP_STD, device="cuda")
-    pixels = torch.rand(4, 448, 448, 3, generator=gen, device="cuda")
-    images = ((pixels - mean) / std).to(torch.bfloat16)
-    lengths = (37, 41, 45, 52)
-    prompts = [
-        [1] + torch.randint(3, 32000, (n - 1,), generator=gen,
-                            device="cuda").tolist()
-        for n in lengths
-    ]
+    prompts, images = serving_inputs()
+    lengths = [len(p) for p in prompts]
 
     # warm-up request: library handles, cuDNN plans and the allocator are
     # set up here, so the stage times below are those of a served request
@@ -1591,6 +1631,12 @@ class _PieceTable:
             self.decoded.append(list(ids))
         return "".join(self.pieces[t] for t in ids)
 
+    def save(self, save_dir: str) -> None:
+        """The table as a checkpoint's tokenizer file (the surface
+        ``CheckpointManager.save`` and the merge tool call)."""
+        with open(f"{save_dir}/piece_table.json", "w") as f:
+            json.dump(self.pieces, f)
+
 
 EVAL_QUESTIONS = (
     "Please provide the joint's type and its 2D rotated bounding box linked "
@@ -1644,21 +1690,12 @@ def write_eval_tasks(root, card: str) -> str:
     return str(task)
 
 
-def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
-    """A consolidated checkpoint of a full-width decoder cut to 2 layers
-    (bf16, weights from a seed) written with ``torch.save`` beside its
-    ``meta.json`` and ``config.json``, then loaded as a user loads it:
-    ``MetaModel.from_pretrained(..., device="cuda")`` (the checkpoint holds
-    no towers, so the random towers stay and the random decoder is freed
-    before the loaded one lands), every decoder leaf equal to what was
-    written (linears transposed to [in, out]); then the CLI,
-    ``eval_affordance.main`` with ``--device cuda --quant --score``, on
-    that checkpoint over the task file, its records in order and in the
-    schema. Returns the CLI run's launch counts."""
+def write_decoder_checkpoint(root):
+    """A full-width decoder cut to 2 layers (bf16, weights from a seed) as
+    a consolidated checkpoint under ``root / "ckpt"``, written with
+    ``torch.save`` beside its ``meta.json`` and ``config.json``. Returns
+    the directory and the state dict (on the card)."""
     from a3vlm_tpu_torch.config import ModelArgs
-    from a3vlm_tpu_torch.eval_affordance import _question_of
-    from a3vlm_tpu_torch.eval_affordance import main as eval_main
-    from a3vlm_tpu_torch.meta import MetaModel
 
     args = ModelArgs(n_layers=2, vocab_size=32000)
     D, F_, V = args.dim, args.ffn_hidden_dim, args.vocab_size
@@ -1683,6 +1720,26 @@ def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
         {"dim": D, "multiple_of": args.multiple_of, "n_heads": args.n_heads,
          "n_layers": args.n_layers, "norm_eps": args.norm_eps,
          "vocab_size": -1}))
+    return ckpt, sd
+
+
+def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
+    """A consolidated checkpoint of a full-width decoder cut to 2 layers
+    (bf16, weights from a seed) written with ``torch.save`` beside its
+    ``meta.json`` and ``config.json``, then loaded as a user loads it:
+    ``MetaModel.from_pretrained(..., device="cuda")`` (the checkpoint holds
+    no towers, so the random towers stay and the random decoder is freed
+    before the loaded one lands), every decoder leaf equal to what was
+    written (linears transposed to [in, out]); then the CLI,
+    ``eval_affordance.main`` with ``--device cuda --quant --score``, on
+    that checkpoint over the task file, its records in order and in the
+    schema. Returns the CLI run's launch counts."""
+    from a3vlm_tpu_torch.eval_affordance import _question_of
+    from a3vlm_tpu_torch.eval_affordance import main as eval_main
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    ckpt, sd = write_decoder_checkpoint(root)
+    V = 32000
     t0 = time.perf_counter()
     model = MetaModel.from_pretrained(str(ckpt), with_visual=True,
                                       device="cuda",
@@ -1713,7 +1770,8 @@ def run_checkpoint_path(card: str, root, task: str, ds) -> dict:
         for n in ("attention_norm", "ffn_norm"):
             hold(lp[n]["weight"], f"layers.{i}.{n}.weight", False)
     size = sum(v.numel() * 2 for v in sd.values()) / 2 ** 30
-    print(f"[{card}] from_pretrained (dim {D}, {len(params['layers'])} "
+    print(f"[{card}] from_pretrained (dim {model.args.dim}, "
+          f"{len(params['layers'])} "
           f"layers, vocab {V}, {size:.2f} GiB bf16, random towers): "
           f"{checked} of {len(sd)} decoder leaves on the card equal to what "
           f"was written; load + import + to the card {secs:.1f} s")
@@ -1758,9 +1816,6 @@ def run_eval_path(card: str, model):
     checkpoint of its own. Returns the eval kernels' launch counts of the
     two ``run_eval`` runs and the CLI run, and each run's (wall ms,
     records) by label, which phase 9 is held beside."""
-    import tempfile
-    from pathlib import Path
-
     import numpy as np
 
     from a3vlm_tpu_torch.codecs.triad import (parse_rotated_box,
@@ -2070,9 +2125,6 @@ def hold_speculative(card: str, label: str, ids: list, ref: list, ref_label,
 def run_cb_path(card: str, model, lockstep: dict) -> dict:
     """Phase 9: continuous batching on phase 4's model. Returns the kernels'
     launch counts over runs (a)-(f)."""
-    import tempfile
-    from pathlib import Path
-
     from a3vlm_tpu_torch.codecs.triad import (parse_rotated_box,
                                               parse_tagged_answer)
     from a3vlm_tpu_torch.constrained import fsm_for_task
@@ -2787,9 +2839,11 @@ def run_int8_mode(card: str) -> dict:
     return req.totals
 
 
-def run_training(card: str, model) -> dict:
+def run_training(card: str, model):
     """Phase 5 on phase 4's model; returns the training kernels' launch
-    counts from the 4 train steps."""
+    counts from the 4 train steps and what phase 10 goes on from: the
+    trained state, the step function, the trainable mask and the
+    batch."""
     from a3vlm_tpu_torch.main_finetune import (
         make_loss_fn,
         qlora_trainable_mask,
@@ -2883,7 +2937,345 @@ def run_training(card: str, model) -> dict:
         raise AssertionError(f"training loss kernel vs plain: {lk} vs {lp}")
     if not cos >= TRAIN_GRAD_COS_MIN:
         raise AssertionError(f"gradient cosine {cos} < {TRAIN_GRAD_COS_MIN}")
-    return launches
+    return launches, {"state": state, "step": step, "mask": mask,
+                      "batch": batch}
+
+
+# Phase 10 (d): the prefill logits of the dense 2-layer model with the
+# adapters merged (W + A @ B rounded once to bf16) against the same model
+# with them unmerged (x @ W + (x @ A) @ B): the bound of the kernel-vs-plain
+# prefill, as both paths round to bf16 at as many places.
+MERGE_REL_TOL = LOGITS_REL_TOL
+CKPT_SERVE_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
+                      "vit_attention")
+
+
+def launch_counts() -> dict:
+    return {n: KERNELS[n][2].launches for n in KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    return {n: c - before[n] for n, c in launch_counts().items()}
+
+
+def state_leaves(state, mask) -> list:
+    """The trainable parameters and both moments of a ``TrainState``."""
+    from a3vlm_tpu_torch.train.step import partition_params, tree_leaves
+
+    return (tree_leaves(partition_params(state.params, mask)[0])
+            + tree_leaves(state.opt_state.mu)
+            + tree_leaves(state.opt_state.nu))
+
+
+def max_diff(a: list, b: list) -> float:
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} leaves against {len(b)}")
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def run_ckpt_loop(card: str, model, trained: dict, root) -> None:
+    """Phase 10 (a) and (b) on phase 5's model and trained state."""
+    from a3vlm_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+        find_latest_checkpoint,
+    )
+    from a3vlm_tpu_torch.quant import tree_map
+    from a3vlm_tpu_torch.train.step import TrainState
+
+    state, step, mask, batch = (trained[k] for k in
+                                ("state", "step", "mask", "batch"))
+
+    def two_steps(st):
+        losses = []
+        for _ in range(2):
+            st, metrics = step(st, batch)
+            losses.append(float(metrics["loss"]))
+        return st, losses
+
+    # (a) an asynchronous save, two steps while it is written, a restore
+    # into a fresh TrainState and the same two steps from there
+    out = root / "loop"
+    mgr = CheckpointManager(str(out))
+    saved = [t.clone() for t in state_leaves(state, mask)]
+    count = state.opt_state.count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    path = mgr.save(0, 4, params=state.params, opt_state=state.opt_state,
+                    step=state.step, trainable_mask=mask, wait=False)
+    blocking_ms = (time.perf_counter() - t0) * 1e3
+    state, losses_u = two_steps(state)
+    torch.cuda.synchronize()
+    mgr.wait_until_finished()
+    write_s = mgr.last_write_seconds
+    if not (Path(path) / "_DONE").exists() or \
+            find_latest_checkpoint(str(out)) != path:
+        raise AssertionError(f"async save: {path} not finalized or not "
+                             "found as the latest")
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+
+    def restore():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = mgr.restore_params(path, state.params)
+        extra = mgr.restore_train_state(path, state.opt_state)
+        restored = TrainState(params, extra["opt_state"], extra["step"])
+        torch.cuda.synchronize()
+        return restored, time.perf_counter() - t0
+
+    restored, restore_s = restore()
+    got = state_leaves(restored, mask)
+    if restored.step != 4 or restored.opt_state.count != count or any(
+            a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)
+            for a, b in zip(got, saved)) or len(got) != len(saved):
+        raise AssertionError("restore: a leaf, the step or the count "
+                             "differs from what was saved")
+    print(f"[{card}] ckpt (a): {len(saved)} leaves (trainables and both "
+          f"moments, {nbytes / 2**30:.3f} GiB on disk); save blocking "
+          f"{blocking_ms:.1f} ms (the host copy), write {write_s:.2f} s in "
+          f"the background beside 2 train steps, restore {restore_s:.2f} s; "
+          f"every restored leaf equal to the saved one, step "
+          f"{restored.step}, count {restored.opt_state.count}")
+    del saved, got
+    resumed, losses_r = two_steps(restored)
+    # the training kernels' spread: the same two steps again from a second
+    # restore of the same checkpoint
+    again, losses_a = two_steps(restore()[0])
+    spread = max_diff(state_leaves(resumed, mask), state_leaves(again, mask))
+    loss_spread = max(abs(a - b) for a, b in zip(losses_r, losses_a))
+    diff = max_diff(state_leaves(resumed, mask), state_leaves(state, mask))
+    loss_diff = max(abs(a - b) for a, b in zip(losses_r, losses_u))
+    print(f"[{card}] ckpt (a): losses uninterrupted {losses_u}, resumed "
+          f"{losses_r}, resumed again {losses_a}; max |diff| resumed vs "
+          f"uninterrupted: leaves {diff:.3e}, losses {loss_diff:.3e}; the "
+          f"same two steps twice from one state (the kernels' spread): "
+          f"leaves {spread:.3e}, losses {loss_spread:.3e}")
+    print(f"[{card}] ckpt (a) max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if diff > spread or loss_diff > loss_spread:
+        raise AssertionError("a resumed run left the kernels' spread")
+    del resumed, again, restored
+
+    # (b) the final state as a checkpoint, served on the int4 model in the
+    # serving dtypes, against the in-memory adapters
+    final = mgr.save(0, params=state.params, opt_state=state.opt_state,
+                     step=state.step, trainable_mask=mask)
+    model.params = tree_map(
+        lambda p: p.to(torch.bfloat16)
+        if not isinstance(p, QuantizedWeight) and p.dtype == torch.float32
+        else p, {k: v for k, v in state.params.items() if k != "lora"})
+    model.quantize(bits=None)  # drops attached adapters
+    prompts, images = serving_inputs()
+    model.load_lora(state.params["lora"])
+    want = model.generate_tokens(prompts, images=images, max_gen_len=32,
+                                 temperature=0.0)
+    model.quantize(bits=None)
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    t0 = time.perf_counter()
+    model.load_adapter_checkpoint(final)
+    load_s = time.perf_counter() - t0
+    before = launch_counts()
+    got = model.generate_tokens(prompts, images=images, max_gen_len=32,
+                                temperature=0.0)
+    torch.cuda.synchronize()
+    launches = launches_since(before)
+    require_counts(launches, CKPT_SERVE_KERNELS, "adapter serving")
+    require_no_fallback(card, "adapter serving")
+    print(f"[{card}] ckpt (b): load_adapter_checkpoint {load_s:.2f} s; "
+          f"ids digest {ids_digest(got)} (in-memory adapters "
+          f"{ids_digest(want)}); launches "
+          f"{ {n: launches[n] for n in CKPT_SERVE_KERNELS} }")
+    if got != want:
+        raise AssertionError("serving the checkpoint gave other ids than "
+                             "serving the in-memory adapters")
+
+
+def hold_records(results: str, task: str, label: str) -> int:
+    """The eval CLI's records: one a task item, in order, in the schema."""
+    from a3vlm_tpu_torch.eval_affordance import VQADataset, _question_of
+
+    ds = VQADataset(task, input_size=448)
+    with open(results) as f:
+        records = json.load(f)
+    keys = {"answer", "format_answer", "annotation", "question", "image",
+            "fail"}
+    if [(r["image"], r["question"]) for r in records] != [
+            (d["image"], _question_of(d)) for d in ds.data] or any(
+                set(r) != keys for r in records):
+        raise AssertionError(f"{label}: records out of order or schema")
+    return len(records)
+
+
+def run_finetune_cli(card: str, root) -> None:
+    """Phase 10 (c) and (d): the training CLI at full width on a 2-layer
+    checkpoint, resumed, uncached; the eval CLI serving its adapter; the
+    merge."""
+    import shutil
+
+    from a3vlm_tpu_torch import eval_affordance, main_finetune
+    from a3vlm_tpu_torch.checkpoint.manager import find_latest_checkpoint
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    task = write_eval_tasks(root, card)
+    with open(task) as f:
+        images = sorted({d["image"] for d in json.load(f)})
+    (root / "dialog.json").write_text(json.dumps([
+        {"image": images[i % 2], "conversations": [
+            {"from": "human", "value": EVAL_QUESTIONS[i % 4]},
+            {"from": "gpt", "value": "<rb>revolute</rb>"
+             "[0.50,0.50,0.30,0.20,0.00]"}]} for i in range(8)]))
+    (root / "data.yaml").write_text(
+        f"META:\n - path: {root / 'dialog.json'}\n   type: image_text\n")
+    ckpt, sd = write_decoder_checkpoint(root)
+    del sd
+    out = root / "ft"
+    # a constant learning rate (min_lr = lr, no warmup), so a 1-epoch run
+    # takes epoch 0's steps as a 2-epoch run does
+    argv = ["--tokenizer_path", str(ckpt), "--data_config",
+            str(root / "data.yaml"), "--dialog", "--pretrained_path",
+            str(ckpt), "--quant", "--lora_rank", "16",
+            "--only_save_trainable", "--checkpointing", "--batch_size", "2",
+            "--lr", "1e-4", "--min_lr", "1e-4", "--warmup_epochs", "0",
+            "--print_freq", "1", "--device", "cuda"]
+    cached = ["--epochs", "2", "--save_iteration_interval", "2",
+              "--cache_tower_features", "--feature_cache_dir",
+              str(root / "features"), "--output_dir", str(out)]
+
+    def run(extra):
+        if hasattr(qmm, "reset_fallbacks"):
+            qmm.reset_fallbacks()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state = main_finetune.main(argv + extra, tokenizer=_PieceTable(32000))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require_no_fallback(card, "training CLI")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches_since(before), secs
+
+    def log(path):
+        return [json.loads(line) for line in
+                (path / "log.txt").read_text().splitlines()]
+
+    # (c) two epochs, tower features cached in epoch 0 and spilled to disk
+    first, secs = run(cached)
+    names = ["epoch_0-iter_2", "epoch_0", "epoch_1-iter_2", "epoch_1"]
+    found = sorted(d.name for d in out.iterdir() if d.name.startswith("ep"))
+    if found != sorted(names) or not all((out / n / "_DONE").exists()
+                                         for n in names):
+        raise AssertionError(f"training CLI wrote {found}, want {names} "
+                             "each with _DONE")
+    require_counts(first, TRAIN_KERNELS, "training CLI")
+    log_first = log(out)
+    print(f"[{card}] ckpt (c) CLI, 2 epochs x 4 steps, cached towers: "
+          f"{secs:.1f} s with the load; wrote {names}; log {log_first}; "
+          f"launches { {n: first[n] for n in TRAIN_KERNELS} }")
+    # the same without the epoch-1 checkpoints: --resume auto goes on from
+    # epoch_0 and must give epoch 1 as before, the towers replayed from
+    # the disk cache
+    kept = root / "ft_epoch_1"
+    kept.mkdir()
+    for n in names[2:]:
+        shutil.move(str(out / n), str(kept / n))
+    if find_latest_checkpoint(str(out)) != str(out / "epoch_0"):
+        raise AssertionError("the latest checkpoint is not epoch_0")
+    resumed, secs = run(cached + ["--resume", "auto"])
+    log_resumed = log(out)
+    if len(log_resumed) != 3 or log_resumed[2]["epoch"] != 1:
+        raise AssertionError(f"resume ran other epochs: {log_resumed}")
+    same = log_resumed[2] == log_first[1]
+    stored = [torch.load(d / "epoch_1" / "model.pt", weights_only=True)
+              for d in (kept, out)]
+    print(f"[{card}] ckpt (c) --resume auto from epoch_0: {secs:.1f} s; "
+          f"epoch 1 log {log_resumed[2]} (first run {log_first[1]}, "
+          f"equal {same}); vit_attention launches {resumed['vit_attention']}"
+          f" (towers replayed from disk)")
+    if not same or resumed["vit_attention"]:
+        raise AssertionError("the resumed epoch differs, or ran the towers")
+    if _tree_tensors(stored[0]) != _tree_tensors(stored[1]):
+        raise AssertionError("the resumed run's epoch_1 differs")
+    # one epoch without the cache: epoch 0 as with it, the towers as often
+    uncached, secs = run(["--epochs", "1", "--output_dir",
+                          str(root / "ft_uncached")])
+    log_uncached = log(root / "ft_uncached")
+    print(f"[{card}] ckpt (c) 1 epoch uncached: {secs:.1f} s; log "
+          f"{log_uncached[0]}; vit_attention launches "
+          f"{uncached['vit_attention']} (cached run "
+          f"{first['vit_attention']})")
+    if log_uncached[0] != log_first[0] or \
+            uncached["vit_attention"] != first["vit_attention"]:
+        raise AssertionError("the cached epoch 0 differs from the uncached")
+
+    # the eval CLI serving the adapter checkpoint on the int4 base
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    results = eval_affordance.main(
+        ["--pretrained_path", str(ckpt), "--dataset", task, "--output_dir",
+         str(root / "eval"), "--batch_size", "4", "--max_gen_len", "8",
+         "--temperature", "0", "--quant", "--adapter_path",
+         str(kept / "epoch_1"), "--device", "cuda"],
+        tokenizer=_PieceTable(32000))
+    secs = time.perf_counter() - t0
+    launches = launches_since(before)
+    require_counts(launches, CKPT_SERVE_KERNELS, "eval CLI --adapter_path")
+    require_no_fallback(card, "eval CLI --adapter_path")
+    n = hold_records(results, task, "eval CLI --adapter_path")
+    print(f"[{card}] ckpt (c) eval CLI --adapter_path epoch_1 --quant: {n} "
+          f"records in order, {secs:.1f} s with the load; launches "
+          f"{ {k: launches[k] for k in CKPT_SERVE_KERNELS} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the dense model, the adapters unmerged and merged
+    model = MetaModel.from_pretrained(str(ckpt), with_visual=True,
+                                      device="cuda",
+                                      tokenizer=_PieceTable(32000))
+    prompts, images = serving_inputs()
+    with torch.inference_mode():
+        base = model.compute_logits(prompts, images=images)
+        model.load_adapter_checkpoint(str(kept / "epoch_1"))
+        unmerged = model.compute_logits(prompts, images=images)
+        model.quantize(bits=None)  # drops the unmerged adapters
+        model.load_adapter_checkpoint(str(kept / "epoch_1"), merge=True)
+        merged = model.compute_logits(prompts, images=images)
+    cat = [torch.cat([torch.from_numpy(x).flatten() for x in lg])
+           for lg in (base, unmerged, merged)]
+    rel = float((cat[2] - cat[1]).norm() / cat[1].norm())
+    effect = float((cat[1] - cat[0]).norm() / cat[1].norm())
+    print(f"[{card}] ckpt (d) merge_lora at full width (2 layers, bf16): "
+          f"prefill logits merged vs unmerged rel err {rel:.3e} (limit "
+          f"{MERGE_REL_TOL}); the adapters move the logits by {effect:.3e} "
+          f"(rel, unmerged vs none)")
+    if not all(torch.isfinite(c).all() for c in cat) or rel > MERGE_REL_TOL:
+        raise AssertionError(f"merged logits rel err {rel:.3e}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tree_tensors(tree) -> list:
+    """Every tensor of a stored tree as (path, bytes), for equality."""
+    out = []
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}/{i}")
+        elif x is not None:
+            out.append((path, str(x.dtype), tuple(x.shape),
+                        x.reshape(-1).view(torch.uint8).numpy().tobytes()))
+
+    walk(tree, "")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2990,11 +3382,24 @@ def main(argv=None) -> int:
     require_no_fallback(card, "latency")
     quant = run_quant_modes(card, model)
     require_no_fallback(card, "quantized modes (i)-(o)")
-    train = run_training(card, model)
+    train, trained = run_training(card, model)
     require_no_fallback(card, "training")
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    # 10. the fine-tuning loop: checkpoint, resume and serve phase 5's
+    # state, then the training and eval CLIs and the merge on a 2-layer
+    # checkpoint of their own
+    reset_launches()
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ckpt_loop(card, model, trained, Path(tmp))
+        del model, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_cli = time.perf_counter()
+        run_finetune_cli(card, Path(tmp))
+    ckpt = launch_counts()
+    print(f"[{card}] phase 10: {time.perf_counter() - t10:.1f} s, of which "
+          f"(c)-(d), the CLIs and the merge, {time.perf_counter() - t_cli:.1f}"
+          " s")
     for name, count in run_int8_mode(card).items():
         quant[name] += count
     require_no_fallback(card, "quantized mode (h)")
@@ -3007,7 +3412,8 @@ def main(argv=None) -> int:
                    "cb": cb.get(name, 0),
                    "latency": latency.get(name, 0),
                    "train": train.get(name, 0),
-                   "quant": quant.get(name, 0)}
+                   "quant": quant.get(name, 0),
+                   "ckpt": ckpt.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

@@ -38,6 +38,7 @@ from a3vlm_tpu.tools import score_results as jscore
 from a3vlm_tpu.train import lora as jlora
 from a3vlm_tpu_torch import constrained as tconstrained
 from a3vlm_tpu_torch.checkpoint.bridge import params_from_numpy, params_to_numpy
+from a3vlm_tpu_torch.checkpoint.manager import CheckpointManager
 from a3vlm_tpu_torch import eval_affordance as teval
 from a3vlm_tpu_torch import main_finetune as tfinetune
 from a3vlm_tpu_torch import meta as tmeta
@@ -276,7 +277,6 @@ def test_main_modes_on_the_cpu(tiny_towers, ckpt, tasks, tmp_path, extra,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--adapter_path", "x"], "item 16"),
     (["--model_parallel_size", "2"], "item 17"),
     (["--llama_type", "falcon"], "item 15"),
 ])
@@ -323,7 +323,7 @@ def test_stream_generate_ends_as_generate(models):
         assert chunks[-1]["text"] == want
 
 
-def test_load_lora_matches_jax(tiny_towers, ckpt):
+def test_load_lora_matches_jax(tiny_towers, ckpt, tmp_path):
     """Unmerged adapters on the loaded decoder, dense and int4."""
     for bits in (None, 4):
         jm = JMetaModel.from_pretrained(str(ckpt), max_seq_len=MAX_SEQ,
@@ -352,8 +352,17 @@ def test_load_lora_matches_jax(tiny_towers, ckpt):
         first = tm.generate_tokens([prompt], max_gen_len=1,
                                    stop_tokens=())[0][0]
         assert first == int(got[1][-1].argmax())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tm.load_adapter_checkpoint(str(ckpt))
+    # the same adapters from a trainable-only checkpoint of the port give
+    # the same logits
+    mgr = CheckpointManager(str(tmp_path))
+    path = mgr.save(0, params=params_from_numpy({"lora": lora},
+                                                device="cpu"))
+    fresh = MetaModel.from_pretrained(str(ckpt), max_seq_len=MAX_SEQ,
+                                      dtype=torch.float32, device="cpu")
+    fresh.quantize(bits=4)
+    fresh.load_adapter_checkpoint(path)
+    for a, b in zip(fresh.compute_logits(texts), got):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_score_results_prints_as_the_original(models, tasks, tmp_path,

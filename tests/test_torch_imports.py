@@ -46,7 +46,14 @@ def test_port_entry_points_load_neither_package():
             "a3vlm_tpu_torch.lookup_decode, a3vlm_tpu_torch.constrained, "
             "a3vlm_tpu_torch.serving_batch, "
             "a3vlm_tpu_torch.tokenizer, a3vlm_tpu_torch.data.dialog, "
-            "a3vlm_tpu_torch.data.alpaca, a3vlm_tpu_torch.data.loader; "
+            "a3vlm_tpu_torch.data.alpaca, a3vlm_tpu_torch.data.loader, "
+            "a3vlm_tpu_torch.checkpoint.manager, "
+            "a3vlm_tpu_torch.checkpoint.export, "
+            "a3vlm_tpu_torch.train.feature_cache, "
+            "a3vlm_tpu_torch.train.param_groups, "
+            "a3vlm_tpu_torch.tools.merge_lora, "
+            "a3vlm_tpu_torch.tools.convert_weights_to_hf, "
+            "a3vlm_tpu_torch.tools.weight_operate; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'a3vlm_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -454,6 +461,57 @@ def _case_config_probe(tmp_path, tok_dir):
         orig.probe_pretrained_dir(tmp_path)
 
 
+def _case_checkpoint_export(tmp_path, tok_dir):
+    _same_defs("checkpoint/export.py")
+    orig, port = _both("checkpoint/export.py")
+    rng = np.random.default_rng(7)
+    L, D, F_ = 2, 8, 12
+    layers = {"attention": {w: {"weight": rng.normal(size=(L, D, D))}
+                            for w in ("wq", "wk", "wv", "wo")},
+              "feed_forward": {
+                  "w1": {"weight": rng.normal(size=(L, D, F_))},
+                  "w2": {"weight": rng.normal(size=(L, F_, D))},
+                  "w3": {"weight": rng.normal(size=(L, D, F_))}},
+              "attention_norm": {"weight": rng.normal(size=(L, D))},
+              "ffn_norm": {"weight": rng.normal(size=(L, D))}}
+    params = {"tok_embeddings": {"weight": rng.normal(size=(16, D))},
+              "norm": {"weight": rng.normal(size=D)},
+              "output": {"weight": rng.normal(size=(D, 16))},
+              "layers": layers}
+    _assert_same(port.decoder_params_to_consolidated(params),
+                 orig.decoder_params_to_consolidated(params))
+    _assert_same(port.export_hf_llama(params, n_heads=2),
+                 orig.export_hf_llama(params, n_heads=2))
+    a, b = {"x": rng.normal(size=3), "y": np.ones(2)}, {"x": np.ones(3)}
+    _assert_same(port.extract_diff(a, b), orig.extract_diff(a, b))
+
+
+def _case_tools_convert_weights_to_hf(tmp_path, tok_dir):
+    """``convert`` differs in its imports alone; the files it writes are
+    held against the original's in tests/test_torch_checkpoint.py."""
+    _same_defs("tools/convert_weights_to_hf.py", differ=("convert",))
+
+
+def _case_tools_weight_operate(tmp_path, tok_dir):
+    """``operate`` differs in its imports alone; both write the same
+    extract and apply files (tests/test_torch_checkpoint.py)."""
+    _same_defs("tools/weight_operate.py", differ=("operate",))
+
+
+def _case_utils_tensorboard_logger(tmp_path, tok_dir):
+    """The port's logging module copies the classes its loop uses; the
+    TensorBoard facade is the original's, and logs scalars."""
+    orig = _defs(ROOT / "a3vlm_tpu" / "utils" / "logging.py")
+    port = _defs(ROOT / "a3vlm_tpu_torch" / "utils" / "logging.py")
+    assert port["TensorBoardLogger"] == orig["TensorBoardLogger"]
+    from a3vlm_tpu_torch.utils.logging import TensorBoardLogger
+
+    tb = TensorBoardLogger(str(tmp_path / "tb"))
+    tb.add_scalar("c_train_loss", 1.5, 0)
+    tb.flush()
+    assert any((tmp_path / "tb").iterdir())
+
+
 _CASES = {
     "config": _case_config,
     "config.probe_pretrained_dir": _case_config_probe,
@@ -474,6 +532,10 @@ _CASES = {
     "data.alpaca": _case_data_alpaca,
     "data.sampler+loader": _case_data_sampler_loader,
     "data.transforms": _case_data_transforms,
+    "checkpoint.export": _case_checkpoint_export,
+    "tools.convert_weights_to_hf": _case_tools_convert_weights_to_hf,
+    "tools.weight_operate": _case_tools_weight_operate,
+    "utils.logging.TensorBoardLogger": _case_utils_tensorboard_logger,
 }
 
 

@@ -1215,3 +1215,196 @@ def test_quantize_act_int8_cuda(gen, M, K, dtype):
     assert torch.equal(s, ws)
     names, _ = _kernel_names(lambda: qmm.quantize_act_int8(x), 5)
     assert names and all("quantize_act_kernel" in n for n in names), names
+
+
+# -- the fine-tuning loop on the card: checkpoints of card tensors --------
+
+def _card_tree(gen, layers=3, d=256):
+    """A port tree on the card: a per-layer decoder with a bf16 leaf and a
+    frozen base, adapters, a float32 tag."""
+    return {
+        "llama": {"layers": [
+            {"attention_norm": {"weight": _randn(d, gen=gen)},
+             "attention": {"wq": {"weight": _randn(d, d, gen=gen).float()}}}
+            for _ in range(layers)],
+            "norm": {"weight": _randn(d, gen=gen).float()}},
+        "start_img": _randn(1, 1, d, gen=gen).float(),
+        "lora": {"layers": [{"attention": {"wq": {
+            "a": _randn(d, 16, gen=gen).float(),
+            "b": _randn(16, d, gen=gen).float()}}} for _ in range(layers)]},
+    }
+
+
+def _card_mask(tree):
+    from a3vlm_tpu_torch.quant import tree_map
+
+    mask = tree_map(lambda _: True, tree)
+    for lp in mask["llama"]["layers"]:
+        lp["attention"]["wq"]["weight"] = False
+    return mask
+
+
+def _card_loss(params, batch):
+    x = batch["x"]
+    for lp, ab in zip(params["llama"]["layers"], params["lora"]["layers"]):
+        a, b = ab["attention"]["wq"]["a"], ab["attention"]["wq"]["b"]
+        x = torch.tanh(x @ lp["attention"]["wq"]["weight"] + (x @ a) @ b) \
+            * lp["attention_norm"]["weight"].float()
+    return ((x * params["llama"]["norm"]["weight"]).sum()
+            + params["start_img"].sum()) ** 2 / x.numel()
+
+
+def _card_state(gen):
+    from a3vlm_tpu_torch.train.step import AdamW, TrainState, make_train_step
+
+    tree = _card_tree(gen)
+    mask = _card_mask(tree)
+    opt = AdamW(1e-2)
+    return (TrainState.create(tree, opt, mask),
+            make_train_step(_card_loss, opt, trainable_mask=mask), mask)
+
+
+def _card_leaves(state, mask):
+    from a3vlm_tpu_torch.train.step import partition_params, tree_leaves
+
+    return (tree_leaves(partition_params(state.params, mask)[0])
+            + tree_leaves(state.opt_state.mu) + tree_leaves(state.opt_state.nu))
+
+
+def test_checkpoint_round_trip_cuda(gen, tmp_path):
+    """Saved from the card and restored onto it: every leaf on the card,
+    in its dtype (bf16 kept), bit for bit; the frozen leaves are the live
+    ones; the count and step come back."""
+    from a3vlm_tpu_torch.checkpoint.manager import CheckpointManager
+    from a3vlm_tpu_torch.train.step import TrainState
+
+    state, step, mask = _card_state(gen)
+    x = _randn(8, 256, gen=gen).float()
+    state, _ = step(state, {"x": x})
+    mgr = CheckpointManager(str(tmp_path))
+    path = mgr.save(0, 1, params=state.params, opt_state=state.opt_state,
+                    step=state.step, trainable_mask=mask, wait=False)
+    mgr.wait_until_finished()
+    params = mgr.restore_params(path, state.params)
+    extra = mgr.restore_train_state(path, state.opt_state)
+    restored = TrainState(params, extra["opt_state"], extra["step"])
+    got, want = _card_leaves(restored, mask), _card_leaves(state, mask)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+    assert params["llama"]["layers"][0]["attention"]["wq"]["weight"] is \
+        state.params["llama"]["layers"][0]["attention"]["wq"]["weight"]
+    assert (restored.step, restored.opt_state.count) == (1, 1)
+
+
+def test_params_to_host_stacks_in_chunks_cuda(gen, monkeypatch):
+    """``params_to_host`` and ``params_to_numpy`` stack a card tree's layer
+    lists leaf by leaf, ``STACK_CHUNK_BYTES`` of one leaf's layers at a
+    time on the card: the card holds at most about a chunk more, not a
+    stacked copy of the layers, and the stacked leaves equal the
+    layers'."""
+    from a3vlm_tpu_torch.checkpoint import bridge
+    from a3vlm_tpu_torch.checkpoint.bridge import (
+        params_to_host,
+        params_to_numpy,
+    )
+
+    L, D = 8, 512
+    monkeypatch.setattr(bridge, "STACK_CHUNK_BYTES", 2 * D * D * 4)
+    layers = [{"attention": {"wq": {"weight": _randn(D, D, gen=gen).float()}},
+               "attention_norm": {"weight": _randn(D, gen=gen)}}
+              for _ in range(L)]
+    tree = {"llama": {"layers": layers, "norm": {"weight": _randn(D, gen=gen)}}}
+    one_leaf = D * D * 4
+    for fn in (params_to_host, params_to_numpy):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(tree)
+        extra = torch.cuda.max_memory_allocated() - base
+        assert extra <= 2 * bridge.STACK_CHUNK_BYTES < L * one_leaf, (
+            fn.__name__, extra)
+        wq = out["llama"]["layers"]["attention"]["wq"]["weight"]
+        norm = out["llama"]["layers"]["attention_norm"]["weight"]
+        assert tuple(wq.shape) == (L, D, D) and tuple(norm.shape) == (L, D)
+        for i, lp in enumerate(layers):
+            want = lp["attention"]["wq"]["weight"].cpu()
+            assert torch.equal(torch.as_tensor(wq[i]), want)
+            want = lp["attention_norm"]["weight"].cpu()
+            if fn is params_to_numpy:
+                want = want.float()
+            assert torch.equal(torch.as_tensor(norm[i]), want)
+    assert params_to_host(tree)["llama"]["norm"]["weight"].dtype == \
+        torch.bfloat16
+
+
+def test_async_save_racing_a_step_cuda(gen, tmp_path):
+    """A step launched at once after an asynchronous save (the optimizer
+    updates parameters and moments in place on the card) does not reach
+    the written files: they hold the values of before the step."""
+    from a3vlm_tpu_torch.checkpoint.manager import CheckpointManager
+    from a3vlm_tpu_torch.train.step import TrainState
+
+    state, step, mask = _card_state(gen)
+    x = _randn(64, 256, gen=gen).float()
+    mgr = CheckpointManager(str(tmp_path))
+    for i in range(3):
+        before = [t.clone() for t in _card_leaves(state, mask)]
+        path = mgr.save(0, i + 1, params=state.params,
+                        opt_state=state.opt_state, step=state.step,
+                        trainable_mask=mask, wait=False)
+        for _ in range(4):
+            state, _ = step(state, {"x": x})
+        mgr.wait_until_finished()
+        restored = TrainState(
+            mgr.restore_params(path, state.params),
+            mgr.restore_train_state(path, state.opt_state)["opt_state"], 0)
+        for a, b in zip(_card_leaves(restored, mask), before):
+            assert torch.equal(a, b)
+        assert not torch.equal(_card_leaves(state, mask)[0], before[0])
+
+
+def test_load_adapter_checkpoint_cuda(gen, tmp_path):
+    """An int4 llama_ens5 on the card (tiny towers, a decoder of head dim
+    128 as the decode kernel takes) serves adapters from a checkpoint of
+    the port: the greedy ids of ``load_lora`` with the same adapters and
+    dense trainables."""
+    import dataclasses
+
+    from a3vlm_tpu_torch.checkpoint.manager import CheckpointManager
+    from a3vlm_tpu_torch.config import ModelArgs, tiny_ens5_config
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.quant import tree_map
+    from a3vlm_tpu_torch.train.lora import init_lora_params
+
+    cfg = dataclasses.replace(tiny_ens5_config(), llama=ModelArgs(
+        dim=256, n_layers=2, n_heads=2, n_kv_heads=2, vocab_size=128,
+        multiple_of=64, max_seq_len=256))
+
+    def build():
+        m = MetaModel("llama_ens5", with_visual=True, max_seq_len=256,
+                      dtype=torch.bfloat16, vocab_size=100, model_cfg=cfg,
+                      device="cuda", seed=0)
+        m.quantize(bits=4)
+        return m
+
+    model = build()
+    lora = init_lora_params(torch.Generator(device="cuda").manual_seed(3),
+                            model.params["llama"], rank=4)
+    lora = tree_map(lambda t: t + 0.05 * torch.randn(
+        t.shape, generator=gen, device="cuda"), lora)
+    norm = model.params["llama"]["norm"]["weight"]
+    norm = norm + (0.05 * torch.randn(norm.shape, generator=gen,
+                                      device="cuda")).to(norm.dtype)
+    path = CheckpointManager(str(tmp_path)).save(
+        0, params={"llama": {"norm": {"weight": norm}}, "lora": lora})
+    prompts = [[1, 5, 9, 14, 20], [1, 7, 7, 30]]
+    model.params["llama"]["norm"]["weight"] = norm
+    model.load_lora(lora)
+    want = model.generate_tokens(prompts, max_gen_len=8, stop_tokens=())
+    served = build()
+    served.load_adapter_checkpoint(path)
+    got = served.params["llama"]["norm"]["weight"]
+    assert got.is_cuda and torch.equal(got, norm)
+    assert served.generate_tokens(prompts, max_gen_len=8,
+                                  stop_tokens=()) == want
