@@ -14,7 +14,14 @@ quantized-matmul flags set the port's mode switches
 (``ops.quant_matmul.W4A8_DECODE``, ``W8A8_PREFILL``);
 ``--continuous_batching`` serves the task file through the slot pool
 (``run_eval_continuous``); the flags of parts not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError`` naming their ROADMAP item (``--llama_type
+falcon``, ``--model_parallel_size`` above 1). The released 7B runs with
+``--llama_type internlm_ems5_light --input_size 1024``. As with the JAX
+CLI, ``llama_ens5_2images`` and ``llama`` fail at the first batch
+(``run_eval`` passes no depth images, and ``llama`` has no towers), and
+``--continuous_batching`` serves ``llama_ens5_2images`` on its RGB stream
+alone; it refuses ``llama`` and ``internlm_ems5_light``, on which the JAX
+CLI fails after loading.
 
 Behaviour carried over from the reference:
 - VQADataset over task JSON with sampling cap and resume-by-results-file
@@ -373,13 +380,29 @@ def _refuse_unported(args) -> None:
     unported = [
         (args.model_parallel_size > 1, "--model_parallel_size > 1",
          "Queue 1 item 17 (several devices)"),
-        (args.llama_type != "llama_ens5", f"llama_type {args.llama_type}",
+        (args.llama_type == "falcon", f"llama_type {args.llama_type}",
          "Queue 1 item 15 (the other model families)"),
     ]
     for hit, what, item in unported:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"{item})")
+    if args.continuous_batching and not args.tiny_random_model and \
+            args.llama_type in _NO_SLOT_POOL:
+        # the JAX CLI fails on these after loading: the batcher reads the
+        # decoder at params["llama"] (a llama model has none) and encodes
+        # images with ens5's towers (internlm_ems5_light has other crops)
+        raise ValueError(f"--continuous_batching does not serve llama_type "
+                         f"{args.llama_type}: {_NO_SLOT_POOL[args.llama_type]}")
+
+
+# the families the slot pool cannot serve, and why; llama_ens5_2images it
+# serves as the JAX CLI does, on the RGB stream alone through ens5's towers
+_NO_SLOT_POOL = {
+    "llama": "the model has no image towers",
+    "internlm_ems5_light": "the pool encodes images with ens5's five-crop "
+                           "towers",
+}
 
 
 def main(argv=None, tokenizer=None):

@@ -1,8 +1,10 @@
-"""MetaModel for ``llama_type="llama_ens5"`` (counterpart of
-a3vlm_tpu/meta.py): parameters, tokenizer, checkpoint loading
-(``from_pretrained``), quantization, LoRA adapters served unmerged, image
-encoding, generation (batched and streamed), the scoring APIs and the
-training loss.
+"""MetaModel (counterpart of a3vlm_tpu/meta.py) for the families
+``llama_ens5``, ``llama_ens5_2images`` (RGB + depth), the released 7B's
+``internlm_ems5_light`` and the text-only ``llama``: parameters,
+tokenizer, checkpoint loading (``from_pretrained``), quantization, LoRA
+adapters served unmerged, image encoding, generation (batched and
+streamed), the scoring APIs and the training loss. ``falcon`` is not
+ported yet.
 
 Without a tokenizer the model is driven with token ids
 (``generate_tokens``); with one, ``generate`` takes and returns text."""
@@ -21,17 +23,29 @@ import torch
 from a3vlm_tpu_torch.config import (
     Ens5Config,
     ModelArgs,
+    load_config_union,
     model_args_from_json,
     probe_pretrained_dir,
 )
 from a3vlm_tpu_torch.generation import Generator, synchronize
 from a3vlm_tpu_torch.models import ens5 as ens5_mod
+from a3vlm_tpu_torch.models import ens5_2images as e2_mod
+from a3vlm_tpu_torch.models import internlm_ems5_light as il_mod
 from a3vlm_tpu_torch.models import llama as llama_mod
-from a3vlm_tpu_torch.quant import quantize_params
+from a3vlm_tpu_torch.quant import quantize_params, tree_map
 from a3vlm_tpu_torch.train.losses import next_token_loss
 
 _UNPORTED_TYPE = ("{} is not ported yet (ROADMAP Queue 1 item 15: the "
                   "other model families)")
+
+# the families of the port: the module of each and its random init
+_FAMILY = {"llama": llama_mod, "llama_ens5": ens5_mod,
+           "llama_ens5_2images": e2_mod, "internlm_ems5_light": il_mod}
+_INIT = {"llama": llama_mod.init_llama_params,
+         "llama_ens5": ens5_mod.init_ens5_params,
+         "llama_ens5_2images": e2_mod.init_params,
+         "internlm_ems5_light": il_mod.init_params}
+FAMILIES = tuple(_FAMILY)
 
 
 class MetaModel:
@@ -47,20 +61,28 @@ class MetaModel:
         tokenizer=None,
         vocab_size: Optional[int] = None,
         seed: int = 0,
-        model_cfg: Optional[Ens5Config] = None,
+        model_cfg=None,
         vocab_align: int = 128,
         device: torch.device | str = "cuda",
     ):
-        """As the JAX constructor (meta.py:37-170) for llama_ens5. The
-        tokenizer is ``tokenizer``, or loaded from ``tokenizer_path``; the
-        true vocab comes from its ``n_words``, or from ``vocab_size`` when
-        there is no tokenizer, and is padded to ``vocab_align``.
-        ``llama_config`` (JSON files, later ones win) sets the decoder when
-        ``model_cfg`` is not given. With ``params=None`` random weights are
-        made from ``seed`` on ``device``: the card, unless the caller names
+        """As the JAX constructor (meta.py:37-170), for ``llama_type``
+        ``llama`` (a bare decoder, text only), ``llama_ens5``,
+        ``llama_ens5_2images`` (RGB + depth, twice the image words) and
+        ``internlm_ems5_light`` (``InternlmEns5Config``). The tokenizer is
+        ``tokenizer``, or loaded from ``tokenizer_path``; the true vocab
+        comes from its ``n_words``, or from ``vocab_size`` when there is no
+        tokenizer, and is padded to ``vocab_align``. ``llama_config`` (JSON
+        files, later ones win) sets the decoder when ``model_cfg`` is not
+        given: over ``ModelArgs()`` with ``max_seq_len``, or, for
+        ``internlm_ems5_light``, over InternLM2-7B's args, whose
+        ``max_seq_len`` the caller's does not change (the JAX constructor
+        reads neither there). With ``params=None`` random weights are made
+        from ``seed`` on ``device``: the card, unless the caller names
         another."""
-        if llama_type != "llama_ens5":
+        if llama_type == "falcon":
             raise NotImplementedError(_UNPORTED_TYPE.format(llama_type))
+        if llama_type not in FAMILIES:
+            raise KeyError(f"unknown llama_type: {llama_type}")
         self.llama_type = llama_type
         self.with_visual = with_visual
         if tokenizer is None and tokenizer_path is not None:
@@ -76,21 +98,27 @@ class MetaModel:
             raise ValueError("pass a tokenizer, tokenizer_path or vocab_size")
         align = max(128, vocab_align)
         padded_vocab = -(-self.true_vocab // align) * align
+        self._mod = _FAMILY[llama_type]
         if model_cfg is None:
-            overrides = dict(max_seq_len=max_seq_len, vocab_size=padded_vocab)
-            args = (model_args_from_json(llama_config, **overrides)
-                    if llama_config else ModelArgs(**overrides))
-            model_cfg = Ens5Config(llama=args)
-        if model_cfg.llama.vocab_size != padded_vocab:
-            model_cfg = dataclasses.replace(
-                model_cfg,
-                llama=model_cfg.llama.replace(vocab_size=padded_vocab))
+            model_cfg = _default_config(llama_type, llama_config,
+                                        max_seq_len)
+        if llama_type == "llama":
+            model_cfg = model_cfg.replace(vocab_size=padded_vocab)
+            self.args = model_cfg
+            self.image_words = 0
+        else:
+            if model_cfg.llama.vocab_size != padded_vocab:
+                model_cfg = dataclasses.replace(
+                    model_cfg,
+                    llama=model_cfg.llama.replace(vocab_size=padded_vocab))
+            self.args = model_cfg.llama
+            self.image_words = model_cfg.image_words if with_visual else 0
+            if llama_type == "llama_ens5_2images":
+                self.image_words *= 2  # RGB + depth (meta.py:136)
         self.cfg = model_cfg
-        self.args = model_cfg.llama
-        self.image_words = model_cfg.image_words if with_visual else 0
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            params = ens5_mod.init_ens5_params(model_cfg, dtype, device, gen)
+            params = _INIT[llama_type](model_cfg, dtype, device, gen)
         self.params = params
         self._loras: list = []  # adapters served unmerged (load_lora)
         self._generator: Optional[Generator] = None
@@ -100,6 +128,19 @@ class MetaModel:
         self.last_stats: dict = {}
         # emitted tokens and verify rounds of the last draft_k request
         self.last_spec_stats: Optional[dict] = None
+
+    @property
+    def decoder(self) -> dict:
+        """The decoder's tree: the whole tree of a ``llama`` model, the
+        ``"llama"`` subtree of the others."""
+        return self.params if self.llama_type == "llama" else \
+            self.params["llama"]
+
+    def _set_decoder(self, tree: dict) -> None:
+        if self.llama_type == "llama":
+            self.params = tree
+        else:
+            self.params = {**self.params, "llama": tree}
 
     # -- loading ------------------------------------------------------------
 
@@ -122,10 +163,14 @@ class MetaModel:
         (llama_config) and the tokenizer under ``pretrained_path`` (or takes
         ``tokenizer``); loads the consolidated checkpoints in order, a diff
         checkpoint adding onto the base before it. The state dict is read
-        and imported as numpy on the host, then lands on ``device`` once:
-        a checkpoint with the towers makes no random weights at all; one
-        with the decoder alone keeps the random towers and drops the random
-        decoder before the loaded one lands."""
+        and imported as numpy on the host, then lands on ``device`` once.
+        Three routes, as the JAX method's: an ens5 checkpoint with the
+        towers (``llama_ens5``, ``llama_ens5_2images``) replaces the whole
+        tree and makes no random weights at all; a ``llama`` checkpoint is
+        the whole tree, its decoder; any other keeps the random towers
+        (``internlm_ems5_light``'s DINOv2 and ConvNeXt are never imported)
+        and takes the decoder, the projectors and the image tags the
+        checkpoint holds, the random ones dropped before these land."""
         from a3vlm_tpu_torch.checkpoint.bridge import params_from_numpy
         from a3vlm_tpu_torch.checkpoint.ens5_import import (
             has_ens5_towers,
@@ -144,7 +189,7 @@ class MetaModel:
                  else list(pretrained_path))
         probed = probe_pretrained_dir(paths[-1])
         llama_type = llama_type or probed.get("llama_type") or "llama"
-        if llama_type != "llama_ens5":
+        if llama_type == "falcon":
             raise NotImplementedError(_UNPORTED_TYPE.format(llama_type))
         if llama_config is None and "llama_config" in probed:
             cfg_file = Path(paths[-1]) / "config.json"
@@ -165,22 +210,27 @@ class MetaModel:
                 merged = apply_diff_checkpoint(merged, sd)
             else:
                 merged = sd
-        towers = bool(merged) and has_ens5_towers(merged)
+        whole = bool(merged) and (
+            llama_type == "llama" or (llama_type.startswith("llama_ens5")
+                                      and has_ens5_towers(merged)))
         model = cls(
             llama_type=llama_type, llama_config=llama_config,
             tokenizer_path=tokenizer_path, with_visual=with_visual,
             max_seq_len=max_seq_len, dtype=dtype,
-            params={} if towers else None, tokenizer=tokenizer,
+            params={} if whole else None, tokenizer=tokenizer,
             vocab_align=vocab_align, device=device,
         )
         if merged:
-            if towers:
+            n_layers = model.args.n_layers
+            if llama_type == "llama":
+                tree = import_llama_consolidated(merged, n_layers=n_layers)
+            elif whole:
                 # the full released checkpoint: decoder, the four tower
                 # trees, projectors and tags in one state dict
                 tree = import_ens5_consolidated(merged, model.cfg)
             else:
                 tree = {"llama": import_llama_consolidated(
-                    merged, n_layers=model.args.n_layers)}
+                    merged, n_layers=n_layers)}
                 # projectors and image tags, when present in the checkpoint
                 tree.update(_import_ens5_extras(merged))
                 for k in tree:  # free the random leaves before these land
@@ -189,8 +239,11 @@ class MetaModel:
                 if torch.device(device).type == "cuda":
                     torch.cuda.empty_cache()
             del merged
-            model.params.update(params_from_numpy(tree, device=device,
-                                                  dtype=dtype))
+            tree = params_from_numpy(tree, device=device, dtype=dtype)
+            if llama_type == "llama":
+                model.params = tree
+            else:
+                model.params.update(tree)
             model._pad_vocab_entries()
         if quant:
             model.quantize()
@@ -201,7 +254,7 @@ class MetaModel:
         config's padded vocab (meta.py:275). Checkpoints carry the true
         vocab; every logits consumer masks the tail with ``true_vocab``."""
         V = self.args.vocab_size
-        tree = self.params["llama"]
+        tree = self.decoder
         emb = tree["tok_embeddings"]["weight"]
         if emb.shape[0] < V:
             tree["tok_embeddings"]["weight"] = torch.nn.functional.pad(
@@ -220,10 +273,12 @@ class MetaModel:
         round to int8 there: opt-in). In place, leaf by leaf; attached
         adapters are dropped, as the JAX method resets its transform. The
         JAX method's ``tp_align`` and ``row_parallel`` are for several
-        devices and have no counterpart."""
+        devices and have no counterpart. A ``llama`` model has no towers
+        and ignores ``tower_bits``, as the JAX method does;
+        ``internlm_ems5_light``'s DINOv2 and ConvNeXt take it."""
         if bits:
-            quantize_params(self.params["llama"], bits=bits)
-        if tower_bits:
+            quantize_params(self.decoder, bits=bits)
+        if tower_bits and self.llama_type != "llama":
             if tower_bits != 8:
                 raise ValueError("towers support W8A8 only: tower_bits=8")
             ens5_mod.quantize_tower_params(self.params)
@@ -242,7 +297,7 @@ class MetaModel:
         ``quantize()``, which drops them."""
         from a3vlm_tpu_torch.train.lora import fit_lora_to
 
-        fitted = fit_lora_to(self.params["llama"], lora_tree)
+        fitted = fit_lora_to(self.decoder, lora_tree)
         self._loras.append(fitted)
         self._generator = None
 
@@ -266,9 +321,9 @@ class MetaModel:
         self.params = _overlay(self.params, raw)
         if lora_tree is not None:
             if merge:
-                decoder = self.params["llama"]
-                self.params = {**self.params, "llama": merge_lora(
-                    decoder, fit_lora_to(decoder, lora_tree))}
+                decoder = self.decoder
+                self._set_decoder(merge_lora(decoder,
+                                             fit_lora_to(decoder, lora_tree)))
             else:
                 self.load_lora(lora_tree)
         self._generator = None
@@ -277,49 +332,84 @@ class MetaModel:
 
     @property
     def device(self) -> torch.device:
-        return self.params["llama"]["norm"]["weight"].device
+        return self.decoder["norm"]["weight"].device
 
     def _decoder_params(self) -> dict:
         """The decoder with every loaded adapter attached (meta.py:454)."""
         from a3vlm_tpu_torch.train.lora import attach_lora
 
-        p = self.params["llama"]
+        p = self.decoder
         for lora in self._loras:
             p = attach_lora(p, lora)
         return p
 
-    @torch.inference_mode()
-    def encode_images(self, images, impl: str = "auto"
+    def _image_tokens(self, images, depth_images, impl: str
                       ) -> Optional[torch.Tensor]:
-        """NHWC CLIP-normalized images -> image tokens (meta.py:429). A
-        numpy batch goes to the model's device in the towers' dtype."""
+        """Image tokens of the family (meta.py:429-452), recording the
+        gradient of the projectors and tags. A numpy batch goes to the
+        model's device in the towers' dtype."""
         if images is None:
             return None
-        if not isinstance(images, torch.Tensor):
-            images = torch.as_tensor(np.asarray(images), device=self.device,
-                                     dtype=self.params["start_img"].dtype)
-        return ens5_mod.build_image_tokens(self.params, self.cfg, images,
-                                           impl)
+        if self.llama_type == "llama":
+            # the JAX method fails here too: its decoder module has no
+            # build_image_tokens
+            raise ValueError("llama_type llama takes no images")
+
+        def to_device(x):
+            if isinstance(x, torch.Tensor):
+                return x
+            return torch.as_tensor(np.asarray(x), device=self.device,
+                                   dtype=self.params["start_img"].dtype)
+
+        images = to_device(images)
+        if self.llama_type == "llama_ens5_2images":
+            if depth_images is None:
+                raise ValueError("llama_ens5_2images requires depth images "
+                                 "(llama_ens5_2images.py:518-547)")
+            return e2_mod.build_image_tokens(self.params, self.cfg, images,
+                                             to_device(depth_images), impl)
+        return self._mod.build_image_tokens(self.params, self.cfg, images,
+                                            impl)
+
+    @torch.inference_mode()
+    def encode_images(self, images, depth_images=None, impl: str = "auto"
+                      ) -> Optional[torch.Tensor]:
+        """NHWC CLIP-normalized images -> image tokens (meta.py:429):
+        [B, image_words, D]. ``llama_ens5_2images`` needs ``depth_images``
+        beside ``images``; ``llama`` takes none."""
+        return self._image_tokens(images, depth_images, impl)
 
     def get_image_words(self) -> int:
         return self.image_words
 
     def get_quant_blocklist(self) -> list[str]:
-        """Subtrees left dense by ``quantize`` (meta.py:715)."""
-        return list(ens5_mod.quant_blocklist())
+        """Subtrees left dense by ``quantize`` (meta.py:715): the ens5
+        families' towers and projectors, none for the others."""
+        if self.llama_type.startswith("llama_ens5"):
+            return list(ens5_mod.quant_blocklist())
+        return []
 
     def get_trainable_params(self) -> dict:
-        """The trainable mask (meta.py:720): towers frozen."""
-        return ens5_mod.trainable_mask(self.params)
+        """The trainable mask (meta.py:720): the ens5 families' towers
+        frozen; every leaf of the others trainable, as in the JAX method
+        (which does not freeze ``internlm_ems5_light``'s towers)."""
+        if self.llama_type.startswith("llama_ens5"):
+            return ens5_mod.trainable_mask(self.params)
+        return tree_map(lambda _: True, self.params)
 
     def forward(self, examples: torch.Tensor, labels: torch.Tensor,
                 images: Optional[torch.Tensor] = None,
+                depth_images: Optional[torch.Tensor] = None,
                 impl: str = "auto") -> torch.Tensor:
         """Training loss (meta.py:464): next-token cross-entropy of the
-        text positions, label 0 ignored, padded vocab masked."""
-        params = {**self.params, "llama": self._decoder_params()}
-        logits = ens5_mod.forward(params, self.cfg, examples, image=images,
-                                  impl=impl)
+        text positions, label 0 ignored, padded vocab masked. The towers
+        run without gradient and take ``impl`` only as "plain" or
+        "auto"."""
+        image_tokens = self._image_tokens(
+            images, depth_images, "plain" if impl == "plain" else "auto")
+        logits = llama_mod.forward_train(self._decoder_params(), self.args,
+                                         examples, image_tokens=image_tokens,
+                                         impl=impl)
         return next_token_loss(logits, labels, vocab_size=self.true_vocab)
 
     @property
@@ -363,6 +453,7 @@ class MetaModel:
         self,
         prompt_tokens: Sequence[Sequence[int]],
         images: Optional[torch.Tensor] = None,
+        depth_images: Optional[torch.Tensor] = None,
         max_gen_len: int = 512,
         temperature: float = 0.0,
         top_p: float = 0.95,
@@ -377,21 +468,22 @@ class MetaModel:
         needs no tokenizer. The default stop is LLaMA's EOS id 2. ``fsm``
         masks every generated token to a grammar; ``draft_k`` sends a
         batch-1 request through prompt-lookup speculative decoding
-        (``Generator.generate_tokens``)."""
-        return self._timed(images, impl, lambda gen, tokens: (
+        (``Generator.generate_tokens``). ``depth_images``: the depth
+        stream of ``llama_ens5_2images``."""
+        return self._timed(images, depth_images, impl, lambda gen, tokens: (
             gen.generate_tokens(
                 prompt_tokens, image_tokens=tokens, max_gen_len=max_gen_len,
                 temperature=temperature, top_p=top_p, stop_tokens=stop_tokens,
                 seed=seed, impl=impl, fsm=fsm, draft_k=draft_k,
                 lookup_max_n=lookup_max_n)))
 
-    def _timed(self, images, impl: str, run):
+    def _timed(self, images, depth_images, impl: str, run):
         """The path both entries share: the towers timed on the device,
         then ``run(generator, image_tokens)``; sets ``last_stats`` (towers,
         prefill and decode) and ``last_spec_stats`` of this call."""
         gen = self._get_generator()
         t0 = time.perf_counter()
-        image_tokens = self.encode_images(images, impl)
+        image_tokens = self.encode_images(images, depth_images, impl)
         synchronize(self.device)
         towers_ms = (time.perf_counter() - t0) * 1e3
         out = run(gen, image_tokens)
@@ -403,6 +495,7 @@ class MetaModel:
         self,
         prompts: list[str],
         images: Optional[torch.Tensor] = None,
+        depth_images: Optional[torch.Tensor] = None,
         max_gen_len: int = 512,
         temperature: float = 0.0,
         top_p: float = 0.95,
@@ -416,7 +509,8 @@ class MetaModel:
         """Text prompts in, text out (meta.py:540); needs a tokenizer."""
         if self.tokenizer is None:
             raise ValueError("generate needs a tokenizer; use generate_tokens")
-        return self._timed(images, impl, lambda gen, tokens: gen.generate(
+        return self._timed(images, depth_images, impl,
+                           lambda gen, tokens: gen.generate(
             prompts, image_tokens=tokens, max_gen_len=max_gen_len,
             temperature=temperature, top_p=top_p,
             additional_stop_symbols=additional_stop_symbols, seed=seed,
@@ -427,6 +521,7 @@ class MetaModel:
         self,
         prompt: str,
         image=None,
+        depth_image=None,
         max_gen_len: int = 512,
         temperature: float = 0.0,
         top_p: float = 0.95,
@@ -439,13 +534,16 @@ class MetaModel:
         ``llama.prefill`` of the whole prompt and one ``llama.decode_step``
         a token. Sampling draws from a ``torch.Generator`` seeded with
         ``seed`` (the JAX method's key chain differs: sampled text agrees by
-        distribution only)."""
+        distribution only). ``depth_image``: the depth stream of
+        ``llama_ens5_2images``, which the JAX method cannot take."""
         from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
         from a3vlm_tpu_torch.ops.sampling import sample_token
 
         if image is not None and np.ndim(image) == 3:
             image = image[None]
-        image_tokens = self.encode_images(image, impl)
+        if depth_image is not None and np.ndim(depth_image) == 3:
+            depth_image = depth_image[None]
+        image_tokens = self.encode_images(image, depth_image, impl)
         tok, args, device = self.tokenizer, self.args, self.device
         max_seq_len = args.max_seq_len - (
             self.image_words if image_tokens is not None else 0)
@@ -485,10 +583,12 @@ class MetaModel:
 
     @torch.inference_mode()
     def compute_logits(self, examples: List, images=None, bos: bool = True,
-                       eos: bool = False, impl: str = "auto"
-                       ) -> List[np.ndarray]:
+                       eos: bool = False, impl: str = "auto",
+                       depth_images=None) -> List[np.ndarray]:
         """(meta.py:635): right-padded batch forward; per-item float32
-        logits over the true vocab, trimmed to each item's length."""
+        logits over the true vocab, trimmed to each item's length.
+        ``depth_images``: the depth stream of ``llama_ens5_2images``, which
+        the JAX method cannot take."""
         if isinstance(examples, str):
             raise ValueError("compute_logits expects a batched LIST")
         if isinstance(examples[0], str):
@@ -497,7 +597,7 @@ class MetaModel:
         toks = torch.zeros((len(examples), max(lens)), dtype=torch.int64)
         for i, e in enumerate(examples):
             toks[i, : len(e)] = torch.tensor(e)
-        image_tokens = self.encode_images(images, impl)
+        image_tokens = self.encode_images(images, depth_images, impl)
         logits = llama_mod.forward_train(
             self._decoder_params(), self.args, toks.to(self.device),
             image_tokens=image_tokens, impl=impl)
@@ -542,6 +642,25 @@ class MetaModel:
                 bool((item_logits.argmax(-1) == labels).all()))
             result["non_context_logits"].append(item_logits)
         return result
+
+
+def _default_config(llama_type: str, llama_config, max_seq_len: int):
+    """The family's config when the caller gives none (meta.py:67-160):
+    ``ModelArgs()`` (LLaMA-2-13B) with ``max_seq_len`` under
+    ``llama_config``'s fields, bare for ``llama`` and in an ``Ens5Config``
+    for the ens5 families; ``InternlmEns5Config()`` with
+    ``llama_config``'s fields over InternLM2-7B's."""
+    if llama_type == "internlm_ems5_light":
+        cfg = il_mod.InternlmEns5Config()
+        if not llama_config:
+            return cfg
+        fields = {f.name for f in dataclasses.fields(ModelArgs)}
+        return dataclasses.replace(cfg, llama=cfg.llama.replace(**{
+            k: v for k, v in load_config_union(llama_config).items()
+            if k in fields}))
+    args = (model_args_from_json(llama_config, max_seq_len=max_seq_len)
+            if llama_config else ModelArgs(max_seq_len=max_seq_len))
+    return args if llama_type == "llama" else Ens5Config(llama=args)
 
 
 def _overlay(base, new):

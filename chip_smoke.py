@@ -31,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceeds the L2 (``cold_copies``), as a decode step finds each layer's
    cache and weights; the row quantizer's rows (K7's and K8's shapes) must
    equal its plain version bit for bit, inputs from a generator of their
-   own.
+   own. Last, phase 11's shapes (``check_families``, a generator of their
+   own): K1's GEMV at 4096x1024 and the 4096x92544 head, its tile at M
+   1341; K2 at H32/Hkv8 over 1341 keys (batch 1 and 4) and H40 over 2956;
+   K3, K4 fused, K5 and K5q at G 4; K10 at 10 crops.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -162,6 +165,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    merge=True)``) against the same model with them unmerged: prefill
    logits within ``MERGE_REL_TOL``.
 
+11. the other families at full width (after phase 10 and mode (h); it
+   frees its models): (a) ``internlm_ems5_light`` as released
+   (``InternlmEns5Config()``: InternLM2-7B, 32 query heads over 8 kv
+   heads, ffn 14336, vocab 92544 from a synthetic 92544-piece table, rope
+   theta 1e6; DINOv2 at 224 crops and ConvNeXt-XXL at 512 crops of
+   1024 px images; 1295 image words) with int4 decoder weights from a seed,
+   quantized in place leaf by leaf: 4 requests (a 1024 px image and 41-47
+   ids each) through ``generate_tokens`` at batch 4 and, for one of them,
+   at batch 1 vanilla, write-then-attend (ids equal), with the int8 cache
+   and with ``draft_k = 8`` over both caches (ids equal the vanilla run's,
+   or differ first where the kernel path's top-2 logit gap is within its
+   kernel-vs-plain error); K1, K2, K3, K3u, K4 fused, K5, K5q and K10
+   launched, no fallback route; one decode step's device time at batch 4
+   and 1; prefill logits against the plain path. Then the CLI,
+   ``eval_affordance.main --llama_type internlm_ems5_light --input_size
+   1024 --quant --score``, on a 2-layer full-width InternLM2 checkpoint
+   over 2 PNG images of 1024 px x 4 questions at batch 4, records in order
+   and in the schema. (b) ``llama_ens5_2images``: phase 4's 13B weights
+   rebuilt from the seed (the decoder's digest equal to phase 4's) with two
+   depth tags more; 2 requests (an RGB and a depth image of 448 px, 43 and
+   47 ids) at batch 2 and 1 (2910 image words, K2 over 2942 keys, K10 at
+   10 crops a stream); prefill logits against the plain path;
+   ``generate_tokens`` without depth images refuses. (c) ``llama``: the
+   same packed decoder as a text-only model, 4 prompts, whose ids must
+   equal those of a ``llama_ens5`` model over the same tree given no
+   images.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -170,9 +200,10 @@ prints the first differing index with this run's top-2 logit gap there
 and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
-the serving, continuous-batching, latency, training, quantized-mode and
-fine-tuning-loop runs, ``launches_by_path`` splits them as ``serve``,
-``cb``, ``latency``, ``train``, ``quant`` and ``ckpt``; ``bound_ms`` is the larger of the bytes
+the serving, continuous-batching, latency, training, quantized-mode,
+fine-tuning-loop and families runs, ``launches_by_path`` splits them as
+``serve``, ``cb``, ``latency``, ``train``, ``quant``, ``ckpt`` and
+``fam``; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
 PyTorch library call on the same inputs, timed here and used nowhere in
@@ -896,14 +927,15 @@ def check_glu(gen, results):
         del copies
 
 
-def check_flash(gen, results):
-    # the batch-4 prefill, GQA, a chunk of a chunked prefill, a short
-    # right-aligned chunk, and the single-request prefill
-    for B, Hq, Hkv, Sq, Skv in ((4, 40, 40, 1487, 1487),
-                                (4, 40, 8, 1487, 1487),
-                                (4, 40, 40, 512, 1487),
-                                (1, 40, 40, 476, 1500),
-                                (1, 40, 40, 1487, 1487)):
+# (B, Hq, Hkv, Sq, Skv): the batch-4 prefill, GQA, a chunk of a chunked
+# prefill, a short right-aligned chunk, and the single-request prefill
+FLASH_SHAPES = ((4, 40, 40, 1487, 1487), (4, 40, 8, 1487, 1487),
+                (4, 40, 40, 512, 1487), (1, 40, 40, 476, 1500),
+                (1, 40, 40, 1487, 1487))
+
+
+def check_flash(gen, results, shapes=FLASH_SHAPES):
+    for B, Hq, Hkv, Sq, Skv in shapes:
         D = 128
         q = randn(B, Hq, Sq, D, gen=gen)
         k = randn(B, Hkv, Skv, D, gen=gen)
@@ -920,9 +952,13 @@ def check_flash(gen, results):
                f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}", err, ms,
                plain, nbytes(q, k, v, got),
                4 * D * B * Hq * causal_pairs(Sq, Skv), library)
-    # the chunk shape on samples of their own (a generator per seed, as the
-    # card test and scripts/torch_flash_chunk_seeds.py draw them): with the
-    # softmax weights in bf16 alone, 12 of seeds 0-63 left the plain bound
+
+
+def check_flash_samples():
+    """The chunk shape on samples of their own (a generator per seed, as
+    the card test and scripts/torch_flash_chunk_seeds.py draw them): with
+    the softmax weights in bf16 alone, 12 of seeds 0-63 left the plain
+    bound."""
     worst = 0.0
     for seed in range(16):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1090,19 +1126,26 @@ def check_decode(gen, results):
         q, k, v, nk, nv, pos, valid), caches)
 
 
-def check_latency_kernels(gen, results):
+# (B, Hkv, G, S) of the latency path's caches: batch 1 and 4, GQA, a cache
+# length that is no multiple of a stage
+LATENCY_CACHES = ((1, 40, 1, 1544), (4, 40, 1, 1544), (4, 8, 5, 1544),
+                  (2, 40, 1, 1000))
+
+
+def check_latency_kernels(gen, results, caches=LATENCY_CACHES,
+                          spans=(8, 2, 5, 16)):
     """The decode and verify kernels of the latency path against their
-    plain versions: the attend-only bf16 kernel (equal to the fused
-    kernel's output bit for bit), the int8 kernels (the fused one leaving
-    caches bit-identical to the plain version's) and the verify kernels at
-    spans 2, 5, 8 and 16; batch 1 and 4, GQA, a cache length that is no
-    multiple of a stage, ragged ``pos`` and ``valid``. Each row is timed
-    on a cold L2 (a rotation of cache copies; the fused rows write into
+    plain versions at each of ``caches``, ragged ``pos`` and ``valid``:
+    the fused bf16 kernel (its caches bit-identical to the plain
+    version's), the attend-only one (equal to the fused kernel's output
+    bit for bit), the int8 kernels (the fused one leaving caches
+    bit-identical to the plain version's) and the verify kernels at
+    ``spans`` (8 first: the latency path's draft_k). Each row is timed on
+    a cold L2 (a rotation of cache copies; the fused rows write into
     them), with its device time and launches per call from a
     ``torch.profiler`` trace and the wrapper's host time per call."""
     D = 128
-    for B, Hkv, G, S in ((1, 40, 1, 1544), (4, 40, 1, 1544),
-                         (4, 8, 5, 1544), (2, 40, 1, 1000)):
+    for B, Hkv, G, S in caches:
         Hq = Hkv * G
         case = f"B={B} Hkv={Hkv} G={G} S={S} D={D}"
         q = randn(B, 1, Hq, D, gen=gen)
@@ -1118,12 +1161,28 @@ def check_latency_kernels(gen, results):
         qb = q.transpose(1, 2)  # bhsd for the library call
         dense = copies_of((ck, cv), cold_copies(nbytes(ck, cv)))
 
+        # the fused bf16 kernel against its plain version
+        c1, c2 = ck.clone(), cv.clone()
+        new = (xk.reshape(B, Hkv, D), xv.reshape(B, Hkv, D), pos, valid)
+        fused = decode_attention_update(q.reshape(B, Hkv, G, D), c1, c2,
+                                        *new)
+        d1, d2 = ck.clone(), cv.clone()
+        err = compare(f"decode {case}", fused, decode_attention_update_plain(
+            q.reshape(B, Hkv, G, D), d1, d2, *new))
+        if not (torch.equal(c1, d1) and torch.equal(c2, d2)):
+            FAILURES.append(f"decode {case}: caches differ from plain")
+        record(results, "decode_attention", case, err, None,
+               timed_ms(lambda: decode_attention_update_plain(
+                   q.reshape(B, Hkv, G, D), d1, d2, *new), reps=20),
+               2 * rows * Hkv * D * 2 + nbytes(q, fused) + 2 * nbytes(xk, xv),
+               4 * D * Hq * rows,
+               sdpa_cold_ms(qb, dense, mask=valid_mask(valid, S)))
+        time_cold(results[-1], lambda k, v: decode_attention_update(
+            q.reshape(B, Hkv, G, D), k, v, *new), dense)
+        del d1, d2
+
         # attend-only bf16: after the fused kernel wrote the row, its output
         # must equal the fused kernel's exactly
-        c1, c2 = ck.clone(), cv.clone()
-        fused = decode_attention_update(
-            q.reshape(B, Hkv, G, D), c1, c2, xk.reshape(B, Hkv, D),
-            xv.reshape(B, Hkv, D), pos, valid)
         got = decode_attention(q, c1, c2, valid)
         if not torch.equal(got.reshape(B, Hkv, G, D), fused):
             FAILURES.append(f"attend-only decode {case}: differs from the "
@@ -1184,7 +1243,7 @@ def check_latency_kernels(gen, results):
             q, k, v, xk, xv, pos, valid), q8)
         del k1, v1, k2, v2
 
-        for span in (8, 2, 5, 16):  # 8 first: the latency path's draft_k
+        for span in spans:
             qs = randn(B, span, Hq, D, gen=gen)
             qsb = qs.transpose(1, 2)
             mask = valid_mask(valid, S, span)
@@ -1211,12 +1270,12 @@ def check_latency_kernels(gen, results):
         del dense, q8, deq
 
 
-def check_vit(gen, results):
-    """K10 at the three towers' shapes, 20 crops (batch 4) and 5 (one
-    request), on q, k and v as the tower block gives them: split views of
-    one [B, S, 3W] projection, read in place. The device's time alone is
-    printed beside the row."""
-    for B in (20, 5):
+def check_vit(gen, results, crops=(20, 5)):
+    """K10 at the three towers' shapes, at each of ``crops`` (20: batch 4,
+    5: one request), on q, k and v as the tower block gives them: split
+    views of one [B, S, 3W] projection, read in place. The device's time
+    alone is printed beside the row."""
+    for B in crops:
         for H, D in ((16, 64), (16, 88), (24, 64)):
             S = 257
             qkv = randn(B, S, 3 * H * D, gen=gen)
@@ -1237,6 +1296,70 @@ def check_vit(gen, results):
             dev = "not measured" if dev is None else f"{dev:.4f} ms"
             print(f"vit_attention B={B} H={H} D={D}: device time {dev} a "
                   f"call (torch.profiler)")
+
+
+# The shapes phase 11 gives the kernels: InternLM2-7B's decoder linears
+# (K, N of wq and wo, wk and wv, w1 and w3, w2, the head), its prefill of
+# [BOS | 1295 image words | 45 ids] and its cache with grouped-query
+# attention (32 query heads over 8 kv heads, G 4); the 2-image model's
+# prefill of [BOS | 2910 image words | 45 ids] and a 2-image request's
+# towers at 10 crops.
+FAMILY_LINEARS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                  (4096, 92544))
+FAMILY_PREFILL = 1 + 1295 + 45
+RGBD_PREFILL = 1 + 2910 + 45
+
+
+def check_families(results):
+    """Phase 11's shapes, each kernel against its plain version, on inputs
+    from a generator of their own: K1's GEMV at M 1 and 4 on wk/wv's
+    4096x1024 and the 92544-wide head (cold L2), its tile at one InternLM2
+    prefill (M 1341, 4096x4096); K2 at H32/Hkv8 over 1341 keys for batch 1
+    and 4 and at H40 over 2956 keys for batch 1; the decode and verify
+    kernels at G 4 for batch 1 and 4 (``check_latency_kernels``, span 9);
+    K10 at the three towers' shapes at 10 crops (``check_vit``)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for K, N in FAMILY_LINEARS[1::3]:
+        qw = _quantize_leaf_int4(random_weight(K, N, gen))
+        copies = weight_copies(qw)
+        for M in (1, 4):
+            x = randn(M, K, gen=gen)
+            x2 = padded(x, qw)
+            got = int4_matmul(x, qw)
+            err = compare(f"int4 M={M} K={K} N={N}", got,
+                          int4_matmul(x, qw, impl="plain"))
+            record(results, "int4_matmul", f"M={M} K={K} N={N}",
+                   err, None, timed_ms(lambda: int4_matmul_2d_plain(
+                       x2, qw.q, qw.scale, qw.group), reps=1),
+                   nbytes(x2, qw.q, qw.scale, got), 2 * M * K * N,
+                   timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
+                            reps=3))
+            time_cold(results[-1], lambda q, s: int4_matmul_2d(
+                x2, q, s, qw.group), copies)
+        del copies, qw
+    M, (K, N) = FAMILY_PREFILL, FAMILY_LINEARS[0]
+    qw = _quantize_leaf_int4(random_weight(K, N, gen))
+    x = randn(M, K, gen=gen)
+    got = int4_matmul(x, qw)
+    err = compare(f"int4 M={M} K={K} N={N}", got,
+                  int4_matmul(x, qw, impl="plain"))
+    record(results, "int4_matmul", f"M={M} K={K} N={N}", err,
+           timed_ms(lambda: int4_matmul_2d(x, qw.q, qw.scale, qw.group),
+                    reps=3),
+           timed_ms(lambda: int4_matmul_2d_plain(x, qw.q, qw.scale,
+                                                 qw.group), reps=3),
+           nbytes(x, qw.q, qw.scale, got), 2 * M * K * N,
+           timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
+                    reps=3))
+    del qw
+
+    check_flash(gen, results, ((1, 32, 8, FAMILY_PREFILL, FAMILY_PREFILL),
+                               (4, 32, 8, FAMILY_PREFILL, FAMILY_PREFILL),
+                               (1, 40, 40, RGBD_PREFILL, RGBD_PREFILL)))
+    # InternLM2's cache 40 rows past its prefill (G 4), span 9: draft_k=8
+    S = -(-(FAMILY_PREFILL + 40) // 8) * 8
+    check_latency_kernels(gen, results, ((1, 8, 4, S), (4, 8, 4, S)), (9,))
+    check_vit(gen, results, crops=(10,))
 
 
 def kernel_times(fn, reps: int) -> dict:
@@ -1510,6 +1633,7 @@ def run_main_path(card: str):
     torch.cuda.synchronize()
     print(f"[{card}] model built (random weights, int4 decoder) in "
           f"{time.perf_counter() - t0:.1f} s")
+    PHASE4_DECODER["digest"] = decoder_digest(model.params["llama"])
 
     prompts, images = serving_inputs()
     lengths = [len(p) for p in prompts]
@@ -1654,11 +1778,12 @@ EVAL_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
                 "vit_attention")
 
 
-def write_eval_tasks(root, card: str) -> str:
+def write_eval_tasks(root, card: str, shape=(480, 640)) -> str:
     """Phase 8's task file: 2 images x 4 questions, made from a seed. PNG
-    at 640x480 where Pillow imports, else point clouds (``.npy``, xyz +
-    rgb), which ``VQADataset`` renders to an image; the file name routes
-    ``fsm_for_task`` to the joint grammar."""
+    of ``shape`` (height, width; phase 11's at 1024 px) where Pillow
+    imports, else point clouds (``.npy``, xyz + rgb), which ``VQADataset``
+    renders to an image; the file name routes ``fsm_for_task`` to the
+    joint grammar."""
     import numpy as np
 
     rng = np.random.default_rng(8)
@@ -1670,7 +1795,7 @@ def write_eval_tasks(root, card: str) -> str:
     for i in range(2):
         if Image is not None:
             path = root / f"object{i}.png"
-            pixels = rng.integers(0, 256, (480, 640, 3)).astype(np.uint8)
+            pixels = rng.integers(0, 256, (*shape, 3)).astype(np.uint8)
             Image.fromarray(pixels).save(path)
         else:
             path = root / f"object{i}.npy"
@@ -1679,7 +1804,8 @@ def write_eval_tasks(root, card: str) -> str:
             np.save(path, cloud)
         paths.append(str(path))
     print(f"[{card}] eval task images: "
-          + ("PNG 640x480" if Image is not None else "point clouds (.npy)"))
+          + (f"PNG {shape[1]}x{shape[0]}" if Image is not None
+             else "point clouds (.npy)"))
     task = root / "joint_rec_tasks.json"
     task.write_text(json.dumps([
         {"image": p, "conversations": [
@@ -3278,6 +3404,354 @@ def _tree_tensors(tree) -> list:
     return out
 
 
+# Phase 11: the other families at full width. The kernels each run of a
+# family must launch, and the ids of phase 4's decoder (its packed head and
+# first query weight summed), which (b) and (c) rebuild from the seed.
+INTERNLM_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
+                    "decode_attention_attend", "decode_attention_q8_fused",
+                    "verify_attention", "verify_attention_q8",
+                    "vit_attention")
+RGBD_KERNELS = ("int4_matmul", "flash_attention", "decode_attention",
+                "vit_attention")
+TEXT_KERNELS = ("int4_matmul", "flash_attention", "decode_attention")
+PHASE4_DECODER: dict = {}
+
+
+def decoder_digest(decoder) -> tuple:
+    """Sums of the packed head and of layer 0's packed wq: equal sums say
+    two int4 decoders came from the same weights."""
+    return (int(decoder["output"]["weight"].q.long().sum()),
+            int(decoder["layers"][0]["attention"]["wq"]["weight"].q.long()
+                .sum()))
+
+
+def clip_images(n: int, size: int, seed: int):
+    """n seeded size x size images, CLIP-normalized, bf16, on the card."""
+    from a3vlm_tpu_torch.models import ens5
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mean = torch.tensor(ens5.CLIP_MEAN, device="cuda")
+    std = torch.tensor(ens5.CLIP_STD, device="cuda")
+    pixels = torch.rand(n, size, size, 3, generator=gen, device="cuda")
+    return ((pixels - mean) / std).to(torch.bfloat16)
+
+
+def seeded_prompts(seed: int, vocab: int, lengths) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [[1] + torch.randint(3, vocab, (n - 1,), generator=gen,
+                                device="cuda").tolist() for n in lengths]
+
+
+def fam_run(card: str, label: str, model, prompts, totals: dict, expect,
+            **kw) -> list:
+    """One greedy ``generate_tokens`` call of 32 new ids: its launches
+    added to ``totals``, each kernel of ``expect`` launched, its stage
+    times, peak memory and ids digest printed, the ids kept under
+    ``label``."""
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    outs = model.generate_tokens(prompts, max_gen_len=32, temperature=0.0,
+                                 **kw)
+    torch.cuda.synchronize()
+    delta = launches_since(before)
+    for n, c in delta.items():
+        totals[n] += c
+    require_counts(delta, expect, f"fam {label}")
+    st = model.last_stats
+    steps = max(st["decode_steps"], 1)
+    print(f"[{card}] fam {label}: towers {st['towers_ms']:.1f} ms, prefill "
+          f"{st['prefill_ms']:.1f} ms, decode {st['decode_ms']:.1f} ms over "
+          f"{st['decode_steps']} steps ({st['decode_ms'] / steps:.2f} ms "
+          f"each); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; launches { {n: c for n, c in delta.items() if c} }; "
+          f"lengths {[len(o) for o in outs]}, ids digest {ids_digest(outs)}")
+    if len(outs) != len(prompts) or any(
+            not (0 <= t < model.true_vocab) for o in outs for t in o):
+        raise AssertionError(f"fam {label}: malformed ids {outs}")
+    note_ids(card, f"fam {label}", outs)
+    return outs
+
+
+def fam_logits(model, tokens, image_kw: dict, impl: str):
+    """Prefill logits [B, V] of [BOS | image words | tokens] through one
+    path (the towers too)."""
+    from a3vlm_tpu_torch.models import llama
+
+    with torch.inference_mode():
+        img = model.encode_images(image_kw.get("images"),
+                                  image_kw.get("depth_images"), impl=impl)
+        W = 0 if img is None else img.shape[1]
+        cache = llama.KVCache.create(model.args, tokens.shape[0],
+                                     tokens.shape[1] + W,
+                                     dtype=torch.bfloat16, device="cuda")
+        logits = llama.prefill(model.decoder, model.args, cache, tokens,
+                               img, impl)[0]
+    return img, logits
+
+
+def fam_hold_ids(card: str, label: str, model, prompt, image_kw, ids, ref,
+                 ref_label: str) -> None:
+    """A mode's ids against the vanilla run's: equal, or else, at the first
+    differing id, the kernel path's top-2 logit gap there must not exceed
+    the kernel-vs-plain error of the same logits (a near tie two summation
+    orders may break either way, as phase 9 holds its modes)."""
+    at = first_difference(ids, ref)
+    line = f"[{card}] fam {label}: ids "
+    if at is None:
+        print(line + f"equal to ({ref_label})'s")
+        return
+    toks = torch.tensor([list(prompt) + list(ref[:at])], device="cuda")
+    got = fam_logits(model, toks, image_kw, "auto")[1][0, :model.true_vocab]
+    want = fam_logits(model, toks, image_kw, "plain")[1][0,
+                                                         :model.true_vocab]
+    top = got.float().topk(2).values
+    gap, err = float(top[0] - top[1]), float((got - want).abs().max())
+    line += (f"first differ from ({ref_label})'s at index {at}: top-2 logit "
+             f"gap {gap:.4f}, kernel vs plain max |logit diff| {err:.4f}")
+    if gap > err:
+        raise AssertionError(line + ": the gap exceeds the error")
+    print(line)
+
+
+def hold_prefill(card: str, label: str, model, prompts, image_kw) -> None:
+    """The prefill logits (and image tokens) of the kernel path against the
+    plain path on the same weights, phase 4's tolerance; the prompts cut to
+    their prefill bucket."""
+    from a3vlm_tpu_torch.generation import _prefill_bucket
+
+    P = _prefill_bucket(min(len(p) for p in prompts))
+    tokens = torch.tensor([p[:P] for p in prompts], device="cuda")
+    img_k, lg_k = fam_logits(model, tokens, image_kw, "auto")
+    img_p, lg_p = fam_logits(model, tokens, image_kw, "plain")
+    if not (torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    rel = float((lg_k - lg_p).norm() / lg_p.norm())
+    agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
+    line = (f"[{card}] fam {label}: prefill of {P} ids + "
+            f"{model.image_words} image words at batch {len(prompts)}, "
+            f"logits rel err kernel vs plain {rel:.3e} (limit "
+            f"{LOGITS_REL_TOL}); first-token agreement {agree}/"
+            f"{len(prompts)}")
+    if img_k is not None:
+        line += (f"; image tokens rel err "
+                 f"{float((img_k - img_p).float().norm() / img_p.float().norm()):.3e}")
+    print(line)
+    if rel > LOGITS_REL_TOL:
+        raise AssertionError(f"{label}: prefill logits rel err {rel:.3e}")
+
+
+def write_internlm_checkpoint(root):
+    """InternLM2-7B's decoder at full width cut to 2 layers, its
+    ``visual_proj`` and image tags (bf16, weights from a seed) as a
+    consolidated checkpoint with ``meta.json`` naming the family and a
+    ``config.json`` of its decoder."""
+    from a3vlm_tpu_torch.models.internlm_ems5_light import InternlmEns5Config
+
+    cfg = InternlmEns5Config()
+    args = cfg.llama.replace(n_layers=2)
+    D, F_, V = args.dim, args.ffn_hidden_dim, args.vocab_size
+    KV = args.kv_heads * args.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    shapes = {"tok_embeddings.weight": (V, D), "norm.weight": (D,),
+              "output.weight": (V, D),
+              "visual_proj.0.weight": (D, cfg.ens_dim),
+              "visual_proj.0.bias": (D,), "visual_proj.1.weight": (D,),
+              "visual_proj.1.bias": (D,), "start_img": (1, 1, D),
+              "end_img": (1, 1, D)}
+    for i in range(args.n_layers):
+        for w, shape in (("wq", (D, D)), ("wk", (KV, D)), ("wv", (KV, D)),
+                         ("wo", (D, D))):
+            shapes[f"layers.{i}.attention.{w}.weight"] = shape
+        for w, shape in (("w1", (F_, D)), ("w2", (D, F_)), ("w3", (F_, D))):
+            shapes[f"layers.{i}.feed_forward.{w}.weight"] = shape
+        for n in ("attention_norm", "ffn_norm"):
+            shapes[f"layers.{i}.{n}.weight"] = (D,)
+    sd = {f"llma.{k}": torch.randn(*shape, generator=gen,
+                                   device="cuda").to(torch.bfloat16).cpu()
+          for k, shape in shapes.items()}
+    ckpt = root / "internlm_ckpt"
+    ckpt.mkdir()
+    torch.save({"model": sd}, ckpt / "consolidated.00-of-01.model.pth")
+    (ckpt / "meta.json").write_text(json.dumps(
+        {"llama_type": "internlm_ems5_light"}))
+    (ckpt / "config.json").write_text(json.dumps(
+        {"dim": D, "n_layers": args.n_layers, "n_heads": args.n_heads,
+         "n_kv_heads": args.n_kv_heads, "vocab_size": -1}))
+    return ckpt, sum(v.numel() * 2 for v in sd.values()) / 2 ** 30
+
+
+def run_internlm(card: str, root, totals: dict) -> None:
+    """Phase 11 (a): the released 7B's family at full width."""
+    from a3vlm_tpu_torch.eval_affordance import main as eval_main
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    V = 92544
+    t0 = time.perf_counter()
+    model = MetaModel("internlm_ems5_light", with_visual=True,
+                      dtype=torch.bfloat16, tokenizer=_PieceTable(V), seed=0)
+    model.quantize(bits=4)  # in place, leaf by leaf
+    torch.cuda.synchronize()
+    args = model.args
+    print(f"[{card}] fam (a) internlm_ems5_light built in "
+          f"{time.perf_counter() - t0:.1f} s (random weights, int4 decoder): "
+          f"dim {args.dim}, {args.n_layers} layers, {args.n_heads} heads over "
+          f"{args.kv_heads} kv heads, ffn {args.ffn_hidden_dim}, vocab "
+          f"{args.vocab_size}, rope theta {args.rope_theta:g}; "
+          f"{model.image_words} image words; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    if (model.image_words, args.kv_heads, args.ffn_hidden_dim) != (
+            1295, 8, 14336):
+        raise AssertionError("internlm_ems5_light: not the released config")
+    images = clip_images(4, 1024, seed=11)
+    prompts = seeded_prompts(11, V, (41, 43, 45, 47))
+    # warm-up at both batches: library plans and the allocator
+    model.generate_tokens(prompts, images=images, max_gen_len=2)
+    model.generate_tokens(prompts[2:3], images=images[2:3], max_gen_len=2)
+    fam_run(card, "(a) internlm B4", model, prompts, totals,
+            RGBD_KERNELS, images=images)
+    decode_profile(card, "fam (a) internlm, batch 4", model, prompts, images)
+    one, img1 = prompts[2:3], {"images": images[2:3]}
+    ref = fam_run(card, "(a) internlm B1 vanilla", model, one, totals,
+                  ("decode_attention",), **img1)[0]
+    decode_profile(card, "fam (a) internlm, batch 1", model, one,
+                   img1["images"])
+    dec.FUSE_UPDATE_ATTEND = False
+    try:
+        two = fam_run(card, "(a) internlm B1 write then attend", model, one,
+                      totals, ("decode_attention_attend",), **img1)[0]
+    finally:
+        dec.FUSE_UPDATE_ATTEND = True
+    if two != ref:
+        raise AssertionError("(a) write then attend: ids differ")
+    model.kv_cache_bits = 8
+    q8 = fam_run(card, "(a) internlm B1 int8 cache", model, one, totals,
+                 ("decode_attention_q8_fused",), **img1)[0]
+    spec8 = fam_run(card, "(a) internlm B1 draft_k=8 int8 cache", model,
+                    one, totals, ("verify_attention_q8",), draft_k=8,
+                    **img1)[0]
+    model.kv_cache_bits = None
+    spec = fam_run(card, "(a) internlm B1 draft_k=8 bf16 cache", model, one,
+                   totals, ("verify_attention",), draft_k=8, **img1)[0]
+    print(f"[{card}] fam (a) last_spec_stats {model.last_spec_stats}")
+    for label, ids, want, ref_label in (
+            ("int8 cache", q8, ref, "B1 vanilla"),
+            ("draft_k=8 int8 cache", spec8, q8, "B1 int8 cache"),
+            ("draft_k=8 bf16 cache", spec, ref, "B1 vanilla")):
+        fam_hold_ids(card, f"(a) {label}", model, one[0], img1, ids, want,
+                     ref_label)
+    hold_prefill(card, "(a) internlm", model, prompts, {"images": images})
+    del model, images
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI on a 2-layer full-width checkpoint, 1024 px PNGs
+    task = write_eval_tasks(root, card, shape=(1024, 1024))
+    ckpt, size = write_internlm_checkpoint(root)
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    results = eval_main(
+        ["--pretrained_path", str(ckpt), "--llama_type",
+         "internlm_ems5_light", "--input_size", "1024", "--dataset", task,
+         "--output_dir", str(root / "internlm_cli"), "--batch_size", "4",
+         "--max_gen_len", "8", "--temperature", "0", "--quant", "--score",
+         "--device", "cuda"], tokenizer=_PieceTable(V))
+    secs = time.perf_counter() - t0
+    delta = launches_since(before)
+    for n, c in delta.items():
+        totals[n] += c
+    require_counts(delta, RGBD_KERNELS, "fam (a) eval CLI")
+    require_no_fallback(card, "fam (a) eval CLI")
+    n = hold_records(results, task, "fam (a) eval CLI")
+    print(f"[{card}] fam (a) eval CLI --llama_type internlm_ems5_light "
+          f"--input_size 1024 --quant --score ({size:.2f} GiB 2-layer "
+          f"checkpoint): {n} records in order, {secs:.1f} s with the load; "
+          f"launches { {k: delta[k] for k in RGBD_KERNELS} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_rgbd_and_text(card: str, totals: dict) -> None:
+    """Phase 11 (b) and (c): phase 4's 13B weights rebuilt from the seed as
+    the 2-image model (two depth tags more from the same generator), then
+    its packed decoder as a text-only ``llama`` model."""
+    from a3vlm_tpu_torch.config import Ens5Config, ModelArgs
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    t0 = time.perf_counter()
+    cfg = Ens5Config(llama=ModelArgs(max_seq_len=4096))
+    model = MetaModel("llama_ens5_2images", with_visual=True,
+                      dtype=torch.bfloat16, tokenizer=_PieceTable(32000),
+                      model_cfg=cfg, seed=0)
+    model.quantize(bits=4)
+    torch.cuda.synchronize()
+    digest = decoder_digest(model.decoder)
+    print(f"[{card}] fam (b) llama_ens5_2images built in "
+          f"{time.perf_counter() - t0:.1f} s: {model.image_words} image "
+          f"words; decoder digest {digest} (phase 4's "
+          f"{PHASE4_DECODER.get('digest')})")
+    if model.image_words != 2910 or (
+            PHASE4_DECODER and digest != PHASE4_DECODER["digest"]):
+        raise AssertionError("(b): not phase 4's weights or image words")
+    images = clip_images(2, 448, seed=12)
+    depth = clip_images(2, 448, seed=13)
+    prompts = seeded_prompts(12, 32000, (43, 47))
+    both = {"images": images, "depth_images": depth}
+    model.generate_tokens(prompts, max_gen_len=2, **both)  # warm-up
+    fam_run(card, "(b) rgbd B2", model, prompts, totals, RGBD_KERNELS,
+            **both)
+    fam_run(card, "(b) rgbd B1", model, prompts[:1], totals, RGBD_KERNELS,
+            images=images[:1], depth_images=depth[:1])
+    hold_prefill(card, "(b) rgbd", model, prompts, both)
+    try:
+        model.generate_tokens(prompts, images=images, max_gen_len=2)
+    except ValueError as e:
+        print(f"[{card}] fam (b) generate without depth_images refused: {e}")
+    else:
+        raise AssertionError("(b): generate without depth_images ran")
+
+    # (c) the packed decoder as a text-only model, against the llama_ens5
+    # model over the same tree given no images
+    text = MetaModel("llama", params=model.decoder, model_cfg=model.args,
+                     tokenizer=_PieceTable(32000))
+    ens5_view = MetaModel(
+        "llama_ens5", model_cfg=cfg, tokenizer=_PieceTable(32000),
+        params={k: v for k, v in model.params.items() if "depth" not in k})
+    prompts = seeded_prompts(14, 32000, (39, 43, 45, 49))
+    text.generate_tokens(prompts, max_gen_len=2)  # warm-up
+    ids = fam_run(card, "(c) llama text B4", text, prompts, totals,
+                  TEXT_KERNELS)
+    want = ens5_view.generate_tokens(prompts, max_gen_len=32,
+                                     temperature=0.0)
+    print(f"[{card}] fam (c) llama ids "
+          + ("equal" if ids == want else "DIFFER from")
+          + f" llama_ens5's without images (digest {ids_digest(want)})")
+    if ids != want:
+        raise AssertionError("(c): llama ids differ from llama_ens5's")
+    del text, ens5_view, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_families(card: str) -> dict:
+    """Phase 11; returns the kernels' launch counts of its driven runs
+    (the generate calls and the CLI; not the profiles nor the checks)."""
+    totals = {n: 0 for n in KERNELS}
+    t11 = time.perf_counter()
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_internlm(card, Path(tmp), totals)
+    require_no_fallback(card, "fam (a)")
+    run_rgbd_and_text(card, totals)
+    require_no_fallback(card, "fam (b), (c)")
+    require_counts(totals, INTERNLM_KERNELS, "families")
+    print(f"[{card}] phase 11: {time.perf_counter() - t11:.1f} s; launches "
+          f"{ {n: c for n, c in totals.items() if c} }")
+    return totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3321,11 +3795,13 @@ def main(argv=None) -> int:
         check_quantizer(results)
         check_glu(gen, results)
         check_flash(gen, results)
+        check_flash_samples()
         check_flash_extension(gen, results)
         check_flash_bwd(gen, results)
         check_decode(gen, results)
         check_latency_kernels(gen, results)
         check_vit(gen, results)
+        check_families(results)
     for r in results:
         # the tensor-core kernels also get their achieved rate
         # (the row's own operation or byte count over the kernel's time)
@@ -3404,6 +3880,10 @@ def main(argv=None) -> int:
         quant[name] += count
     require_no_fallback(card, "quantized mode (h)")
     require_counts(quant, QUANT_KERNELS, "quantized-mode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 11. the other families at full width
+    fam = run_families(card)
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -3413,7 +3893,8 @@ def main(argv=None) -> int:
                    "latency": latency.get(name, 0),
                    "train": train.get(name, 0),
                    "quant": quant.get(name, 0),
-                   "ckpt": ckpt.get(name, 0)}
+                   "ckpt": ckpt.get(name, 0),
+                   "fam": fam.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

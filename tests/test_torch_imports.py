@@ -53,7 +53,9 @@ def test_port_entry_points_load_neither_package():
             "a3vlm_tpu_torch.train.param_groups, "
             "a3vlm_tpu_torch.tools.merge_lora, "
             "a3vlm_tpu_torch.tools.convert_weights_to_hf, "
-            "a3vlm_tpu_torch.tools.weight_operate; "
+            "a3vlm_tpu_torch.tools.weight_operate, "
+            "a3vlm_tpu_torch.models.internlm_ems5_light, "
+            "a3vlm_tpu_torch.models.ens5_2images; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'a3vlm_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1408,3 +1408,132 @@ def test_load_adapter_checkpoint_cuda(gen, tmp_path):
     assert got.is_cuda and torch.equal(got, norm)
     assert served.generate_tokens(prompts, max_gen_len=8,
                                   stop_tokens=()) == want
+
+
+# The other families' shapes (InternLM2-7B's grouped-query attention, 32
+# query heads over 8 kv heads with D 128, its prefill of [BOS | 1295 image
+# words | 45 ids] and its decoder linears; the 2-image model's prefill of
+# [BOS | 2910 image words | 45 ids]).
+@pytest.mark.parametrize("B,hq,hkv,S", [(1, 32, 8, 1341), (4, 32, 8, 1341),
+                                        (1, 40, 40, 2956)])
+def test_flash_attention_families_cuda(gen, B, hq, hkv, S):
+    q = _randn(B, hq, S, 128, gen=gen)
+    k, v = _randn(B, hkv, S, 128, gen=gen), _randn(B, hkv, S, 128, gen=gen)
+    _check(flash_attention_bhsd(q, k, v, causal=True),
+           flash_attention_bhsd_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_decode_attention_gqa4_cuda(gen, B):
+    """K3 (fused write), K3u and K4 fused at G 4 over a cache past the
+    InternLM2 prefill: each against its plain version, the caches bit for
+    bit."""
+    Hkv, G, S, D = 8, 4, 1384, 128
+    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S)
+    k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    args = (xk.reshape(B, Hkv, D), xv.reshape(B, Hkv, D), pos, pos + 1)
+    _check(decode_attention_update(q.reshape(B, Hkv, G, D), k1, v1, *args),
+           decode_attention_update_plain(q.reshape(B, Hkv, G, D), k2, v2,
+                                         *args))
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    _check(dec.decode_attention(q, k1, v1, pos + 1),
+           dec.decode_attention_plain(q, k1, v1, pos + 1))
+    kq, vq = _quantized(ck, cv)
+    q1, w1, q2, w2 = (QuantizedKV(c.qv.clone(), c.scale.clone())
+                      for c in (kq, vq, kq, vq))
+    _check(dec.decode_attention_update_quant(q, q1, w1, xk, xv, pos, pos + 1),
+           dec.decode_attention_update_quant_plain(q, q2, w2, xk, xv, pos,
+                                                   pos + 1))
+    for a, b in zip((*q1, *w1), (*q2, *w2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_verify_attention_gqa4_cuda(gen, B):
+    """K5 and K5q at G 4 with a draft_k=8 window (span 9: 36 query rows a
+    kv head)."""
+    q, ck, cv, _, _, pos = _cache_case(gen, B, 8, 4, 1384, span=9)
+    _verify_both(q, ck, cv, pos + 1)
+
+
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4096, 92544)])
+def test_int4_gemv_families_cuda(gen, M, K, N):
+    """K1's GEMV on InternLM2's wk/wv and its 92544-wide head."""
+    _hold_gemv("v1", _gemv_weight(K, N, gen), M, gen)
+
+
+def _family_kernels_vs_plain(model, tokens, image_kw):
+    """Image tokens and prefill logits of a model on the card through the
+    kernel path and the plain path: (rel err of the tokens, of the
+    logits)."""
+    from a3vlm_tpu_torch.models.llama import KVCache, prefill
+
+    out = {}
+    with torch.inference_mode():
+        for impl in ("auto", "plain"):
+            img = model.encode_images(**image_kw, impl=impl)
+            cache = KVCache.create(model.args, tokens.shape[0],
+                                   tokens.shape[1] + img.shape[1],
+                                   dtype=torch.bfloat16, device="cuda")
+            out[impl] = (img.float(), prefill(model.decoder, model.args,
+                                              cache, tokens, img,
+                                              impl)[0].float())
+    return tuple(float((a - b).norm() / b.norm())
+                 for a, b in zip(out["auto"], out["plain"]))
+
+
+def test_tiny_internlm_on_the_card_cuda(gen):
+    """A tiny ``internlm_ems5_light`` (its towers at 20 crops, a decoder of
+    head dim 128 with 2 query heads a kv head, int4) on the card: image
+    tokens and prefill logits of the kernel path within 2e-2 relative of
+    the plain path's, and a greedy request through ``generate_tokens``."""
+    import dataclasses
+
+    from a3vlm_tpu_torch.config import ModelArgs
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.models import internlm_ems5_light as il
+
+    cfg = dataclasses.replace(il.tiny_config(256), llama=ModelArgs(
+        dim=512, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=256,
+        multiple_of=64, rope_theta=1e6, max_seq_len=512))
+    model = MetaModel("internlm_ems5_light", with_visual=True,
+                      dtype=torch.bfloat16, vocab_size=256, model_cfg=cfg,
+                      seed=0, device="cuda")
+    model.quantize(bits=4)
+    images = torch.randn(4, 128, 128, 3, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    tokens = torch.randint(3, 256, (4, 40), generator=gen, device="cuda")
+    img_rel, rel = _family_kernels_vs_plain(model, tokens,
+                                            {"images": images})
+    assert img_rel < 2e-2 and rel < 2e-2, (img_rel, rel)
+    out = model.generate_tokens(tokens[:1].tolist(), images=images[:1],
+                                max_gen_len=8)
+    assert len(out) == 1 and all(0 <= t < 256 for t in out[0])
+
+
+def test_tiny_2images_on_the_card_cuda(gen):
+    """A tiny ``llama_ens5_2images`` on the card: both streams through the
+    towers, image tokens and prefill logits within 2e-2 relative of the
+    plain path's; without depth images it refuses."""
+    import dataclasses
+
+    from a3vlm_tpu_torch.config import ModelArgs, tiny_ens5_config
+    from a3vlm_tpu_torch.meta import MetaModel
+
+    cfg = dataclasses.replace(tiny_ens5_config(256), llama=ModelArgs(
+        dim=256, n_layers=2, n_heads=2, vocab_size=256, multiple_of=64,
+        max_seq_len=512))
+    model = MetaModel("llama_ens5_2images", with_visual=True,
+                      dtype=torch.bfloat16, vocab_size=256, model_cfg=cfg,
+                      seed=0, device="cuda")
+    assert model.image_words == 2 * cfg.image_words
+    images, depth = (torch.randn(2, 56, 56, 3, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(2))
+    tokens = torch.randint(3, 256, (2, 40), generator=gen, device="cuda")
+    img_rel, rel = _family_kernels_vs_plain(
+        model, tokens, {"images": images, "depth_images": depth})
+    assert img_rel < 2e-2 and rel < 2e-2, (img_rel, rel)
+    with pytest.raises(ValueError, match="depth"):
+        model.generate_tokens(tokens.tolist(), images=images, max_gen_len=2)
