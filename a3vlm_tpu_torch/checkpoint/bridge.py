@@ -111,10 +111,10 @@ def _unstack_or_none(stacked: dict):
 def params_from_numpy(tree: dict[str, Any],
                       device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.float32) -> dict[str, Any]:
-    """Convert a numpy copy of a JAX parameter tree (any model of the
-    slice: the llama decoder alone or the whole llama_ens5 tree, with or
-    without a ``"lora"`` adapter tree, whose stacked ``layers`` become
-    per-layer lists like the decoder's)."""
+    """Convert a numpy copy of a JAX parameter tree (any family's: a bare
+    llama or falcon decoder, or a whole tree with the decoder under
+    ``"llama"``, with or without a ``"lora"`` adapter tree, whose stacked
+    ``layers`` become per-layer lists like the decoder's)."""
     return _convert(tree, None,
                     lambda x, dt: _tensor(x, device, dt or dtype))
 

@@ -18,18 +18,20 @@
 
 #include "decode_common.cuh"
 
-// Blocks of the kernel for G query rows per kv head that the card holds at
-// once; the wrapper sizes the cluster from it. A negative value is a
+// Blocks of the kernel for G query rows per kv head at head dim D that the
+// card holds at once; the wrapper sizes the cluster from it. A negative value is a
 // cudaError_t.
-extern "C" int a3_decode_slots(int G) { return dc_slots_any<false>(G); }
+extern "C" int a3_decode_slots(int G, int D) {
+  return dc_slots_any<false>(G, D);
+}
 
 // q [B, Hkv, G, D]; caches [B, Hkv, S, D]; nk/nv [B, Hkv, D]; pos/valid [B];
-// out [B, Hkv, G, D]; C blocks a cluster (1..8). pos, nk and nv null:
-// attention only (the caches are not written).
+// out [B, Hkv, G, D]; D 64 or 128; C blocks a cluster (1..8). pos, nk and
+// nv null: attention only (the caches are not written).
 extern "C" int a3_decode_attend(const void* q, void* ck, void* cv,
                                 const void* nk, const void* nv,
                                 const void* pos, const void* valid, void* out,
-                                int B, int Hkv, int G, int S, int C,
+                                int B, int Hkv, int G, int S, int D, int C,
                                 float scale_log2, void* stream) {
   DcArgs a = {};
   a.q = static_cast<const bf16*>(q);
@@ -44,5 +46,5 @@ extern "C" int a3_decode_attend(const void* q, void* ck, void* cv,
   a.G = G;
   a.S = S;
   a.scale_log2 = scale_log2;
-  return dc_launch_any<false>(a, B, C, stream);
+  return dc_launch_any<false>(a, B, D, C, stream);
 }

@@ -22,7 +22,9 @@
 
 #include "decode_common.cuh"
 
-extern "C" int a3_decode_slots_q8(int G) { return dc_slots_any<true>(G); }
+extern "C" int a3_decode_slots_q8(int G, int D) {
+  return dc_slots_any<true>(G, D);
+}
 
 // As a3_decode_attend over int8 panels with float32 scales; pos, nk and nv
 // null: attention only.
@@ -30,7 +32,7 @@ extern "C" int a3_decode_attend_q8(const void* q, void* ck, void* cv,
                                    void* ks, void* vs, const void* nk,
                                    const void* nv, const void* pos,
                                    const void* valid, void* out, int B,
-                                   int Hkv, int G, int S, int C,
+                                   int Hkv, int G, int S, int D, int C,
                                    float scale_log2, void* stream) {
   DcArgs a = {};
   a.q = static_cast<const bf16*>(q);
@@ -50,5 +52,5 @@ extern "C" int a3_decode_attend_q8(const void* q, void* ck, void* cv,
   // warps read the scales from device memory
   a.staged = S % 4 == 0;
   a.scale_log2 = scale_log2;
-  return dc_launch_any<true>(a, B, C, stream);
+  return dc_launch_any<true>(a, B, D, C, stream);
 }

@@ -12,7 +12,10 @@
 // rows [0, valid[b]) in an f32 online softmax in base 2. The int8 form
 // multiplies a row's score by its key scale and its softmax weight by its
 // value scale, and sums the row's total over the weights alone. A query row
-// that sees no key gives zeros. D == 128.
+// that sees no key gives zeros. The head dim D is a template argument, 128
+// (the LLaMA decoders) or 64 (falcon); a D 64 instance keeps each lane's
+// dims of D 128 (half the lanes a row, twice the rows a warp step) and a
+// stage's 8 KB of each panel (twice the rows a stage).
 //
 // What bounds it on an H100: bytes, the rows below valid[b] of both caches,
 // read once for all G query rows of their head. The design:
@@ -41,7 +44,7 @@
 //   are zeroed before the product, so a NaN there never reaches the output;
 //   the other stages take a form without selects;
 // - the combine runs through distributed shared memory, with no cluster
-//   barrier on its path: each block folds its warps' (max, sum, acc[128])
+//   barrier on its path: each block folds its warps' (max, sum, acc[D])
 //   per query row into one partial, stores it into its slot of rank 0's
 //   shared memory and arrives (release, cluster scope) on rank 0's combine
 //   barrier; rank 0 waits there (acquire), combines the C partials and
@@ -86,7 +89,6 @@ using a3mma::mbar_wait_cluster;
 using a3mma::remote_arrive;
 using a3mma::smem_u32;
 
-constexpr int DC_D = 128;
 constexpr int DC_WARPS = 8;                   // consumer warps
 constexpr int DC_CONSUMERS = DC_WARPS * 32;
 constexpr int DC_THREADS = DC_CONSUMERS + 32;  // and the producer warp
@@ -95,14 +97,16 @@ constexpr int DC_AHEAD = 2;        // stages in flight ahead of the landed
 constexpr int DC_STEPS = 2;        // warp steps per softmax chunk
 constexpr int DC_MAX_CLUSTER = 8;  // the portable cluster size
 
-template <bool QUANT, int GT>
+template <bool QUANT, int GT, int D>
 struct DcCfg {
-  static constexpr int ROW_BYTES = QUANT ? DC_D : DC_D * 2;
-  static constexpr int ROWS = QUANT ? 64 : 32;          // rows per stage
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int ROW_BYTES = QUANT ? D : D * 2;
+  static constexpr int ROWS = 8192 / ROW_BYTES;         // rows per stage
   // lanes per row: 16-byte reads where the registers allow (this lane's
   // dims of every query row and of their sums, DPL * GT each, at most 32)
-  static constexpr int LPR = GT == 8 ? 32 : QUANT && GT == 1 ? 8 : 16;
-  static constexpr int DPL = DC_D / LPR;                // dims per lane
+  static constexpr int LPR =
+      (GT == 8 ? 32 : QUANT && GT == 1 ? 8 : 16) * D / 128;
+  static constexpr int DPL = D / LPR;                   // dims per lane
   static constexpr int LANE_BYTES = DPL * (QUANT ? 1 : 2);
   static constexpr int RPS = 32 / LPR;                  // rows per warp step
   static constexpr int WARP_ROWS = ROWS / DC_WARPS;     // of a stage
@@ -111,17 +115,17 @@ struct DcCfg {
   static constexpr int PANEL = ROWS * ROW_BYTES;        // K or V of a stage
   static constexpr int SCALES = QUANT ? ROWS * 4 : 0;   // a scale slice
   static constexpr int STAGE = 2 * PANEL + 2 * SCALES;
-  // the warps' partials over the drained ring: max and sum, then acc[128],
+  // the warps' partials over the drained ring: max and sum, then acc[D],
   // per warp and query row
   static constexpr int PART_ACC = 2 * DC_WARPS * GT * 4;
   static constexpr int RING = DC_RING * STAGE;
-  static_assert(PART_ACC + DC_WARPS * GT * DC_D * 4 <= RING, "partials");
+  static_assert(PART_ACC + DC_WARPS * GT * D * 4 <= RING, "partials");
   // the new row of k and of v as the cache holds them, and their scales
   static constexpr int NEW = RING;
-  // rank 0's combine slots, one per block of the cluster: acc[GT][128],
+  // rank 0's combine slots, one per block of the cluster: acc[GT][D],
   // then the maxima [rank][GT], then the sums [rank][GT]
   static constexpr int PUSH = NEW + 2 * ROW_BYTES + 16;
-  static constexpr int PUSH_M = PUSH + DC_MAX_CLUSTER * GT * DC_D * 4;
+  static constexpr int PUSH_M = PUSH + DC_MAX_CLUSTER * GT * D * 4;
   static constexpr int PUSH_L = PUSH_M + DC_MAX_CLUSTER * GT * 4;
   // the ring's barriers (a slot's data landed, a slot was read), the
   // combine's
@@ -209,11 +213,13 @@ __device__ __forceinline__ void load_lane(const uint8_t* p, float (&f)[N]) {
   }
 }
 
-// N bf16 values (4, 8 or 16) from device memory as raw pairs.
+// N bf16 values (2, 4, 8 or 16) from device memory as raw pairs.
 template <int N>
 __device__ __forceinline__ void load_pairs(const bf16* p,
                                            uint32_t (&w)[N / 2]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 2) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (N == 4) {
     const uint2 r = *reinterpret_cast<const uint2*>(p);
     w[0] = r.x;
     w[1] = r.y;
@@ -231,10 +237,10 @@ __device__ __forceinline__ void load_pairs(const bf16* p,
 
 // ------------------------------------------------------------- the kernel
 // Grid (C x groups, Hkv, B), clusters of (C, 1, 1), DC_THREADS threads.
-template <bool QUANT, int GT>
+template <bool QUANT, int GT, int D>
 __global__ void __launch_bounds__(DC_THREADS)
 decode_cluster_kernel(const __grid_constant__ DcArgs a) {
-  using Cf = DcCfg<QUANT, GT>;
+  using Cf = DcCfg<QUANT, GT, D>;
   constexpr int LPR = Cf::LPR, DPL = Cf::DPL, ROWS = Cf::ROWS;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* new_k = smem + Cf::NEW;
@@ -255,20 +261,21 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
   uint32_t q_raw[GT][DPL / 2];
 #pragma unroll
   for (int g = 0; g < GT; ++g)
-    if (g < nq) load_pairs<DPL>(a.q + (bh * a.G + g0 + g) * DC_D + sub * DPL,
+    if (g < nq) load_pairs<DPL>(a.q + (bh * a.G + g0 + g) * D + sub * DPL,
                                 q_raw[g]);
-  // bf16: 16 bytes a thread of k (threads 0-15) or v (16-31); int8: warp
-  // 0's lane l quantizes dims 4l..4l+3 of both
+  // bf16: 16 bytes a thread of k (threads 0 to NEW_PIECES - 1) or v (the
+  // next NEW_PIECES); int8: warp 0's lane l quantizes dims NQ l .. NQ l +
+  // NQ - 1 of both
+  constexpr int NEW_PIECES = D / 8, NQ = D / 32;
   uint4 new_raw = {};
-  uint2 new_kv[2] = {};
+  uint32_t new_kv[2][NQ / 2] = {};
   if (a.pos && warp == 0) {
-    if (!QUANT)
+    if (!QUANT && lane < 2 * NEW_PIECES)
       new_raw = reinterpret_cast<const uint4*>(
-          (lane < 16 ? a.nk : a.nv) + bh * DC_D)[lane % 16];
-    else
+          (lane < NEW_PIECES ? a.nk : a.nv) + bh * D)[lane % NEW_PIECES];
+    if (QUANT)
       for (int i = 0; i < 2; ++i)
-        new_kv[i] = reinterpret_cast<const uint2*>(
-            (i ? a.nv : a.nk) + bh * DC_D)[lane];
+        load_pairs<NQ>((i ? a.nv : a.nk) + bh * D + lane * NQ, new_kv[i]);
   }
   // runs of whole stages of [0, v_b): [lo, lo + per) for rank r
   const int per = max(((v_b + ROWS - 1) / ROWS + C - 1) / C, 1) * ROWS;
@@ -328,19 +335,22 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
   }
 
   if (a.pos) {  // the new row, as the cache will hold it
-    if (warp == 0 && !QUANT)
-      reinterpret_cast<uint4*>(lane < 16 ? new_k : new_v)[lane % 16] =
-          new_raw;
+    if (warp == 0 && !QUANT && lane < 2 * NEW_PIECES)
+      reinterpret_cast<uint4*>(lane < NEW_PIECES ? new_k : new_v)
+          [lane % NEW_PIECES] = new_raw;
     if (warp == 0 && QUANT) {
-      float kr[4], vr[4];
-      bf16x2_to_f(new_kv[0].x, kr);
-      bf16x2_to_f(new_kv[0].y, kr + 2);
-      bf16x2_to_f(new_kv[1].x, vr);
-      bf16x2_to_f(new_kv[1].y, vr + 2);
-      float ka = fmaxf(fmaxf(fabsf(kr[0]), fabsf(kr[1])),
-                       fmaxf(fabsf(kr[2]), fabsf(kr[3])));
-      float va = fmaxf(fmaxf(fabsf(vr[0]), fabsf(vr[1])),
-                       fmaxf(fabsf(vr[2]), fabsf(vr[3])));
+      float kr[NQ], vr[NQ];
+      float ka = 0.f, va = 0.f;
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        bf16x2_to_f(new_kv[0][j], kr + 2 * j);
+        bf16x2_to_f(new_kv[1][j], vr + 2 * j);
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        ka = fmaxf(ka, fabsf(kr[j]));
+        va = fmaxf(va, fabsf(vr[j]));
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         ka = fmaxf(ka, __shfl_xor_sync(0xffffffffu, ka, o));
@@ -350,7 +360,7 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
       const float vscale = __fdiv_rn(fmaxf(va, 1e-8f), 127.0f);
       uint32_t kw = 0, vw = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NQ; ++j) {
         const int kq =
             (int)fminf(fmaxf(rintf(__fdiv_rn(kr[j], kscale)), -127.f), 127.f);
         const int vq =
@@ -358,8 +368,13 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
         kw |= ((uint32_t)kq & 0xffu) << (8 * j);
         vw |= ((uint32_t)vq & 0xffu) << (8 * j);
       }
-      reinterpret_cast<uint32_t*>(new_k)[lane] = kw;
-      reinterpret_cast<uint32_t*>(new_v)[lane] = vw;
+      if constexpr (NQ == 4) {
+        reinterpret_cast<uint32_t*>(new_k)[lane] = kw;
+        reinterpret_cast<uint32_t*>(new_v)[lane] = vw;
+      } else {
+        reinterpret_cast<uint16_t*>(new_k)[lane] = (uint16_t)kw;
+        reinterpret_cast<uint16_t*>(new_v)[lane] = (uint16_t)vw;
+      }
       if (lane == 0) {
         new_s[0] = kscale;
         new_s[1] = vscale;
@@ -538,7 +553,7 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     if (lane < LPR) {
-      float* dst = pacc + (warp * GT + g) * DC_D + sub * DPL;
+      float* dst = pacc + (warp * GT + g) * D + sub * DPL;
 #pragma unroll
       for (int t = 0; t < DPL; t += 4)
         *reinterpret_cast<float4*>(dst + t) =
@@ -554,13 +569,13 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
   // the block's partial per query row, into its slot at rank 0
   cluster_wait();  // rank 0's combine barrier is set up
   float* slot_acc = map_rank(
-      reinterpret_cast<float*>(smem + Cf::PUSH) + rank * GT * DC_D, 0);
+      reinterpret_cast<float*>(smem + Cf::PUSH) + rank * GT * D, 0);
   float* slot_m = map_rank(
       reinterpret_cast<float*>(smem + Cf::PUSH_M) + rank * GT, 0);
   float* slot_l = map_rank(
       reinterpret_cast<float*>(smem + Cf::PUSH_L) + rank * GT, 0);
-  for (int o = tid; o < GT * DC_D; o += DC_CONSUMERS) {
-    const int g = o / DC_D, d = o % DC_D;
+  for (int o = tid; o < GT * D; o += DC_CONSUMERS) {
+    const int g = o / D, d = o % D;
     float M = -INFINITY, L = 0.f, A = 0.f;
 #pragma unroll
     for (int w = 0; w < DC_WARPS; ++w) M = fmaxf(M, pm[w * GT + g]);
@@ -569,7 +584,7 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
       for (int w = 0; w < DC_WARPS; ++w) {
         const float x = exp2f(pm[w * GT + g] - M);
         L = fmaf(x, pl[w * GT + g], L);
-        A = fmaf(x, pacc[(w * GT + g) * DC_D + d], A);
+        A = fmaf(x, pacc[(w * GT + g) * D + d], A);
       }
     }
     slot_acc[o] = A;
@@ -585,15 +600,15 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
   const float* push_acc = reinterpret_cast<const float*>(smem + Cf::PUSH);
   const float* push_m = reinterpret_cast<const float*>(smem + Cf::PUSH_M);
   const float* push_l = reinterpret_cast<const float*>(smem + Cf::PUSH_L);
-  for (int o = tid; o < nq * DC_D; o += DC_CONSUMERS) {
-    const int g = o / DC_D;
+  for (int o = tid; o < nq * D; o += DC_CONSUMERS) {
+    const int g = o / D;
     float mr[DC_MAX_CLUSTER], lr[DC_MAX_CLUSTER], ar[DC_MAX_CLUSTER];
     float M = -INFINITY;
 #pragma unroll
     for (int r = 0; r < DC_MAX_CLUSTER; ++r) {  // every load in flight
       mr[r] = r < C ? push_m[r * GT + g] : -INFINITY;
       lr[r] = r < C ? push_l[r * GT + g] : 0.f;
-      ar[r] = r < C ? push_acc[r * GT * DC_D + o] : 0.f;
+      ar[r] = r < C ? push_acc[r * GT * D + o] : 0.f;
       M = fmaxf(M, mr[r]);
     }
     float L = 0.f, A = 0.f;
@@ -605,7 +620,7 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
         A = fmaf(x, ar[r], A);
       }
     }
-    a.out[(bh * a.G + g0) * DC_D + o] =
+    a.out[(bh * a.G + g0) * D + o] =
         __float2bfloat16_rn(A / (L == 0.f ? 1.f : L));
   }
 }
@@ -613,13 +628,14 @@ decode_cluster_kernel(const __grid_constant__ DcArgs a) {
 // ------------------------------------------------------------------- host
 // Raises the instantiation's shared-memory limit once. Returns a
 // cudaError_t.
-template <bool QUANT, int GT>
+template <bool QUANT, int GT, int D>
 int dc_prepare() {
   static bool done = false;
   if (!done) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_cluster_kernel<QUANT, GT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, DcCfg<QUANT, GT>::SMEM);
+        decode_cluster_kernel<QUANT, GT, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DcCfg<QUANT, GT, D>::SMEM);
     if (err != cudaSuccess) {
       cudaGetLastError();
       return (int)err;
@@ -631,32 +647,32 @@ int dc_prepare() {
 
 // Blocks of the instantiation the card holds at once (resident per SM times
 // SMs), or a negative cudaError_t.
-template <bool QUANT, int GT>
+template <bool QUANT, int GT, int D>
 int dc_slots() {
   static int n = 0;
   if (n == 0) {
-    int e = dc_prepare<QUANT, GT>(), dev = 0, sms = 0, per_sm = 0;
+    int e = dc_prepare<QUANT, GT, D>(), dev = 0, sms = 0, per_sm = 0;
     if (e == 0) e = (int)cudaGetDevice(&dev);
     if (e == 0)
       e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
     if (e == 0)
       e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, decode_cluster_kernel<QUANT, GT>, DC_THREADS,
-          DcCfg<QUANT, GT>::SMEM);
+          &per_sm, decode_cluster_kernel<QUANT, GT, D>, DC_THREADS,
+          DcCfg<QUANT, GT, D>::SMEM);
     if (e != 0) return -e;
     n = max(per_sm, 1) * sms;
   }
   return n;
 }
 
-template <bool QUANT, int GT>
+template <bool QUANT, int GT, int D>
 int dc_launch(const DcArgs& a, int B, int C, cudaStream_t stream) {
-  if (const int err = dc_prepare<QUANT, GT>()) return err;
+  if (const int err = dc_prepare<QUANT, GT, D>()) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * ((a.G + GT - 1) / GT), a.Hkv, B);
   cfg.blockDim = dim3(DC_THREADS);
-  cfg.dynamicSmemBytes = DcCfg<QUANT, GT>::SMEM;
+  cfg.dynamicSmemBytes = DcCfg<QUANT, GT, D>::SMEM;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -666,7 +682,7 @@ int dc_launch(const DcArgs& a, int B, int C, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, decode_cluster_kernel<QUANT, GT>, a);
+      cudaLaunchKernelEx(&cfg, decode_cluster_kernel<QUANT, GT, D>, a);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -676,22 +692,38 @@ int dc_launch(const DcArgs& a, int B, int C, cudaStream_t stream) {
 
 // The query rows a block holds: G rounded up to 1, 2, 4 or 8; more than 8
 // take more groups (blocks) of 8.
+template <bool QUANT, int D>
+int dc_slots_g(int G) {
+  if (G <= 1) return dc_slots<QUANT, 1, D>();
+  if (G <= 2) return dc_slots<QUANT, 2, D>();
+  if (G <= 4) return dc_slots<QUANT, 4, D>();
+  return dc_slots<QUANT, 8, D>();
+}
+
+// Of the head dims 64 and 128; any other is cudaErrorInvalidValue (as a
+// negative count).
 template <bool QUANT>
-int dc_slots_any(int G) {
-  if (G <= 1) return dc_slots<QUANT, 1>();
-  if (G <= 2) return dc_slots<QUANT, 2>();
-  if (G <= 4) return dc_slots<QUANT, 4>();
-  return dc_slots<QUANT, 8>();
+int dc_slots_any(int G, int D) {
+  if (D == 64) return dc_slots_g<QUANT, 64>(G);
+  if (D == 128) return dc_slots_g<QUANT, 128>(G);
+  return -(int)cudaErrorInvalidValue;
+}
+
+template <bool QUANT, int D>
+int dc_launch_g(const DcArgs& a, int B, int C, cudaStream_t s) {
+  if (a.G <= 1) return dc_launch<QUANT, 1, D>(a, B, C, s);
+  if (a.G <= 2) return dc_launch<QUANT, 2, D>(a, B, C, s);
+  if (a.G <= 4) return dc_launch<QUANT, 4, D>(a, B, C, s);
+  return dc_launch<QUANT, 8, D>(a, B, C, s);
 }
 
 template <bool QUANT>
-int dc_launch_any(const DcArgs& a, int B, int C, void* stream) {
+int dc_launch_any(const DcArgs& a, int B, int D, int C, void* stream) {
   if (C < 1 || C > DC_MAX_CLUSTER || a.G < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.G <= 1) return dc_launch<QUANT, 1>(a, B, C, s);
-  if (a.G <= 2) return dc_launch<QUANT, 2>(a, B, C, s);
-  if (a.G <= 4) return dc_launch<QUANT, 4>(a, B, C, s);
-  return dc_launch<QUANT, 8>(a, B, C, s);
+  if (D == 64) return dc_launch_g<QUANT, 64>(a, B, C, s);
+  if (D == 128) return dc_launch_g<QUANT, 128>(a, B, C, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

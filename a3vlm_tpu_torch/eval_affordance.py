@@ -380,8 +380,6 @@ def _refuse_unported(args) -> None:
     unported = [
         (args.model_parallel_size > 1, "--model_parallel_size > 1",
          "Queue 1 item 17 (several devices)"),
-        (args.llama_type == "falcon", f"llama_type {args.llama_type}",
-         "Queue 1 item 15 (the other model families)"),
     ]
     for hit, what, item in unported:
         if hit:

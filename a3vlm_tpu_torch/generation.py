@@ -18,22 +18,71 @@ eager steps:
 - with images, cache positions of text tokens are offset by the image words;
 - ``kv_cache_bits=8`` keeps the cache in int8 with per-row scales;
 - ``draft_k > 0`` sends a batch-1 request through prompt-lookup speculative
-  decoding (``lookup_decode``), whose output equals this loop's.
+  decoding (``lookup_decode``), whose output equals this loop's;
+- ``ops``: the decoder family's cache, prefill and decode step
+  (``LLAMA_GEN_OPS``, or ``FALCON_GEN_OPS``, which has no chunked prefill
+  and no lookup decoding: those requests take the one-piece prefill and
+  the vanilla loop, as in the JAX ``Generator``).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Iterable, Optional, Sequence
+from typing import Callable, Iterable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from a3vlm_tpu_torch.config import ModelArgs
 from a3vlm_tpu_torch.lookup_decode import lookup_generate
-from a3vlm_tpu_torch.models import llama
+from a3vlm_tpu_torch.models import falcon, llama
 from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
 from a3vlm_tpu_torch.ops.sampling import sample_token
+
+
+class GenOps(NamedTuple):
+    """A decoder family's generation ops (generation.py:41):
+    ``create_cache(args, batch, max_seq_len, dtype, device)``,
+    ``prefill(params, args, cache, tokens, image_tokens, impl)``,
+    ``decode_step(params, args, cache, token, seq_pos, impl)`` and
+    ``prefill_chunked(params, args, cache, tokens, image_tokens, chunk,
+    impl)`` or None. The JAX tuple's ``cache_specs`` places a cache on
+    several devices and has no counterpart on one."""
+
+    create_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+    prefill_chunked: Optional[Callable] = None
+
+
+def _llama_cache(args, batch, max_seq_len, dtype, device):
+    return llama.KVCache.create(args, batch, max_seq_len, dtype=dtype,
+                                device=device)
+
+
+LLAMA_GEN_OPS = GenOps(_llama_cache, llama.prefill, llama.decode_step,
+                       llama.prefill_chunked)
+
+
+def _falcon_cache(args, batch, max_seq_len, dtype, device):
+    return falcon.FalconKVCache.create(args, batch, max_seq_len, dtype=dtype,
+                                       device=device)
+
+
+def _falcon_prefill(params, args, cache, tokens, image_tokens, impl):
+    if image_tokens is not None:
+        raise ValueError("falcon is text-only (falcon.py:302)")
+    return falcon.prefill(params, args, cache, tokens, impl)
+
+
+# (generation.py:84-125)
+FALCON_GEN_OPS = GenOps(_falcon_cache, _falcon_prefill, falcon.decode_step)
+
+
+def decoder_device(params: dict) -> torch.device:
+    """The device of a decoder tree (its final norm's): ``norm`` of the
+    LLaMA decoders, ``ln_f`` of falcon."""
+    return (params.get("norm") or params["ln_f"])["weight"].device
 
 
 def _prefill_bucket(min_prompt: int) -> int:
@@ -55,7 +104,8 @@ class Generator:
     def __init__(self, params: dict, args: ModelArgs, tokenizer=None,
                  image_words: int = 0, vocab_limit: Optional[int] = None,
                  kv_cache_bits: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 ops: GenOps = LLAMA_GEN_OPS):
         if kv_cache_bits not in (None, 8):
             raise ValueError(f"kv_cache_bits {kv_cache_bits}: want None or 8")
         self.params = params
@@ -68,6 +118,7 @@ class Generator:
         self.kv_cache_bits = kv_cache_bits
         # chunked prefill: bounds activation temporaries for long prompts
         self.prefill_chunk = prefill_chunk
+        self.ops = ops
         # wall times of the last call's phases (ms), synchronized on CUDA
         self.last_stats: dict = {}
         # set by the lookup path (draft_k > 0): emitted tokens and verify
@@ -77,7 +128,7 @@ class Generator:
 
     @property
     def device(self) -> torch.device:
-        return self.params["norm"]["weight"].device
+        return decoder_device(self.params)
 
     def _fsm_next(self, fsm):
         """(device table, host table) [S, vocab_size] int32 of a
@@ -99,12 +150,12 @@ class Generator:
         return self._fsm_tables[1], self._fsm_tables[2]
 
     def _prefill(self, cache, tokens, image_tokens, impl):
-        if self.prefill_chunk:
-            return llama.prefill_chunked(self.params, self.args, cache,
-                                         tokens, image_tokens,
-                                         self.prefill_chunk, impl)
-        return llama.prefill(self.params, self.args, cache, tokens,
-                             image_tokens, impl)
+        if self.prefill_chunk and self.ops.prefill_chunked is not None:
+            return self.ops.prefill_chunked(self.params, self.args, cache,
+                                            tokens, image_tokens,
+                                            self.prefill_chunk, impl)
+        return self.ops.prefill(self.params, self.args, cache, tokens,
+                                image_tokens, impl)
 
     def _truncate(self, prompt_tokens, image_tokens, max_gen_len):
         """Left-truncated prompts and the text positions left for them."""
@@ -138,7 +189,8 @@ class Generator:
         speculative decoding; the ids are exactly this loop's, with ``fsm``
         (constrained greedy) and with ``temperature > 0`` (the same uniform
         per emitted index, so the same output for the same seed). A batch
-        of more than one request takes the vanilla loop."""
+        of more than one request, and any request over falcon's ops, takes
+        the vanilla loop."""
         args = self.args
         bsz = len(prompt_tokens)
         if bsz > args.max_batch_size:
@@ -149,7 +201,7 @@ class Generator:
                                                     image_tokens, max_gen_len)
         stop_tokens = tuple(dict.fromkeys(tuple(s) for s in stop_tokens))
         fsm_next, fsm_host = self._fsm_next(fsm)
-        if draft_k and bsz == 1:
+        if draft_k and bsz == 1 and self.ops is LLAMA_GEN_OPS:
             return [self._generate_lookup(
                 prompt_tokens[0], image_tokens, max_gen_len, stop_tokens,
                 draft_k, impl, fsm_next, fsm_host, temperature, top_p, seed,
@@ -169,9 +221,9 @@ class Generator:
 
         P = _prefill_bucket(min_prompt)
         W = 0 if image_tokens is None else self.image_words
-        cache = llama.KVCache.create(
+        cache = self.ops.create_cache(
             args, bsz, total_len + W,
-            dtype=kv_cache_dtype(self.kv_cache_bits, device), device=device)
+            kv_cache_dtype(self.kv_cache_bits, device), device)
         uniforms = self._uniforms(seed, total_len - P, bsz, temperature)
         t0 = time.perf_counter()
         logits, cache, _ = self._prefill(cache, tokens[:, :P], image_tokens,
@@ -227,9 +279,9 @@ class Generator:
                 fstate = torch.where(prompt_here | stopped, fstate, nf)
             if cur_pos + 1 >= total_len or bool(stopped.all()):
                 break
-            logits, cache = llama.decode_step(self.params, args, cache,
-                                              next_tok[:, None], cur_pos + W,
-                                              impl)
+            logits, cache = self.ops.decode_step(self.params, args, cache,
+                                                 next_tok[:, None],
+                                                 cur_pos + W, impl)
             steps += 1
         synchronize(device)
         t2 = time.perf_counter()

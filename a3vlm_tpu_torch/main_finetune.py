@@ -12,6 +12,15 @@ from the port's copies of the JAX package's datasets, loader and sampler.
 The flags of parts not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item.
 
+``--llama_type`` takes what the JAX CLI trains: ``llama_ens5``,
+``llama_ens5_2images`` (its loss takes a depth stream beside the RGB one,
+which the CLI's datasets never load: a batch with images fails at its
+first step, in both CLIs, and text-only data trains) and ``llama`` (a bare
+decoder, whose loss reads the token ids alone). The JAX CLI fails on
+``internlm_ems5_light`` and ``falcon`` once the model is built (it places
+them with LLaMA's partition specs, which do not fit their trees); the
+port refuses them with ``ValueError`` before loading anything.
+
 Checkpoints go under ``--output_dir`` as the JAX CLI writes them
 (``checkpoint/manager.py``: ``epoch_X`` every ``--save_interval`` epochs
 and at the end, ``epoch_X-iter_Y`` every ``--save_iteration_interval``
@@ -25,19 +34,21 @@ model, then the optimizer state, and goes on from the next update.
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
 
-from a3vlm_tpu_torch.models import ens5 as ens5_mod
+from a3vlm_tpu_torch.models import llama as llama_mod
 from a3vlm_tpu_torch.quant import (
     QuantizedWeight,
     freeze_quantized_mask,
     tree_map,
 )
 from a3vlm_tpu_torch.train.lora import (
+    attach_lora,
     attach_lora_into_model,
     init_lora_params,
     lora_base_trainable_mask,
@@ -109,12 +120,19 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
+# the types the JAX CLI trains: the ens5 families (``is_ens``,
+# main_finetune.py:216) and the bare LLaMA decoder
+TRAINED_TYPES = ("llama_ens5", "llama_ens5_2images", "llama")
+
+
+def _is_ens(llama_type: str) -> bool:
+    return llama_type.startswith("llama_ens5")
+
+
 def _refuse_unported(args) -> None:
     unported = [
         (args.model_parallel_size > 1 or (args.num_devices or 1) > 1,
          "more than one device", "Queue 1 item 17"),
-        (args.llama_type != "llama_ens5", f"llama_type {args.llama_type}",
-         "Queue 1 item 15"),
         (bool(args.profile_dir), "--profile_dir",
          "Queue 1 item 6 (the benchmark's tracing)"),
     ]
@@ -122,17 +140,22 @@ def _refuse_unported(args) -> None:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"{item})")
+    if args.llama_type not in TRAINED_TYPES and not args.tiny_random_model:
+        # the JAX CLI builds the model, then fails placing it:
+        # llama_partition_specs (main_finetune.py:364-368) does not fit
+        # this family's tree
+        raise ValueError(f"main_finetune does not train llama_type "
+                         f"{args.llama_type}: the JAX CLI trains "
+                         f"{', '.join(TRAINED_TYPES)}")
     if args.quant and not args.only_save_trainable:
         raise ValueError("--only_save_trainable is required with --quant")
+    if (args.cache_tower_features and not args.tiny_random_model
+            and not _is_ens(args.llama_type)):
+        raise ValueError("--cache_tower_features is ens5-family only")
 
 
 def build_model(args, tokenizer):
-    from a3vlm_tpu_torch.config import (
-        Ens5Config,
-        ModelArgs,
-        model_args_from_json,
-        tiny_ens5_config,
-    )
+    from a3vlm_tpu_torch.config import tiny_ens5_config
     from a3vlm_tpu_torch.meta import MetaModel
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
@@ -145,29 +168,30 @@ def build_model(args, tokenizer):
             with_visual=True, max_seq_len=args.max_words, dtype=dtype,
             device=args.device)
     if args.tiny_random_model:
-        cfg = tiny_ens5_config()
-    elif args.llama_config:
-        cfg = Ens5Config(llama=model_args_from_json(
-            args.llama_config, max_seq_len=args.max_words))
-    else:
-        cfg = Ens5Config(llama=ModelArgs(max_seq_len=args.max_words))
-    return MetaModel("llama_ens5", with_visual=True,
-                     max_seq_len=args.max_words, dtype=dtype,
-                     tokenizer=tokenizer, model_cfg=cfg, seed=args.seed,
+        # (main_finetune.py:96-106) a tiny llama_ens5 whatever the type
+        return MetaModel("llama_ens5", with_visual=True,
+                         max_seq_len=args.max_words, dtype=dtype,
+                         tokenizer=tokenizer, model_cfg=tiny_ens5_config(),
+                         seed=args.seed, device=args.device)
+    return MetaModel(args.llama_type, llama_config=args.llama_config,
+                     with_visual=True, max_seq_len=args.max_words,
+                     dtype=dtype, tokenizer=tokenizer, seed=args.seed,
                      device=args.device)
 
 
 def qlora_trainable_mask(model, lora=None, quant: bool = False) -> dict:
     """The trainable mask of the recipe (main_finetune.py:216-283): the
-    ens5 mask (towers frozen), packed bases frozen, and with adapters the
-    decoder reduced to its norms and biases plus every adapter leaf."""
+    model's mask (the ens5 towers frozen), packed bases frozen, and with
+    adapters the decoder reduced to its norms and biases (for a bare
+    decoder, the whole tree) plus every adapter leaf."""
     mask = model.get_trainable_params()
     if quant:
         mask = freeze_quantized_mask(model.params, mask)
     if lora is not None:
-        mask = {**mask,
-                "llama": lora_base_trainable_mask(model.params["llama"]),
-                "lora": tree_map(lambda _: True, lora)}
+        base = lora_base_trainable_mask(model.decoder)
+        mask = ({**mask, "llama": base} if _is_ens(model.llama_type)
+                else base)
+        mask = {**mask, "lora": tree_map(lambda _: True, lora)}
     return mask
 
 
@@ -176,8 +200,12 @@ def make_loss_fn(model, compute_dtype: torch.dtype, remat: bool,
     """``loss_fn(params, batch)`` of the recipe (main_finetune.py:303):
     float32 leaves are cast to ``compute_dtype`` inside the loss, so the
     gradients land on the float32 masters; packed bases pass untouched;
-    a ``"lora"`` subtree is attached to the decoder; cached tower features
-    (``image_feat_q`` / ``image_feat_ens``) stand in for the image."""
+    a ``"lora"`` subtree is attached to the decoder. The ens5 families
+    take the batch's images or cached tower features (``image_feat_q`` /
+    ``image_feat_ens``), ``llama_ens5_2images`` its depth stream too
+    (``depth_image`` or ``depth_feat_q`` / ``depth_feat_ens``); a bare
+    ``llama`` decoder reads the token ids alone."""
+    is_ens = _is_ens(model.llama_type)
 
     def cast(p):
         if isinstance(p, QuantizedWeight) or p.dtype != torch.float32:
@@ -189,14 +217,28 @@ def make_loss_fn(model, compute_dtype: torch.dtype, remat: bool,
             params = tree_map(cast, params)
         if "lora" in params:
             lora = params["lora"]
-            params = attach_lora_into_model(
-                {k: v for k, v in params.items() if k != "lora"}, lora)
+            params = {k: v for k, v in params.items() if k != "lora"}
+            params = (attach_lora_into_model(params, lora) if is_ens
+                      else attach_lora(params, lora))
+        if not is_ens:
+            logits = llama_mod.forward_train(params, model.cfg,
+                                             batch["examples"], remat=remat,
+                                             impl=impl)
+            return next_token_loss(logits, batch["labels"],
+                                   vocab_size=model.true_vocab)
         imf = None
         if "image_feat_q" in batch:
             imf = {"q": batch["image_feat_q"], "ens": batch["image_feat_ens"]}
-        logits = ens5_mod.forward(params, model.cfg, batch["examples"],
-                                  image=batch.get("image"), remat=remat,
-                                  impl=impl, image_features=imf)
+        kwargs = {}
+        if model.llama_type == "llama_ens5_2images":
+            # the 2-images forward takes both streams, raw or cached
+            kwargs["depth_image"] = batch.get("depth_image")
+            if "depth_feat_q" in batch:
+                kwargs["depth_features"] = {"q": batch["depth_feat_q"],
+                                            "ens": batch["depth_feat_ens"]}
+        logits = model._mod.forward(params, model.cfg, batch["examples"],
+                                    image=batch.get("image"), remat=remat,
+                                    impl=impl, image_features=imf, **kwargs)
         return next_token_loss(logits, batch["labels"],
                                vocab_size=model.true_vocab)
 
@@ -204,14 +246,17 @@ def make_loss_fn(model, compute_dtype: torch.dtype, remat: bool,
 
 
 def batch_to_device(batch: dict, device, image_dtype: torch.dtype) -> dict:
-    """Loader batch -> tensors on ``device``: token ids as int64, images in
-    the towers' dtype, cached tower features in their own."""
+    """Loader batch -> tensors on ``device``: token ids as int64, images
+    (RGB and depth) in the towers' dtype, cached tower features in their
+    own."""
     out = {}
-    for k in ("examples", "labels", "image"):
+    for k in ("examples", "labels", "image", "depth_image"):
         if k in batch:
             t = torch.from_numpy(np.asarray(batch[k])).to(device)
-            out[k] = t.to(image_dtype) if k == "image" else t.long()
-    for k in ("image_feat_q", "image_feat_ens"):
+            out[k] = t.long() if k in ("examples", "labels") \
+                else t.to(image_dtype)
+    for k in ("image_feat_q", "image_feat_ens", "depth_feat_q",
+              "depth_feat_ens"):
         if k in batch:
             out[k] = batch[k].to(device)
     return out
@@ -257,7 +302,8 @@ def main(argv=None, tokenizer=None):
 
     dataset = (FinetuneDialogDataset if args.dialog else FinetuneDataset)(
         args.data_config,
-        transform=get_transform(args.image_transform, model.cfg.image_size),
+        transform=get_transform(args.image_transform, getattr(
+            model.cfg, "image_size", args.input_size)),
         max_words=args.max_words, image_words=model.get_image_words(),
         tokenizer=model.tokenizer, cache_on_disk=args.cache_ann_on_disk,
     )
@@ -272,8 +318,7 @@ def main(argv=None, tokenizer=None):
     lora = None
     if args.lora_rank > 0:
         gen = torch.Generator(device=device).manual_seed(args.seed + 17)
-        lora = init_lora_params(gen, model.params["llama"],
-                                rank=args.lora_rank)
+        lora = init_lora_params(gen, model.decoder, rank=args.lora_rank)
         print(f"lora rank {args.lora_rank} on the decoder linears")
     trainable = qlora_trainable_mask(model, lora, quant=args.quant)
     compute_dtype = (torch.bfloat16 if args.precision == "bf16"
@@ -290,8 +335,17 @@ def main(argv=None, tokenizer=None):
             TowerFeatureCache,
         )
 
+        depth_cache = None
+        if model.llama_type == "llama_ens5_2images":
+            # the depth stream runs the same frozen towers: a cache of its
+            # own (its indices are the RGB stream's)
+            depth_cache = TowerFeatureCache(
+                model.params, model.cfg,
+                cache_dir=os.path.join(args.feature_cache_dir, "depth")
+                if args.feature_cache_dir else None)
         loader = FeatureCachingLoader(loader, TowerFeatureCache(
-            model.params, model.cfg, cache_dir=args.feature_cache_dir))
+            model.params, model.cfg, cache_dir=args.feature_cache_dir),
+            depth_cache=depth_cache)
         print("tower-feature cache on: towers run once per image, "
               "later epochs are tower-free")
     params = {**model.params, "lora": lora} if lora is not None \

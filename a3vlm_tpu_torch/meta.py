@@ -1,10 +1,10 @@
 """MetaModel (counterpart of a3vlm_tpu/meta.py) for the families
 ``llama_ens5``, ``llama_ens5_2images`` (RGB + depth), the released 7B's
-``internlm_ems5_light`` and the text-only ``llama``: parameters,
-tokenizer, checkpoint loading (``from_pretrained``), quantization, LoRA
-adapters served unmerged, image encoding, generation (batched and
-streamed), the scoring APIs and the training loss. ``falcon`` is not
-ported yet.
+``internlm_ems5_light``, the text-only ``llama`` and the text-only
+``falcon``: parameters, tokenizer, checkpoint loading
+(``from_pretrained``; not for ``falcon``, whose JAX loader fails),
+quantization, LoRA adapters served unmerged, image encoding, generation
+(batched and streamed), the scoring APIs and the training loss.
 
 Without a tokenizer the model is driven with token ids
 (``generate_tokens``); with one, ``generate`` takes and returns text."""
@@ -27,25 +27,33 @@ from a3vlm_tpu_torch.config import (
     model_args_from_json,
     probe_pretrained_dir,
 )
-from a3vlm_tpu_torch.generation import Generator, synchronize
+from a3vlm_tpu_torch.generation import (
+    FALCON_GEN_OPS,
+    LLAMA_GEN_OPS,
+    Generator,
+    decoder_device,
+    synchronize,
+)
 from a3vlm_tpu_torch.models import ens5 as ens5_mod
 from a3vlm_tpu_torch.models import ens5_2images as e2_mod
+from a3vlm_tpu_torch.models import falcon as falcon_mod
 from a3vlm_tpu_torch.models import internlm_ems5_light as il_mod
 from a3vlm_tpu_torch.models import llama as llama_mod
 from a3vlm_tpu_torch.quant import quantize_params, tree_map
 from a3vlm_tpu_torch.train.losses import next_token_loss
 
-_UNPORTED_TYPE = ("{} is not ported yet (ROADMAP Queue 1 item 15: the "
-                  "other model families)")
-
 # the families of the port: the module of each and its random init
 _FAMILY = {"llama": llama_mod, "llama_ens5": ens5_mod,
-           "llama_ens5_2images": e2_mod, "internlm_ems5_light": il_mod}
+           "llama_ens5_2images": e2_mod, "internlm_ems5_light": il_mod,
+           "falcon": falcon_mod}
 _INIT = {"llama": llama_mod.init_llama_params,
          "llama_ens5": ens5_mod.init_ens5_params,
          "llama_ens5_2images": e2_mod.init_params,
-         "internlm_ems5_light": il_mod.init_params}
+         "internlm_ems5_light": il_mod.init_params,
+         "falcon": falcon_mod.init_falcon_params}
 FAMILIES = tuple(_FAMILY)
+# the families whose whole tree is the decoder (no towers)
+_BARE = ("llama", "falcon")
 
 
 class MetaModel:
@@ -67,8 +75,10 @@ class MetaModel:
     ):
         """As the JAX constructor (meta.py:37-170), for ``llama_type``
         ``llama`` (a bare decoder, text only), ``llama_ens5``,
-        ``llama_ens5_2images`` (RGB + depth, twice the image words) and
-        ``internlm_ems5_light`` (``InternlmEns5Config``). The tokenizer is
+        ``llama_ens5_2images`` (RGB + depth, twice the image words),
+        ``internlm_ems5_light`` (``InternlmEns5Config``) and ``falcon`` (a
+        bare text-only decoder, ``FalconArgs``; ``llama_config``'s fields
+        over ``FalconArgs()``). The tokenizer is
         ``tokenizer``, or loaded from ``tokenizer_path``; the true vocab
         comes from its ``n_words``, or from ``vocab_size`` when there is no
         tokenizer, and is padded to ``vocab_align``. ``llama_config`` (JSON
@@ -79,8 +89,6 @@ class MetaModel:
         reads neither there). With ``params=None`` random weights are made
         from ``seed`` on ``device``: the card, unless the caller names
         another."""
-        if llama_type == "falcon":
-            raise NotImplementedError(_UNPORTED_TYPE.format(llama_type))
         if llama_type not in FAMILIES:
             raise KeyError(f"unknown llama_type: {llama_type}")
         self.llama_type = llama_type
@@ -102,7 +110,14 @@ class MetaModel:
         if model_cfg is None:
             model_cfg = _default_config(llama_type, llama_config,
                                         max_seq_len)
-        if llama_type == "llama":
+        if llama_type == "falcon":
+            # (meta.py:81-112) the vocab and max_seq_len replace those of
+            # any config, model_cfg's too
+            model_cfg = dataclasses.replace(
+                model_cfg, vocab_size=padded_vocab, max_seq_len=max_seq_len)
+            self.args = model_cfg
+            self.image_words = 0
+        elif llama_type == "llama":
             model_cfg = model_cfg.replace(vocab_size=padded_vocab)
             self.args = model_cfg
             self.image_words = 0
@@ -131,13 +146,13 @@ class MetaModel:
 
     @property
     def decoder(self) -> dict:
-        """The decoder's tree: the whole tree of a ``llama`` model, the
-        ``"llama"`` subtree of the others."""
-        return self.params if self.llama_type == "llama" else \
+        """The decoder's tree: the whole tree of a ``llama`` or ``falcon``
+        model, the ``"llama"`` subtree of the others."""
+        return self.params if self.llama_type in _BARE else \
             self.params["llama"]
 
     def _set_decoder(self, tree: dict) -> None:
-        if self.llama_type == "llama":
+        if self.llama_type in _BARE:
             self.params = tree
         else:
             self.params = {**self.params, "llama": tree}
@@ -190,7 +205,12 @@ class MetaModel:
         probed = probe_pretrained_dir(paths[-1])
         llama_type = llama_type or probed.get("llama_type") or "llama"
         if llama_type == "falcon":
-            raise NotImplementedError(_UNPORTED_TYPE.format(llama_type))
+            # the JAX loader builds the model, reads the checkpoint, then
+            # fails importing it with LLaMA's importer, which reads
+            # ``n_layers`` that FalconArgs lacks (meta.py:254-259)
+            raise ValueError("from_pretrained does not load llama_type "
+                             "falcon: the JAX package has no falcon "
+                             "checkpoint importer")
         if llama_config is None and "llama_config" in probed:
             cfg_file = Path(paths[-1]) / "config.json"
             llama_config = [str(cfg_file)] if cfg_file.exists() else None
@@ -255,9 +275,11 @@ class MetaModel:
         vocab; every logits consumer masks the tail with ``true_vocab``."""
         V = self.args.vocab_size
         tree = self.decoder
-        emb = tree["tok_embeddings"]["weight"]
+        key = ("word_embeddings" if self.llama_type == "falcon"
+               else "tok_embeddings")
+        emb = tree[key]["weight"]
         if emb.shape[0] < V:
-            tree["tok_embeddings"]["weight"] = torch.nn.functional.pad(
+            tree[key]["weight"] = torch.nn.functional.pad(
                 emb, (0, 0, 0, V - emb.shape[0]))
         head = tree["output"]["weight"]
         if head.shape[-1] < V:
@@ -273,12 +295,12 @@ class MetaModel:
         round to int8 there: opt-in). In place, leaf by leaf; attached
         adapters are dropped, as the JAX method resets its transform. The
         JAX method's ``tp_align`` and ``row_parallel`` are for several
-        devices and have no counterpart. A ``llama`` model has no towers
-        and ignores ``tower_bits``, as the JAX method does;
+        devices and have no counterpart. A ``llama`` or ``falcon`` model
+        has no towers and ignores ``tower_bits``, as the JAX method does;
         ``internlm_ems5_light``'s DINOv2 and ConvNeXt take it."""
         if bits:
             quantize_params(self.decoder, bits=bits)
-        if tower_bits and self.llama_type != "llama":
+        if tower_bits and self.llama_type not in _BARE:
             if tower_bits != 8:
                 raise ValueError("towers support W8A8 only: tower_bits=8")
             ens5_mod.quantize_tower_params(self.params)
@@ -332,7 +354,7 @@ class MetaModel:
 
     @property
     def device(self) -> torch.device:
-        return self.decoder["norm"]["weight"].device
+        return decoder_device(self.decoder)
 
     def _decoder_params(self) -> dict:
         """The decoder with every loaded adapter attached (meta.py:454)."""
@@ -350,10 +372,10 @@ class MetaModel:
         model's device in the towers' dtype."""
         if images is None:
             return None
-        if self.llama_type == "llama":
+        if self.llama_type in _BARE:
             # the JAX method fails here too: its decoder module has no
             # build_image_tokens
-            raise ValueError("llama_type llama takes no images")
+            raise ValueError(f"llama_type {self.llama_type} takes no images")
 
         def to_device(x):
             if isinstance(x, torch.Tensor):
@@ -404,7 +426,13 @@ class MetaModel:
         """Training loss (meta.py:464): next-token cross-entropy of the
         text positions, label 0 ignored, padded vocab masked. The towers
         run without gradient and take ``impl`` only as "plain" or
-        "auto"."""
+        "auto". A ``falcon`` model ignores images, as the JAX method
+        does."""
+        if self.llama_type == "falcon":
+            logits = falcon_mod.forward_train(self._decoder_params(),
+                                              self.args, examples, impl=impl)
+            return next_token_loss(logits, labels,
+                                   vocab_size=self.true_vocab)
         image_tokens = self._image_tokens(
             images, depth_images, "plain" if impl == "plain" else "auto")
         logits = llama_mod.forward_train(self._decoder_params(), self.args,
@@ -445,9 +473,14 @@ class MetaModel:
                 self._decoder_params(), self.args, self.tokenizer,
                 image_words=self.image_words, vocab_limit=self.true_vocab,
                 kv_cache_bits=self._kv_cache_bits,
-                prefill_chunk=self._prefill_chunk,
+                prefill_chunk=self._prefill_chunk, ops=self._gen_ops,
             )
         return self._generator
+
+    @property
+    def _gen_ops(self):
+        return FALCON_GEN_OPS if self.llama_type == "falcon" else \
+            LLAMA_GEN_OPS
 
     def generate_tokens(
         self,
@@ -530,9 +563,9 @@ class MetaModel:
         impl: str = "auto",
     ):
         """Single-prompt streaming generation (meta.py:568): yields
-        {"text", "end_of_content"} dicts, one a token, over
-        ``llama.prefill`` of the whole prompt and one ``llama.decode_step``
-        a token. Sampling draws from a ``torch.Generator`` seeded with
+        {"text", "end_of_content"} dicts, one a token, over the family's
+        prefill of the whole prompt and one decode step a token. Sampling
+        draws from a ``torch.Generator`` seeded with
         ``seed`` (the JAX method's key chain differs: sampled text agrees by
         distribution only). ``depth_image``: the depth stream of
         ``llama_ens5_2images``, which the JAX method cannot take."""
@@ -553,10 +586,11 @@ class MetaModel:
 
         params = self._decoder_params()
         W = 0 if image_tokens is None else image_tokens.shape[1]
-        cache = llama_mod.KVCache.create(
-            args, 1, total_len + W,
-            dtype=kv_cache_dtype(self.kv_cache_bits, device), device=device)
-        logits, cache, _ = llama_mod.prefill(
+        ops = self._gen_ops
+        cache = ops.create_cache(args, 1, total_len + W,
+                                 kv_cache_dtype(self.kv_cache_bits, device),
+                                 device)
+        logits, cache, _ = ops.prefill(
             params, args, cache, torch.tensor([prompt_tokens], device=device),
             image_tokens, impl)
         gen = (torch.Generator(device=device).manual_seed(seed)
@@ -575,7 +609,7 @@ class MetaModel:
                     yield {"text": text[:stop_pos], "end_of_content": True}
                     return
             yield {"text": text, "end_of_content": False}
-            logits, cache = llama_mod.decode_step(
+            logits, cache = ops.decode_step(
                 params, args, cache,
                 torch.tensor([[next_token]], device=device), cur_pos + W,
                 impl)
@@ -588,7 +622,8 @@ class MetaModel:
         """(meta.py:635): right-padded batch forward; per-item float32
         logits over the true vocab, trimmed to each item's length.
         ``depth_images``: the depth stream of ``llama_ens5_2images``, which
-        the JAX method cannot take."""
+        the JAX method cannot take. A ``falcon`` model ignores images, as
+        the JAX method does."""
         if isinstance(examples, str):
             raise ValueError("compute_logits expects a batched LIST")
         if isinstance(examples[0], str):
@@ -597,10 +632,15 @@ class MetaModel:
         toks = torch.zeros((len(examples), max(lens)), dtype=torch.int64)
         for i, e in enumerate(examples):
             toks[i, : len(e)] = torch.tensor(e)
-        image_tokens = self.encode_images(images, depth_images, impl)
-        logits = llama_mod.forward_train(
-            self._decoder_params(), self.args, toks.to(self.device),
-            image_tokens=image_tokens, impl=impl)
+        if self.llama_type == "falcon":
+            logits = falcon_mod.forward_train(
+                self._decoder_params(), self.args, toks.to(self.device),
+                impl=impl)
+        else:
+            image_tokens = self.encode_images(images, depth_images, impl)
+            logits = llama_mod.forward_train(
+                self._decoder_params(), self.args, toks.to(self.device),
+                image_tokens=image_tokens, impl=impl)
         logits = logits.float()[..., : self.true_vocab].cpu().numpy()
         return [lg[:n] for lg, n in zip(logits, lens)]
 
@@ -649,7 +689,13 @@ def _default_config(llama_type: str, llama_config, max_seq_len: int):
     ``ModelArgs()`` (LLaMA-2-13B) with ``max_seq_len`` under
     ``llama_config``'s fields, bare for ``llama`` and in an ``Ens5Config``
     for the ens5 families; ``InternlmEns5Config()`` with
-    ``llama_config``'s fields over InternLM2-7B's."""
+    ``llama_config``'s fields over InternLM2-7B's; ``FalconArgs()`` with
+    ``llama_config``'s fields (meta.py:88-101)."""
+    if llama_type == "falcon":
+        fields = {f.name for f in dataclasses.fields(falcon_mod.FalconArgs)}
+        return falcon_mod.FalconArgs(**{
+            k: v for k, v in load_config_union(llama_config or []).items()
+            if k in fields})
     if llama_type == "internlm_ems5_light":
         cfg = il_mod.InternlmEns5Config()
         if not llama_config:

@@ -54,10 +54,10 @@ _SIGNATURES = {
                      _I, _P],
     "a3_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
     "a3_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
-    "a3_decode_slots": [_I],
-    "a3_decode_slots_q8": [_I],
-    "a3_decode_attend": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "a3_decode_attend_q8": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "a3_decode_slots": [_I, _I],
+    "a3_decode_slots_q8": [_I, _I],
+    "a3_decode_attend": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "a3_decode_attend_q8": [_P] * 10 + [_I] * 6 + [_F, _P],
     "a3_verify_slots": [_I, _I],
     "a3_verify_attend": [_P] * 6 + [_I] * 6 + [_F, _P],
     "a3_verify_attend_q8": [_P] * 8 + [_I] * 6 + [_F, _P],

@@ -234,16 +234,17 @@ def verify_attention_quant_plain(q, kq: QuantizedKV, vq: QuantizedKV, valid):
 # ---------------------------------------------------------------------------
 
 
-def _check_cache(name, q, Hkv, cache_k, cache_v, valid):
+def _check_cache(name, q, Hkv, cache_k, cache_v, valid, dims):
     """Shapes and types the kernels share: q bf16, contiguous, batch first
-    and head dim last; caches [B, Hkv, S, D]. Returns S."""
+    and head dim last, D one of ``dims``; caches [B, Hkv, S, D]. Returns
+    S."""
     B, D = q.shape[0], q.shape[-1]
     quant = isinstance(cache_k, QuantizedKV)
     _kernels.require(isinstance(cache_v, QuantizedKV) == quant,
                      f"{name}: k and v caches of different kinds")
     shape = _cache_shape(cache_k)
     S = shape[2]
-    _kernels.require(D == 128, f"{name}: D must be 128")
+    _kernels.require(D in dims, f"{name}: D must be one of {dims}")
     _kernels.require(tuple(shape) == (B, Hkv, S, D)
                      and _cache_shape(cache_v) == shape,
                      f"{name}: cache shape")
@@ -263,9 +264,19 @@ def _check_cache(name, q, Hkv, cache_k, cache_v, valid):
 
 
 DECODE_MAX_CLUSTER = 8
-# cache rows a stage of the decode kernel copies: bf16, int8
-DECODE_STAGE_ROWS = (32, 64)
+# the head dims the decode kernel has instances of: 128 (the LLaMA
+# decoders) and 64 (falcon); the verify kernel's
+DECODE_HEAD_DIMS = (64, 128)
+VERIFY_HEAD_DIMS = (128,)
+# cache rows a block of the decode kernel's cluster takes at least
+DECODE_MIN_BLOCK_ROWS = 64
 _DECODE_SLOTS: dict[tuple, int] = {}
+
+
+def decode_stage_rows(quant: bool, D: int) -> int:
+    """Cache rows a stage of the decode kernel copies: 8 KB of each panel
+    (bf16 rows of 2 D bytes, int8 rows of D)."""
+    return 8192 // (D if quant else 2 * D)
 
 
 def _decode_rows_per_block(G) -> int:
@@ -274,26 +285,29 @@ def _decode_rows_per_block(G) -> int:
     return 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8
 
 
-def decode_splits(B, Hkv, G, S, slots):
+def decode_splits(B, Hkv, G, S, slots, quant, D):
     """Blocks of the decode kernel's cluster for each (batch row, kv head,
     group of up to 8 query rows): the largest of 1, 2, 4 and 8 whose blocks
     the card still holds in one wave (``slots`` resident blocks), with at
-    least 64 cache rows a block. More leave a second, part-empty wave;
-    fewer leave SMs idle."""
+    least 64 cache rows and one whole stage of this cache kind and head
+    dim a block (a block takes whole stages: fewer rows would leave a rank
+    with none). More leave a second, part-empty wave; fewer leave SMs
+    idle."""
     blocks = B * Hkv * -(-G // 8)
-    want = min(max(slots // blocks, 1), DECODE_MAX_CLUSTER, -(-S // 64))
+    floor = max(DECODE_MIN_BLOCK_ROWS, decode_stage_rows(quant, D))
+    want = min(max(slots // blocks, 1), DECODE_MAX_CLUSTER, -(-S // floor))
     C = 1
     while 2 * C <= want:
         C *= 2
     return C
 
 
-def _decode_slots(lib, device, quant, G):
-    """Resident blocks of the decode kernel for G query rows a kv head,
-    per card (``device`` an index)."""
-    key = (device, quant, _decode_rows_per_block(G))
+def _decode_slots(lib, device, quant, G, D=128):
+    """Resident blocks of the decode kernel for G query rows a kv head at
+    head dim D, per card (``device`` an index)."""
+    key = (device, quant, _decode_rows_per_block(G), D)
     if key not in _DECODE_SLOTS:
-        n = (lib.a3_decode_slots_q8 if quant else lib.a3_decode_slots)(G)
+        n = (lib.a3_decode_slots_q8 if quant else lib.a3_decode_slots)(G, D)
         _kernels.check(0 if n > 0 else -n, "a3_decode_slots")
         _DECODE_SLOTS[key] = n
     return _DECODE_SLOTS[key]
@@ -308,7 +322,8 @@ def _decode_launch(name, q, G, cache_k, cache_v, valid, nk=None, nv=None,
     row pos[b] first. One launch, one allocation: the output, in q's shape.
     Returns (cudaError_t, out)."""
     Hkv = _cache_shape(cache_k)[1]
-    S = _check_cache(name, q, Hkv, cache_k, cache_v, valid)
+    S = _check_cache(name, q, Hkv, cache_k, cache_v, valid,
+                     DECODE_HEAD_DIMS)
     B, D = q.shape[0], q.shape[-1]
     _kernels.require(q.numel() == B * Hkv * G * D,
                      f"{name}: q shape {tuple(q.shape)} for {Hkv} kv heads")
@@ -325,9 +340,10 @@ def _decode_launch(name, q, G, cache_k, cache_v, valid, nk=None, nv=None,
     quant = isinstance(cache_k, QuantizedKV)
     lib = _kernels.lib()
     C = decode_splits(B, Hkv, G, S,
-                      _decode_slots(lib, q.get_device(), quant, G))
+                      _decode_slots(lib, q.get_device(), quant, G, D), quant,
+                      D)
     out = torch.empty_like(q)
-    tail = (*new, valid.data_ptr(), out.data_ptr(), B, Hkv, G, S, C,
+    tail = (*new, valid.data_ptr(), out.data_ptr(), B, Hkv, G, S, D, C,
             _LOG2E / math.sqrt(D), _kernels.stream())
     if quant:
         err = lib.a3_decode_attend_q8(
@@ -351,8 +367,8 @@ def _query_group(name, q, cache_k):
 def decode_attention_update(q, cache_k, cache_v, nk, nv, pos, valid):
     """Wrapper of the fused write+attend kernel (decode_attention.py:1612;
     the TPU kernels at :981 and :1069). Shapes as the plain version; on
-    CUDA all bf16 and contiguous, D == 128, pos/valid int32. A pos outside
-    [0, S) writes nothing."""
+    CUDA all bf16 and contiguous, D 64 or 128, pos/valid int32. A pos
+    outside [0, S) writes nothing."""
     if q.device.type == "cpu":
         return decode_attention_update_plain(q, cache_k, cache_v, nk, nv,
                                              pos, valid)
@@ -373,7 +389,7 @@ def decode_attention(q, k, v, valid):
     """Wrapper of the attend-only decode kernel (decode_attention.py:526;
     the TPU kernels at :111 and :164): the fused kernel with its write
     switched off. q [B, 1, Hq, D]; k, v [B, Hkv, S, D]; valid [B] int32;
-    on CUDA bf16 and D == 128. Returns [B, 1, Hq, D]."""
+    on CUDA bf16 and D 64 or 128. Returns [B, 1, Hq, D]."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid)
     name = "decode_attention"
@@ -470,7 +486,8 @@ def _verify_launch(name, q, cache_k, cache_v, valid):
     Hkv = _cache_shape(cache_k)[1]
     _kernels.require(Hq % Hkv == 0, f"{name}: {Hq} query heads over {Hkv} "
                      "kv heads")
-    S = _check_cache(name, q, Hkv, cache_k, cache_v, valid)
+    S = _check_cache(name, q, Hkv, cache_k, cache_v, valid,
+                     VERIFY_HEAD_DIMS)
     G = Hq // Hkv
     quant = isinstance(cache_k, QuantizedKV)
     lib = _kernels.lib()
@@ -528,33 +545,38 @@ verify_attention_quant.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _kernel_operands(xq) -> bool:
-    """What every kernel of this module takes: CUDA, bf16 activations,
-    D == 128. (The JAX gates' TPU-only, S % 8 and D % 128 conditions.)"""
+def _kernel_operands(xq, dims) -> bool:
+    """What the kernels of this module take: CUDA, bf16 activations, D one
+    of ``dims``: 128 for the verify kernel, 64 or 128 for the decode
+    kernel. (The JAX gates' TPU-only, S % 8 and D % 128 conditions; they
+    keep falcon's D 64 on XLA after a TPU measurement, which the port does
+    not take over.)"""
     return (xq.device.type == "cuda" and xq.dtype == torch.bfloat16
-            and xq.shape[-1] == 128)
+            and xq.shape[-1] in dims)
 
 
 def decode_attention_eligible(xq) -> bool:
-    """xq [B, 1, Hq, 128] bf16 on CUDA (decode_attention.py:510)."""
-    return xq.shape[1] == 1 and _kernel_operands(xq)
+    """xq [B, 1, Hq, D] bf16 on CUDA, D 64 or 128
+    (decode_attention.py:510)."""
+    return xq.shape[1] == 1 and _kernel_operands(xq, DECODE_HEAD_DIMS)
 
 
 def verify_attention_eligible(xq) -> bool:
     """xq [B, Sq, Hq, 128] bf16 on CUDA with 1 < Sq <= 16
     (decode_attention.py:916)."""
-    return 1 < xq.shape[1] <= VERIFY_KERNEL_MAX_SPAN and _kernel_operands(xq)
+    return (1 < xq.shape[1] <= VERIFY_KERNEL_MAX_SPAN
+            and _kernel_operands(xq, VERIFY_HEAD_DIMS))
 
 
 def fused_eligible(xq, cache_k, mask, kv_valid_len) -> bool:
-    """Single-token bf16 decode over a bhsd cache (bf16 or int8) with
-    D == 128. The JAX gate's TPU-only and S % 8 conditions do not apply
+    """Single-token bf16 decode over a bhsd cache (bf16 or int8) with D 64
+    or 128. The JAX gate's TPU-only and S % 8 conditions do not apply
     here; CPU tensors pass too and take the wrappers' plain versions."""
     return (
         mask is None
         and kv_valid_len is not None
         and xq.shape[1] == 1
-        and xq.shape[-1] == 128
+        and xq.shape[-1] in DECODE_HEAD_DIMS
         and xq.dtype == torch.bfloat16
         and (isinstance(cache_k, QuantizedKV)
              or cache_k.dtype == torch.bfloat16)
@@ -625,7 +647,8 @@ def attend_decode_cache(xq, cache_k, cache_v, *, mask, kv_valid_len,
     2. a causal window of 2..16 tokens with ``kv_valid_len``: the verify
        kernel (int8 or bf16);
     3. one token, no mask, over an int8 cache: the int8 decode kernel;
-    4. one token, no mask, over a bf16 cache: the decode kernel;
+    4. one token, no mask, over a bf16 cache: the decode kernel (3 and 4
+       at D 64 or 128);
 
     else the plain path over the (dequantized) cache."""
     kernels = impl in ("auto", "flash")

@@ -10,8 +10,10 @@ dataset index, on the device at the batch's full width and in the towers'
 dtype, and replays it afterwards; ``FeatureCachingLoader`` wraps a
 ``DataLoader`` made with ``with_indices=True`` and swaps each batch's
 ``image`` for ``image_feat_q`` / ``image_feat_ens``, which
-``ens5.forward`` takes as ``image_features``. Epoch 0 runs the towers
-once per image; every later epoch runs none.
+``ens5.forward`` takes as ``image_features`` (and, given a second cache
+for the 2-images variant, ``depth_image`` for ``depth_feat_q`` /
+``depth_feat_ens``, ``ens5_2images.forward``'s ``depth_features``). Epoch
+0 runs the towers once per image; every later epoch runs none.
 
 The features are kept as host tensors in their dtype, so a cached step is
 bit for bit the uncached one. ``cache_dir`` spills one ``.npz`` per index
@@ -124,15 +126,20 @@ class TowerFeatureCache:
 
 class FeatureCachingLoader:
     """Wrap a DataLoader (``with_indices=True``) so every multimodal batch
-    carries ``image_feat_q`` / ``image_feat_ens`` in place of ``image``.
-    Caches each micro-batch of a gradient-accumulation batch ([accum, bs,
-    ...] leaves). A batch without an ``image`` key passes through as it
-    is, a ``depth_image``-only batch too (feature_cache.py:171). The
-    depth stream of the 2-images variant is not cached here."""
+    carries ``image_feat_q`` / ``image_feat_ens`` in place of ``image``
+    and, for the 2-images variant (``depth_cache`` given),
+    ``depth_feat_q`` / ``depth_feat_ens`` in place of ``depth_image``:
+    both streams run the same frozen towers, each cached in its own
+    ``TowerFeatureCache`` (feature_cache.py:143). Caches each micro-batch
+    of a gradient-accumulation batch ([accum, bs, ...] leaves). A batch
+    without an ``image`` key passes through as it is, a
+    ``depth_image``-only batch too (feature_cache.py:171)."""
 
-    def __init__(self, loader, cache: TowerFeatureCache):
+    def __init__(self, loader, cache: TowerFeatureCache,
+                 depth_cache: Optional[TowerFeatureCache] = None):
         self.loader = loader
         self.cache = cache
+        self.depth_cache = depth_cache
 
     def __len__(self) -> int:
         return len(self.loader)
@@ -140,9 +147,11 @@ class FeatureCachingLoader:
     def close(self):
         self.loader.close()
 
-    def _swap(self, idx, img) -> dict:
-        f = self.cache.get_batch(idx, img)
-        return {"image_feat_q": f["q"], "image_feat_ens": f["ens"]}
+    def _swap(self, idx, img, stream: str) -> dict:
+        cache = self.cache if stream == "image" else self.depth_cache
+        f = cache.get_batch(idx, img)
+        pre = "image_feat_" if stream == "image" else "depth_feat_"
+        return {pre + "q": f["q"], pre + "ens": f["ens"]}
 
     def __iter__(self) -> Iterator[dict]:
         for batch in self.loader:
@@ -153,11 +162,19 @@ class FeatureCachingLoader:
             if idx is None:
                 raise ValueError(
                     "FeatureCachingLoader needs DataLoader(with_indices=True)")
-            img = batch.pop("image")
-            if img.ndim == 5 and idx.ndim == 2:  # [accum, bs, H, W, 3]
-                per = [self._swap(idx[a], img[a]) for a in range(img.shape[0])]
-                for k in per[0]:
-                    batch[k] = torch.stack([p[k] for p in per])
-            else:
-                batch.update(self._swap(idx, img))
+            if "depth_image" in batch and self.depth_cache is None:
+                raise ValueError(
+                    "depth batches need FeatureCachingLoader(depth_cache=...)"
+                    " (2-images variant)")
+            streams = [("image", batch.pop("image"))]
+            if "depth_image" in batch:
+                streams.append(("depth", batch.pop("depth_image")))
+            for stream, img in streams:
+                if img.ndim == 5 and idx.ndim == 2:  # [accum, bs, H, W, 3]
+                    per = [self._swap(idx[a], img[a], stream)
+                           for a in range(img.shape[0])]
+                    for k in per[0]:
+                        batch[k] = torch.stack([p[k] for p in per])
+                else:
+                    batch.update(self._swap(idx, img, stream))
             yield batch

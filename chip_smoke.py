@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    tensor-core kernels (K2, K9a, K9b, K10, the tiled quantized matmuls of
    K1, K1v3, K11 and K6, K11's pre-pass, and the verify kernel of K5 and
    K5q, and K8's W8A8 tile: registers, spills), of the cluster kernels
-   (the decode kernel of K3, K3u, K4 and K4 fused, and the GEMV of K1,
-   K1v3, K11, K7 and K6) and of the row quantizer; they must not spill and
+   (the decode kernel of K3, K3u, K4 and K4 fused, at head dims 128 and
+   64, and the GEMV of K1, K1v3, K11, K7 and K6) and of the row
+   quantizer; they must not spill and
    the wgmma products must not have been serialized.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the main path gives it (K2 also at phase 9's
@@ -31,10 +32,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceeds the L2 (``cold_copies``), as a decode step finds each layer's
    cache and weights; the row quantizer's rows (K7's and K8's shapes) must
    equal its plain version bit for bit, inputs from a generator of their
-   own. Last, phase 11's shapes (``check_families``, a generator of their
+   own. Then phase 11's shapes (``check_families``, a generator of their
    own): K1's GEMV at 4096x1024 and the 4096x92544 head, its tile at M
    1341; K2 at H32/Hkv8 over 1341 keys (batch 1 and 4) and H40 over 2956;
-   K3, K4 fused, K5 and K5q at G 4; K10 at 10 crops.
+   K3, K4 fused, K5 and K5q at G 4; K10 at 10 crops. Last, phase 12's
+   (``check_falcon``): K1's GEMV (M 1, 4) and tile (M 1024, and 128 on
+   wq) on Falcon-180B's four linears and its 65024-wide head; K2 at head
+   dim 64 with 232 query heads over 8 kv heads (the batch-4 prefill of 32
+   ids and the loss's 2 x 512), K9a/K9b at head dim 64 and at InternLM2's
+   G 4 over 1551 keys; the decode kernel's head-dim-64 instance at G 29
+   (K3, K3u, K4, K4 fused) at batch 1 and 4 over 80 rows and at batch 4
+   over 2048.
 4. serving path: ``MetaModel`` for llama_ens5 at the full width of
    ``Ens5Config()`` (LLaMA-2-13B decoder with int4 weights, the four
    towers) on random weights from a seeded generator. Four requests (a
@@ -192,6 +200,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal those of a ``llama_ens5`` model over the same tree given no
    images.
 
+12. falcon, the families' training and the depth cache (after phase 11;
+   it frees its models): (a) ``falcon`` at ``FalconArgs()`` widths
+   (Falcon-180B: hidden 14848, 232 heads over 8 kv heads, head dim 64, MLP
+   59392, rope theta 1e4; vocab 65024 from a synthetic table) cut to 16 of
+   its 80 layers, int4 linears and head made layer by layer from a seed:
+   4 prompts (41-47 ids) at batch 4 and one at batch 1, 32 new ids,
+   greedy, vanilla and with the int8 cache (its ids held against the
+   vanilla run's by phase 11's gap rule); K1, K2 and the decode kernel's
+   head-dim-64 instance launched (K3 fused, or K4 fused), no fallback;
+   one decode step's device time by kernel; prefill logits against the
+   plain path; one loss and backward through ``MetaModel.forward`` on 2 x
+   512 ids (K9a/K9b at head dim 64). (b) three QLoRA steps (rank 16, int4
+   base, bf16 over float32 masters, AdamW clip 8) on one repeated batch,
+   each loss and grad norm finite and the loss falling:
+   ``internlm_ems5_light`` as released (2 images of 1024 px and 256 ids;
+   ``MetaModel.forward``'s loss, as the JAX CLI does not train it), then
+   phase 4's 13B weights as ``llama_ens5_2images`` (an RGB and a depth
+   image, 128 ids) and its decoder as ``llama`` (2 x 2048 ids) through the
+   CLI's loss and step. (c) the CLI's pieces for ``llama_ens5_2images
+   --cache_tower_features`` on phase 10's 2-layer checkpoint over a dialog
+   dataset with a depth stream: two epochs cached (no K10 launch in the
+   second) give the uncached run's losses exactly.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -201,9 +232,9 @@ and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the serving, continuous-batching, latency, training, quantized-mode,
-fine-tuning-loop and families runs, ``launches_by_path`` splits them as
-``serve``, ``cb``, ``latency``, ``train``, ``quant``, ``ckpt`` and
-``fam``; ``bound_ms`` is the larger of the bytes
+fine-tuning-loop, families and phase-12 runs, ``launches_by_path`` splits
+them as ``serve``, ``cb``, ``latency``, ``train``, ``quant``, ``ckpt``,
+``fam`` and ``p12``; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
 PyTorch library call on the same inputs, timed here and used nowhere in
@@ -213,6 +244,7 @@ the port); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import itertools
@@ -500,22 +532,28 @@ def device_stats(fn, kernel: str = "", reps: int = 20):
     """Mean device time per call of the kernels whose name holds
     ``kernel`` (all the call launches, by default), and how many such
     kernels a call launches, from a ``torch.profiler`` trace of ``reps``
-    calls; (None, 0) when the trace shows no such kernel."""
+    calls; (None, 0) when the trace shows no such kernel. A trace that
+    comes back with no device event at all is taken once more."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        # device events only (a CPU event may carry its kernels' time)
-        if kernel in e.key and str(e.device_type).endswith("CUDA"):
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count, seen = 0.0, 0, False
+        for e in prof.key_averages():
+            # device events only (a CPU event may carry its kernels' time)
+            if str(e.device_type).endswith("CUDA"):
+                seen = True
+                if kernel in e.key:
+                    total += getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0.0))
+                    count += e.count
+        if seen:
+            break
     if not total:
         return None, 0
     return total / reps / 1e3, count / reps  # microseconds -> ms
@@ -599,6 +637,17 @@ def randn(*shape, gen, dtype=torch.bfloat16):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def int4_bytes(qw, M: int, *tensors, acts: int = 1) -> int:
+    """Bytes a product with the int4 weight ``qw`` must move, at its true
+    in_dim K: ``acts`` bf16 activations [M, K], the packed and the scale
+    rows of K (not the zero rows the layout pads K to), and ``tensors``
+    (the output, a residual) whole."""
+    K, N = qw.in_dim, qw.q.shape[-1]
+    return (acts * M * K * 2 + K // 2 * N * qw.q.element_size()
+            + -(-K // qw.group) * N * qw.scale.element_size()
+            + nbytes(*tensors))
 
 
 def record(results, name, case, err, ms, plain, bytes_moved, flops,
@@ -715,8 +764,7 @@ def check_int4(gen, results):
                     lambda: x @ _dequantize_leaf(qw, torch.bfloat16), reps=3)
                 record(results, "int4_matmul",
                        f"M={m} K={K}(pad {kpad}) N={N}", err, None, plain,
-                       nbytes(x2, qw.q, qw.scale, got), 2 * m * kpad * N,
-                       library)
+                       int4_bytes(qw, m, got), 2 * m * K * N, library)
                 if gemv:
                     time_cold(results[-1], lambda q, s: int4_matmul_2d(
                         x2, q, s, qw.group), copies)
@@ -785,7 +833,7 @@ def check_int4_variants(gen, results):
         for M in GEMV_MS + TILED_MS:
             x = padded(randn(M, K, gen=gen), qw)
             reps = reps_for(M)
-            flops = 2 * M * kpad * N
+            flops = 2 * M * K * N
 
             def dense():
                 return x[:, :K] @ _dequantize_leaf(qw, torch.bfloat16)
@@ -800,7 +848,7 @@ def check_int4_variants(gen, results):
                    timed_ms(lambda: int4_matmul_2d_v3(x, *wargs), reps),
                    timed_ms(lambda: int4_matmul_2d_v3_plain(x, *wargs),
                             reps=1),
-                   nbytes(x, qw.q, qw.scale, got), flops, library)
+                   int4_bytes(qw, M, got), flops, library)
             if M <= qmm.GEMV_MAX_M:  # the GEMV on a cold L2
                 time_cold(results[-1], lambda q, s: int4_matmul_2d_v3(
                     x, q, s, qw.group), copies)
@@ -818,7 +866,7 @@ def check_int4_variants(gen, results):
                        timed_ms(lambda: int4_matmul_2d_w4a8(x, *wargs), reps),
                        timed_ms(lambda: int4_matmul_2d_w4a8_plain(x, *wargs),
                                 reps=1),
-                       nbytes(x, qw.q, qw.scale, got), flops, library,
+                       int4_bytes(qw, M, got), flops, library,
                        peak_ops=PEAK_INT8_OPS_PER_S)
                 # the wrapper (the row quantizer, then the GEMV) on a cold
                 # L2, and the GEMV alone
@@ -854,7 +902,7 @@ def check_int4_variants(gen, results):
                        f"M={M} {shape} rel_vs_exact={rel:.2e}", err, None,
                        timed_ms(lambda: int4_matmul_2d_w8a8p_plain(x, *wargs),
                                 reps=1),
-                       nbytes(x, qw.q, qw.scale, got), flops,
+                       int4_bytes(qw, M, got), flops,
                        timed_ms(int_mm, reps), peak_ops=PEAK_INT8_OPS_PER_S)
                 # the wrapper (the activation quantizer and the factors in
                 # tensor ops, then the kernel) and the kernel alone, over
@@ -918,7 +966,7 @@ def check_glu(gen, results):
             record(results, "int4_matmul_glu", case, err,
                    timed_ms(lambda: int4_matmul_2d_glu(*args), reps),
                    timed_ms(lambda: int4_matmul_2d_glu_plain(*args), reps=1),
-                   nbytes(g, u, qw.q, qw.scale, res, got), 2 * M * kpad * N,
+                   int4_bytes(qw, M, res, got, acts=2), 2 * M * K * N,
                    timed_ms(lambda: res + (F.silu(g[:, :K]) * u[:, :K])
                             @ _dequantize_leaf(qw, torch.bfloat16), reps))
             if M <= qmm.GEMV_MAX_M:
@@ -934,9 +982,8 @@ FLASH_SHAPES = ((4, 40, 40, 1487, 1487), (4, 40, 8, 1487, 1487),
                 (1, 40, 40, 1487, 1487))
 
 
-def check_flash(gen, results, shapes=FLASH_SHAPES):
+def check_flash(gen, results, shapes=FLASH_SHAPES, D=128):
     for B, Hq, Hkv, Sq, Skv in shapes:
-        D = 128
         q = randn(B, Hq, Sq, D, gen=gen)
         k = randn(B, Hkv, Skv, D, gen=gen)
         v = randn(B, Hkv, Skv, D, gen=gen)
@@ -1020,15 +1067,15 @@ def sdpa_backward_ms(q, k, v, do, mask, reps=3) -> float:
             out, (q, k, v), do, retain_graph=True), reps=reps)
 
 
-def check_flash_bwd(gen, results):
+TRAIN_FLASH_SHAPES = ((2, 40, 40, 2048, 2048), (2, 40, 8, 2048, 2048),
+                      (2, 40, 40, 512, 2048), (1, 40, 40, 2048, 2048))
+
+
+def check_flash_bwd(gen, results, shapes=TRAIN_FLASH_SHAPES, D=128):
     """K2 with its lse and K9a/K9b at the training shapes (B 2, S 2048),
     GQA, right-aligned, and one sample alone; both backward sides get the
     kernel's output and lse."""
-    for B, Hq, Hkv, Sq, Skv in ((2, 40, 40, 2048, 2048),
-                                (2, 40, 8, 2048, 2048),
-                                (2, 40, 40, 512, 2048),
-                                (1, 40, 40, 2048, 2048)):
-        D = 128
+    for B, Hq, Hkv, Sq, Skv in shapes:
         case = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}"
         q = randn(B, Hq, Sq, D, gen=gen)
         k = randn(B, Hkv, Skv, D, gen=gen)
@@ -1133,7 +1180,7 @@ LATENCY_CACHES = ((1, 40, 1, 1544), (4, 40, 1, 1544), (4, 8, 5, 1544),
 
 
 def check_latency_kernels(gen, results, caches=LATENCY_CACHES,
-                          spans=(8, 2, 5, 16)):
+                          spans=(8, 2, 5, 16), D=128):
     """The decode and verify kernels of the latency path against their
     plain versions at each of ``caches``, ragged ``pos`` and ``valid``:
     the fused bf16 kernel (its caches bit-identical to the plain
@@ -1144,7 +1191,6 @@ def check_latency_kernels(gen, results, caches=LATENCY_CACHES,
     a cold L2 (a rotation of cache copies; the fused rows write into
     them), with its device time and launches per call from a
     ``torch.profiler`` trace and the wrapper's host time per call."""
-    D = 128
     for B, Hkv, G, S in caches:
         Hq = Hkv * G
         case = f"B={B} Hkv={Hkv} G={G} S={S} D={D}"
@@ -1331,7 +1377,7 @@ def check_families(results):
             record(results, "int4_matmul", f"M={M} K={K} N={N}",
                    err, None, timed_ms(lambda: int4_matmul_2d_plain(
                        x2, qw.q, qw.scale, qw.group), reps=1),
-                   nbytes(x2, qw.q, qw.scale, got), 2 * M * K * N,
+                   int4_bytes(qw, M, got), 2 * M * K * N,
                    timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
                             reps=3))
             time_cold(results[-1], lambda q, s: int4_matmul_2d(
@@ -1348,7 +1394,7 @@ def check_families(results):
                     reps=3),
            timed_ms(lambda: int4_matmul_2d_plain(x, qw.q, qw.scale,
                                                  qw.group), reps=3),
-           nbytes(x, qw.q, qw.scale, got), 2 * M * K * N,
+           int4_bytes(qw, M, got), 2 * M * K * N,
            timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
                     reps=3))
     del qw
@@ -1360,6 +1406,70 @@ def check_families(results):
     S = -(-(FAMILY_PREFILL + 40) // 8) * 8
     check_latency_kernels(gen, results, ((1, 8, 4, S), (4, 8, 4, S)), (9,))
     check_vit(gen, results, crops=(10,))
+
+
+# The shapes phase 12 gives the kernels: Falcon-180B's decoder linears
+# (K, N of wq and wo, wk and wv, dense_h_to_4h, dense_4h_to_h, the head),
+# its prefill at batch 4 (the bucket of 32 ids), its loss (2 x 512), its
+# cache with 232 query heads over 8 kv heads (G 29, head dim 64) at the
+# length a request of 47 ids and 32 new ones fills and at 2048; and the
+# families' training: InternLM2's 32 heads over 8 at 1295 image words and
+# 256 ids, two sequences.
+FALCON_LINEARS = ((14848, 14848), (14848, 512), (14848, 59392),
+                  (59392, 14848), (14848, 65024))
+FALCON_HEADS, FALCON_KV_HEADS, FALCON_HEAD_DIM = 232, 8, 64
+FALCON_PROMPTS = (41, 43, 45, 47)
+FALCON_CACHE = -(-(max(FALCON_PROMPTS) + 32) // 8) * 8
+FALCON_LOSS_LEN = 512
+INTERNLM_TRAIN_LEN = 1295 + 256
+
+
+def check_falcon(results):
+    """Phase 12's shapes, each kernel against its plain version, on inputs
+    from a generator of their own: K1's GEMV at M 1 and 4 and its tile at
+    M 1024 (the loss) on each of falcon's linears and its head, the tile
+    also at M 128 (the batch-4 prefill) on wq; K2 at D 64 (232 heads over
+    8) for the prefill and the loss, K9a/K9b at D 64 and at InternLM2's
+    G 4; the decode kernel's D 64 instance at G 29, fused and attend-only,
+    over the bf16 and the int8 cache, batch 1 and 4
+    (``check_latency_kernels``)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for K, N in FALCON_LINEARS:
+        qw = _quantize_leaf_int4(random_weight(K, N, gen))
+        copies = weight_copies(qw)
+        for M in (1, 4, 1024) + ((128,) if (K, N) == (14848, 14848) else ()):
+            x = randn(M, K, gen=gen)
+            x2 = padded(x, qw)
+            got = int4_matmul(x, qw)
+            err = compare(f"int4 M={M} K={K} N={N}", got,
+                          int4_matmul(x, qw, impl="plain"))
+            gemv = M <= qmm.GEMV_MAX_M
+            record(results, "int4_matmul", f"M={M} K={K} N={N}", err,
+                   None if gemv else timed_ms(lambda: int4_matmul_2d(
+                       x2, qw.q, qw.scale, qw.group), reps=3),
+                   timed_ms(lambda: int4_matmul_2d_plain(
+                       x2, qw.q, qw.scale, qw.group), reps=1),
+                   int4_bytes(qw, M, got), 2 * M * K * N,
+                   timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
+                            reps=3))
+            if gemv:
+                time_cold(results[-1], lambda q, s: int4_matmul_2d(
+                    x2, q, s, qw.group), copies)
+            del x, x2, got
+        del copies, qw
+        torch.cuda.empty_cache()
+    H, Hkv, D = FALCON_HEADS, FALCON_KV_HEADS, FALCON_HEAD_DIM
+    check_flash(gen, results, ((4, H, Hkv, 32, 32),
+                               (2, H, Hkv, FALCON_LOSS_LEN,
+                                FALCON_LOSS_LEN)), D=D)
+    check_flash_bwd(gen, results, ((2, H, Hkv, FALCON_LOSS_LEN,
+                                    FALCON_LOSS_LEN),), D=D)
+    check_flash_bwd(gen, results, ((2, 32, 8, INTERNLM_TRAIN_LEN,
+                                    INTERNLM_TRAIN_LEN),))
+    G = H // Hkv
+    check_latency_kernels(gen, results, ((1, Hkv, G, FALCON_CACHE),
+                                         (4, Hkv, G, FALCON_CACHE),
+                                         (4, Hkv, G, 2048)), (), D=D)
 
 
 def kernel_times(fn, reps: int) -> dict:
@@ -1412,25 +1522,26 @@ def decode_profile(card: str, label: str, model, prompts, images,
                    steps: int = 4) -> dict:
     """One decode step's device time by kernel name (``torch.profiler``
     over ``steps`` steps after one warm-up step) on a cache prefilled with
-    the prompts' common prefix, the model's cache settings: the device
-    work of a step without the host's eager loop around it."""
-    from a3vlm_tpu_torch.models import llama
+    the prompts' common prefix (after the images, if any), the model's
+    cache settings and its family's ops: the device work of a step without
+    the host's eager loop around it."""
     from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
 
-    args, lp = model.args, model.params["llama"]
+    args, lp, ops = model.args, model.decoder, model._gen_ops
     with torch.inference_mode():
         img = model.encode_images(images)
         P = min(len(t) for t in prompts)
         tokens = torch.tensor([t[:P] for t in prompts], device="cuda")
-        cache = llama.KVCache.create(
-            args, len(prompts), P + img.shape[1] + steps + 2,
-            dtype=kv_cache_dtype(model.kv_cache_bits, "cuda"), device="cuda")
-        logits, cache, S = llama.prefill(lp, args, cache, tokens, img)
+        W = 0 if img is None else img.shape[1]
+        cache = ops.create_cache(
+            args, len(prompts), P + W + steps + 2,
+            kv_cache_dtype(model.kv_cache_bits, "cuda"), "cuda")
+        logits, cache, S = ops.prefill(lp, args, cache, tokens, img, "auto")
         tok = logits.argmax(-1)[:, None]
         pos = [S]
 
         def step():
-            llama.decode_step(lp, args, cache, tok, pos[0])
+            ops.decode_step(lp, args, cache, tok, pos[0], "auto")
             pos[0] += 1
 
         step()
@@ -3474,18 +3585,16 @@ def fam_run(card: str, label: str, model, prompts, totals: dict, expect,
 
 def fam_logits(model, tokens, image_kw: dict, impl: str):
     """Prefill logits [B, V] of [BOS | image words | tokens] through one
-    path (the towers too)."""
-    from a3vlm_tpu_torch.models import llama
-
+    path (the towers too), by the family's ops."""
+    ops = model._gen_ops
     with torch.inference_mode():
         img = model.encode_images(image_kw.get("images"),
                                   image_kw.get("depth_images"), impl=impl)
         W = 0 if img is None else img.shape[1]
-        cache = llama.KVCache.create(model.args, tokens.shape[0],
-                                     tokens.shape[1] + W,
-                                     dtype=torch.bfloat16, device="cuda")
-        logits = llama.prefill(model.decoder, model.args, cache, tokens,
-                               img, impl)[0]
+        cache = ops.create_cache(model.args, tokens.shape[0],
+                                 tokens.shape[1] + W, torch.bfloat16, "cuda")
+        logits = ops.prefill(model.decoder, model.args, cache, tokens, img,
+                             impl)[0]
     return img, logits
 
 
@@ -3752,6 +3861,437 @@ def run_families(card: str) -> dict:
     return totals
 
 
+# Phase 12: falcon at full width, the families' QLoRA steps and the depth
+# stream of the tower cache. Falcon-180B's decoder cut to FALCON_LAYERS of
+# its 80 layers (each about 1.25 GB in int4 with group-64 scales: 80 do
+# not fit the card); the kernels each of its runs must launch.
+FALCON_LAYERS = 16
+FALCON_VOCAB = 65024
+FALCON_KERNELS = ("int4_matmul", "flash_attention", "decode_attention")
+FALCON_Q8_KERNELS = ("int4_matmul", "flash_attention",
+                     "decode_attention_q8_fused")
+LOSS_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")
+FAM_TRAIN_KERNELS = ("int4_matmul", "flash_attention",
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def falcon_model(seed: int = 0):
+    """``MetaModel("falcon")`` at ``FalconArgs()`` widths cut to
+    ``FALCON_LAYERS`` layers, int4 decoder linears and head: each layer
+    made from the seed on the card and quantized before the next is made,
+    so no dense copy of more than one layer is ever held."""
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.models import falcon
+    from a3vlm_tpu_torch.quant import quantize_params
+
+    args = falcon.FalconArgs(num_layers=FALCON_LAYERS,
+                             vocab_size=FALCON_VOCAB)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tree = falcon.init_falcon_params(
+        dataclasses.replace(args, num_layers=0), torch.bfloat16, "cuda", gen)
+    quantize_params(tree, bits=4)  # the head; the embeddings stay dense
+    one = dataclasses.replace(args, num_layers=1, vocab_size=8)
+    for _ in range(FALCON_LAYERS):
+        layer = falcon.init_falcon_params(one, torch.bfloat16, "cuda",
+                                          gen)["layers"]
+        quantize_params({"layers": layer}, bits=4)
+        tree["layers"] += layer
+    return MetaModel("falcon", params=tree, model_cfg=args,
+                     tokenizer=_PieceTable(FALCON_VOCAB), device="cuda")
+
+
+def run_falcon(card: str, totals: dict) -> None:
+    """Phase 12 (a): falcon served at batch 4 and 1, vanilla and with the
+    int8 cache, then one loss and backward through ``MetaModel.forward``."""
+    t0 = time.perf_counter()
+    model = falcon_model()
+    torch.cuda.synchronize()
+    args = model.args
+    print(f"[{card}] falcon built in {time.perf_counter() - t0:.1f} s "
+          f"(random weights, int4 linears and head): hidden "
+          f"{args.hidden_size}, {args.num_layers} of FalconArgs()'s 80 "
+          f"layers, {args.num_attention_heads} heads over {args.kv_heads} kv "
+          f"heads, head dim {args.head_dim}, MLP {4 * args.hidden_size}, "
+          f"vocab {args.vocab_size}, rope theta {args.rope_theta:g}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = seeded_prompts(20, FALCON_VOCAB, FALCON_PROMPTS)
+    model.generate_tokens(prompts, max_gen_len=2)  # warm-up
+    d64 = {}
+    before = launch_counts()
+    ids = fam_run(card, "(a) falcon B4", model, prompts, totals,
+                  FALCON_KERNELS)
+    one = fam_run(card, "(a) falcon B1", model, prompts[2:3], totals,
+                  FALCON_KERNELS)
+    d64["bf16"] = launches_since(before)["decode_attention"]
+    decode_profile(card, "(a) falcon B4", model, prompts, None)
+    decode_profile(card, "(a) falcon B1", model, prompts[2:3], None)
+    model.kv_cache_bits = 8
+    before = launch_counts()
+    ids8 = fam_run(card, "(a) falcon kv8 B4", model, prompts, totals,
+                   FALCON_Q8_KERNELS)
+    one8 = fam_run(card, "(a) falcon kv8 B1", model, prompts[2:3], totals,
+                   FALCON_Q8_KERNELS)
+    d64["int8"] = launches_since(before)["decode_attention_q8_fused"]
+    decode_profile(card, "(a) falcon kv8 B4", model, prompts, None)
+    model.kv_cache_bits = None
+    for i, (got, want) in enumerate(zip(ids8 + one8, ids + one)):
+        fam_hold_ids(card, f"(a) falcon kv8 row {i}", model,
+                     (prompts + prompts[2:3])[i], {}, got, want, "vanilla")
+    print(f"[{card}] falcon: launches of decode_cluster_kernel at head dim "
+          f"64 over the served runs: bf16 cache {d64['bf16']}, int8 cache "
+          f"{d64['int8']} ({FALCON_LAYERS} layers x decode steps)")
+    if not (d64["bf16"] and d64["int8"]):
+        raise AssertionError("falcon: the D 64 decode kernel did not launch")
+
+    hold_prefill(card, "(a) falcon", model, prompts, {})
+
+    # one loss and backward through MetaModel.forward (the int4 linears
+    # frozen; the LayerNorms and the embeddings take gradients)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    examples = torch.randint(3, FALCON_VOCAB, (2, FALCON_LOSS_LEN),
+                             generator=gen, device="cuda")
+    examples[:, 0] = 1
+    labels = examples.clone()
+    labels[:, :64] = 0
+    leaves = [model.decoder["word_embeddings"]["weight"]]
+    for lp in model.decoder["layers"]:
+        leaves += [lp[n][w] for n in ("ln_attn", "ln_mlp")
+                   for w in ("weight", "bias")]
+    for t in leaves:
+        t.requires_grad_(True)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = model.forward(examples, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    delta = launches_since(before)
+    for n, c in delta.items():
+        totals[n] += c
+    gnorm = float(torch.sqrt(sum(t.grad.float().pow(2).sum()
+                                 for t in leaves)))
+    print(f"[{card}] falcon loss and backward on 2 x {FALCON_LOSS_LEN} ids: "
+          f"{ms:.1f} ms, loss {float(loss.detach()):.6f}, grad norm "
+          f"{gnorm:.6f} "
+          f"(embeddings and LayerNorms); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{ {n: c for n, c in delta.items() if c} }")
+    require_counts(delta, LOSS_KERNELS, "falcon loss")
+    if not (math.isfinite(float(loss.detach())) and math.isfinite(gnorm)):
+        raise AssertionError(f"falcon loss {float(loss.detach())}, grad "
+                             f"norm {gnorm}")
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_three_steps(card: str, label: str, step, state, batch,
+                      tokens: int, totals: dict) -> list:
+    """Three train steps on one batch: each loss and grad norm finite, the
+    loss falling; prints each step's ms, loss and grad norm and the peak
+    memory. Returns the losses."""
+    before = launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        print(f"[{card}] {label} step {i}: {ms:.1f} ms, "
+              f"{tokens / ms * 1e3:.1f} tokens/s, loss {loss:.6f}, "
+              f"grad_norm {gnorm:.6f}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{label}: loss {loss}, grad norm {gnorm}")
+    delta = launches_since(before)
+    for n, c in delta.items():
+        totals[n] += c
+    print(f"[{card}] {label}: peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{ {n: c for n, c in delta.items() if c} }")
+    require_counts(delta, FAM_TRAIN_KERNELS, label)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    return losses
+
+
+def qlora_setup(model, loss_fn, mask, lora):
+    """(step, state, optimizer) of the QLoRA recipe over ``model``'s params
+    and ``lora``: bf16 compute over float32 masters of the trainables,
+    AdamW at lr 1e-3 with clip 8."""
+    from a3vlm_tpu_torch.train.step import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+    from a3vlm_tpu_torch.utils.tensor_type import mixed_precision_policy
+
+    model.params = mixed_precision_policy(model.params, mask, torch.bfloat16)
+    optimizer = make_optimizer(1e-3, max_grad_norm=8.0, weight_decay=0.0)
+    step = make_train_step(loss_fn, optimizer, accum_steps=1,
+                           trainable_mask=mask)
+    return step, TrainState.create({**model.params, "lora": lora},
+                                   optimizer, mask), optimizer
+
+
+def text_batch(gen, B: int, n: int, vocab: int) -> dict:
+    examples = torch.randint(3, vocab, (B, n), generator=gen, device="cuda")
+    examples[:, 0] = 1
+    labels = examples.clone()
+    labels[:, :32] = 0
+    return {"examples": examples, "labels": labels}
+
+
+def run_internlm_training(card: str, totals: dict) -> None:
+    """Phase 12 (b), ``internlm_ems5_light`` as released: the JAX CLI does
+    not train it, so the step is ``make_train_step`` over
+    ``MetaModel.forward`` (meta.py:464-484: the decoder's training forward
+    over the family's image tokens): each call binds the step's params,
+    cast to bf16 and with the rank-16 adapters attached to the decoder, to
+    the model and takes the model's own loss. The int4 base and the towers
+    stay frozen."""
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.quant import tree_map
+    from a3vlm_tpu_torch.train.lora import (
+        attach_lora,
+        init_lora_params,
+        lora_base_trainable_mask,
+    )
+
+    t0 = time.perf_counter()
+    model = MetaModel("internlm_ems5_light", with_visual=True,
+                      dtype=torch.bfloat16, tokenizer=_PieceTable(92544),
+                      seed=0)
+    model.quantize(bits=4)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    lora = init_lora_params(gen, model.decoder, rank=16)
+    mask = tree_map(lambda _: False, model.params)
+    mask["llama"] = lora_base_trainable_mask(model.decoder)
+    for k in ("visual_proj", "start_img", "end_img"):
+        mask[k] = tree_map(lambda _: True, model.params[k])
+    mask["lora"] = tree_map(lambda _: True, lora)
+
+    def cast(p):
+        return p.to(torch.bfloat16) if (isinstance(p, torch.Tensor) and
+                                        p.dtype == torch.float32) else p
+
+    def loss_fn(params, batch):
+        params = tree_map(cast, params)
+        model.params = {**{k: v for k, v in params.items() if k != "lora"},
+                        "llama": attach_lora(params["llama"],
+                                             params["lora"])}
+        return model.forward(batch["examples"], batch["labels"],
+                             batch["image"])
+
+    step, state, _ = qlora_setup(model, loss_fn, mask, lora)
+    batch = {**text_batch(gen, 2, 256, 92544),
+             "image": clip_images(2, 1024, seed=23)}
+    torch.cuda.synchronize()
+    print(f"[{card}] fam-train internlm_ems5_light built in "
+          f"{time.perf_counter() - t0:.1f} s (int4 decoder, rank-16 LoRA); "
+          f"batch 2 x {256 + model.image_words} tokens "
+          f"({model.image_words} image words); the loss MetaModel.forward's")
+    train_three_steps(card, "fam-train internlm_ems5_light", step, state,
+                      batch, 2 * (256 + model.image_words), totals)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_rgbd_text_training(card: str, totals: dict) -> None:
+    """Phase 12 (b), ``llama_ens5_2images`` (phase 4's 13B int4 weights
+    from the seed) on an RGB and a depth stream, then its decoder as
+    ``llama`` on text: the CLI's train step (``make_loss_fn``,
+    ``qlora_trainable_mask``, ``--checkpointing``), which takes the depth
+    stream the CLI's datasets never load."""
+    from a3vlm_tpu_torch.config import Ens5Config, ModelArgs
+    from a3vlm_tpu_torch.main_finetune import (
+        make_loss_fn,
+        qlora_trainable_mask,
+    )
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.train.lora import init_lora_params
+
+    t0 = time.perf_counter()
+    model = MetaModel("llama_ens5_2images", with_visual=True,
+                      dtype=torch.bfloat16, tokenizer=_PieceTable(32000),
+                      model_cfg=Ens5Config(llama=ModelArgs(max_seq_len=4096)),
+                      seed=0)
+    model.quantize(bits=4)
+    decoder = model.decoder  # int4 linears, bf16 norms, before the casts
+    text = MetaModel("llama", params={**decoder}, model_cfg=model.args,
+                     tokenizer=_PieceTable(32000))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    lora = init_lora_params(gen, decoder, rank=16)
+    step, state, _ = qlora_setup(
+        model, make_loss_fn(model, torch.bfloat16, remat=True),
+        qlora_trainable_mask(model, lora, quant=True), lora)
+    n = 128
+    batch = {**text_batch(gen, 2, n, 32000),
+             "image": clip_images(2, 448, seed=25),
+             "depth_image": clip_images(2, 448, seed=26)}
+    torch.cuda.synchronize()
+    print(f"[{card}] fam-train llama_ens5_2images built in "
+          f"{time.perf_counter() - t0:.1f} s; batch 2 x "
+          f"{n + model.image_words} tokens ({model.image_words} image words "
+          f"of two streams)")
+    train_three_steps(card, "fam-train llama_ens5_2images", step, state,
+                      batch, 2 * (n + model.image_words), totals)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lora = init_lora_params(gen, text.decoder, rank=16)
+    step, state, _ = qlora_setup(
+        text, make_loss_fn(text, torch.bfloat16, remat=True),
+        qlora_trainable_mask(text, lora, quant=True), lora)
+    batch = text_batch(gen, 2, 2048, 32000)
+    train_three_steps(card, "fam-train llama (text)", step, state, batch,
+                      2 * 2048, totals)
+    del text, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_depth_cache(card: str, root, totals: dict) -> None:
+    """Phase 12 (c): the CLI's pieces for ``llama_ens5_2images
+    --cache_tower_features`` on phase 10's 2-layer full-width checkpoint
+    (its towers random from the seed): a dialog dataset with the depth
+    stream (``with_depth=True``; the CLI's own datasets load none, so
+    ``main`` fails on image data there as the JAX CLI does), the loader
+    wrapped in ``FeatureCachingLoader`` with a depth cache, the CLI's
+    loss and step. Two epochs cached (the towers run in epoch 0 only)
+    against two uncached from the same state: every step's loss equal."""
+    from a3vlm_tpu_torch.data.dialog import FinetuneDialogDataset
+    from a3vlm_tpu_torch.data.loader import DataLoader
+    from a3vlm_tpu_torch.data.sampler import FinetuneDistSampler
+    from a3vlm_tpu_torch.data.transforms import get_transform
+    from a3vlm_tpu_torch.main_finetune import (
+        batch_to_device,
+        make_loss_fn,
+        qlora_trainable_mask,
+    )
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.quant import tree_map
+    from a3vlm_tpu_torch.train.feature_cache import (
+        FeatureCachingLoader,
+        TowerFeatureCache,
+    )
+    from a3vlm_tpu_torch.train.lora import init_lora_params
+    from a3vlm_tpu_torch.train.step import TrainState
+
+    task = write_eval_tasks(root, card)
+    with open(task) as f:
+        images = sorted({d["image"] for d in json.load(f)})
+    (root / "rgbd.json").write_text(json.dumps([
+        {"image": images[i % 2], "depth_image": images[(i + 1) % 2],
+         "conversations": [
+             {"from": "human", "value": EVAL_QUESTIONS[i % 4]},
+             {"from": "gpt", "value": "<rb>revolute</rb>"
+              "[0.50,0.50,0.30,0.20,0.00]"}]} for i in range(4)]))
+    (root / "rgbd.yaml").write_text(
+        f"META:\n - path: {root / 'rgbd.json'}\n   type: image_text\n")
+    ckpt, sd = write_decoder_checkpoint(root)
+    del sd
+    model = MetaModel.from_pretrained(
+        str(ckpt), llama_type="llama_ens5_2images", with_visual=True,
+        max_seq_len=4096, dtype=torch.bfloat16, tokenizer=_PieceTable(32000),
+        device="cuda")
+    model.quantize(bits=4)
+    max_words = model.image_words + 512
+    ds = FinetuneDialogDataset(
+        str(root / "rgbd.yaml"), transform=get_transform(
+            "padded_resize", model.cfg.image_size), max_words=max_words,
+        image_words=model.cfg.image_words, tokenizer=model.tokenizer,
+        with_depth=True)
+    sampler = FinetuneDistSampler(ds, num_replicas=1, rank=0, batch_size=2,
+                                  acc_grad=1, seed=0)
+    loader = DataLoader(ds, sampler, batch_size=2, accum_steps=1,
+                        with_indices=True)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    lora = init_lora_params(gen, model.decoder, rank=16)
+    mask = qlora_trainable_mask(model, lora, quant=True)
+    step, state, optimizer = qlora_setup(
+        model, make_loss_fn(model, torch.bfloat16, remat=True), mask, lora)
+    start = tree_map(lambda t, m: t.clone() if m else t, state.params, mask)
+
+    def run(wrapped) -> tuple:
+        # the step updates the trainables in place: each run from a copy
+        st = TrainState.create(tree_map(lambda t, m: t.clone() if m else t,
+                                        start, mask), optimizer, mask)
+        losses, k10 = [], []
+        for epoch in range(2):
+            sampler.set_epoch(epoch, 0)
+            before = launch_counts()
+            for batch in wrapped:
+                st, metrics = step(st, batch_to_device(
+                    batch, "cuda", torch.bfloat16))
+                losses.append(float(metrics["loss"]))
+            delta = launches_since(before)
+            for n, c in delta.items():
+                totals[n] += c
+            k10.append(delta["vit_attention"])
+        return losses, k10
+
+    cached = FeatureCachingLoader(
+        loader, TowerFeatureCache(model.params, model.cfg),
+        depth_cache=TowerFeatureCache(model.params, model.cfg))
+    t0 = time.perf_counter()
+    got, k10_cached = run(cached)
+    t1 = time.perf_counter()
+    want, k10_plain = run(loader)
+    t2 = time.perf_counter()
+    print(f"[{card}] depth cache: 2 epochs of 2 steps (batch 2, "
+          f"{max_words} words, RGB and depth) cached {t1 - t0:.1f} s, K10 "
+          f"launches by epoch {k10_cached}, features computed "
+          f"{cached.cache.computed} RGB + {cached.depth_cache.computed} "
+          f"depth; uncached {t2 - t1:.1f} s, K10 {k10_plain}; losses "
+          f"cached {got}, uncached {want}")
+    if got != want:
+        raise AssertionError("depth cache: cached losses differ")
+    if k10_cached[1] or not k10_cached[0] or not all(k10_plain):
+        raise AssertionError("depth cache: towers ran in a cached epoch")
+    if not all(math.isfinite(x) for x in got):
+        raise AssertionError(f"depth cache: losses {got}")
+    del model, state, step, cached, loader, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_phase12(card: str) -> dict:
+    """Phase 12; returns the kernels' launch counts of its runs (the
+    served runs, the loss, the train steps; not the profiles nor the
+    checks)."""
+    totals = {n: 0 for n in KERNELS}
+    t12 = time.perf_counter()
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    run_falcon(card, totals)
+    require_no_fallback(card, "falcon (a)")
+    t_a = time.perf_counter()
+    run_internlm_training(card, totals)
+    run_rgbd_text_training(card, totals)
+    require_no_fallback(card, "families' training (b)")
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_depth_cache(card, Path(tmp), totals)
+    require_no_fallback(card, "depth cache (c)")
+    print(f"[{card}] phase 12: {time.perf_counter() - t12:.1f} s ((a) "
+          f"{t_a - t12:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
+          f"{time.perf_counter() - t_b:.1f} s); launches "
+          f"{ {n: c for n, c in totals.items() if c} }")
+    return totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3802,6 +4342,7 @@ def main(argv=None) -> int:
         check_latency_kernels(gen, results)
         check_vit(gen, results)
         check_families(results)
+        check_falcon(results)
     for r in results:
         # the tensor-core kernels also get their achieved rate
         # (the row's own operation or byte count over the kernel's time)
@@ -3884,6 +4425,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 11. the other families at full width
     fam = run_families(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 12. falcon, the families' training and the depth cache
+    p12 = run_phase12(card)
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -3894,7 +4439,8 @@ def main(argv=None) -> int:
                    "train": train.get(name, 0),
                    "quant": quant.get(name, 0),
                    "ckpt": ckpt.get(name, 0),
-                   "fam": fam.get(name, 0)}
+                   "fam": fam.get(name, 0),
+                   "p12": p12.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

@@ -47,6 +47,7 @@ from a3vlm_tpu_torch import constrained as tconstrained
 from a3vlm_tpu_torch import eval_affordance as teval
 from a3vlm_tpu_torch.checkpoint.bridge import params_from_numpy, params_to_numpy
 from a3vlm_tpu_torch.meta import MetaModel
+from a3vlm_tpu_torch.models import falcon as tfalcon
 from a3vlm_tpu_torch.models import internlm_ems5_light as til
 
 torch.set_num_threads(1)
@@ -307,11 +308,16 @@ def test_continuous_batching_refused_where_jax_fails(loaded, tasks,
 
 
 def test_falcon_still_refused():
-    """``falcon`` is the next slice's: the constructor, ``from_pretrained``
-    and the CLI name ROADMAP Queue 1 item 15."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        MetaModel("falcon", vocab_size=128, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """``falcon`` is ported (``tests/test_torch_falcon.py``), but its
+    checkpoints are still refused: the JAX ``from_pretrained`` fails on
+    them (it imports them with LLaMA's importer), so the port's raises
+    ``ValueError`` before it reads anything."""
+    model = MetaModel("falcon", vocab_size=128, device="cpu",
+                      model_cfg=tfalcon.FalconArgs(
+                          num_layers=1, hidden_size=32,
+                          num_attention_heads=4, num_kv_heads=2))
+    assert model.args.vocab_size == 128 and model.image_words == 0
+    with pytest.raises(ValueError, match="falcon"):
         MetaModel.from_pretrained("no_such_dir", llama_type="falcon",
                                   device="cpu")
     with pytest.raises(KeyError, match="unknown llama_type"):

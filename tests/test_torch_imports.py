@@ -514,6 +514,45 @@ def _case_utils_tensorboard_logger(tmp_path, tok_dir):
     assert any((tmp_path / "tb").iterdir())
 
 
+def _case_data_falcon_stream(tmp_path, tok_dir):
+    """The streaming pretraining datasets: the same rows from jsonl
+    documents and from packed block files, sharded over two processes,
+    and the same resume state."""
+    import pickle
+
+    _same_defs("data/falcon_stream.py")
+    orig, port = _both("data/falcon_stream.py")
+    from a3vlm_tpu.tokenizer import Tokenizer
+
+    tok = Tokenizer(tok_dir)
+    files = []
+    for i in range(3):
+        path = tmp_path / f"docs{i}.jsonl"
+        path.write_text("\n".join(json.dumps(
+            {"content" if j % 2 else "text": f"door {i} {j} drawer lid " * 3})
+            for j in range(4)))
+        files.append(str(path))
+    blocks = []
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        path = tmp_path / f"blocks{i}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(rng.integers(0, 500, (3, 16)).tolist(), f)
+        blocks.append(str(path))
+    for rank in (0, 1):
+        runs = []
+        for mod in (orig, port):
+            stream = mod.FalconStreamDataset(files, tok, seq_len=16,
+                                             process_rank=rank,
+                                             num_processes=2)
+            packed = mod.FalconPackedDataset(blocks, process_rank=rank,
+                                             num_processes=2)
+            packed.set_state({"file_idx": rank, "row_idx": 1})
+            runs.append((list(stream), stream.get_state(), list(packed),
+                         packed.get_state()))
+        _assert_same(runs[1], runs[0])
+
+
 _CASES = {
     "config": _case_config,
     "config.probe_pretrained_dir": _case_config_probe,
@@ -534,6 +573,7 @@ _CASES = {
     "data.alpaca": _case_data_alpaca,
     "data.sampler+loader": _case_data_sampler_loader,
     "data.transforms": _case_data_transforms,
+    "data.falcon_stream": _case_data_falcon_stream,
     "checkpoint.export": _case_checkpoint_export,
     "tools.convert_weights_to_hf": _case_tools_convert_weights_to_hf,
     "tools.weight_operate": _case_tools_weight_operate,

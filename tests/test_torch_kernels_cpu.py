@@ -557,26 +557,34 @@ def test_verify_splits(B, Hkv, R, S, slots, want):
 
 
 # (slots: resident blocks of the decode kernel on a 132-SM card; 3 a SM at
-# one query row a kv head, 2 at eight)
-@pytest.mark.parametrize("B,Hkv,G,S,slots,want", [
-    (1, 40, 1, 1544, 396, 8), (2, 40, 1, 1544, 396, 4),
-    (4, 40, 1, 1544, 396, 2), (4, 40, 1, 1544, 264, 1),
-    (8, 40, 1, 512, 396, 1), (64, 40, 1, 1544, 396, 1),
-    (1, 40, 1, 1544, 132, 2), (1, 40, 1, 300, 396, 4),
-    (1, 8, 5, 1544, 264, 8), (4, 8, 5, 1544, 264, 8),
-    (4, 8, 8, 1000, 264, 8), (2, 8, 1, 60, 396, 1),
-    (1, 2, 20, 200, 264, 4)])
-def test_decode_splits(B, Hkv, G, S, slots, want):
+# one query row a kv head, 2 at eight). Head dim 128 over the bf16 cache
+# (stages of 32 rows), then falcon's head dim 64 at G 29 (four blocks a kv
+# head): stages of 64 bf16 or 128 int8 rows, its 80-row cache below two
+# int8 stages.
+@pytest.mark.parametrize("B,Hkv,G,S,slots,quant,D,want", [
+    (1, 40, 1, 1544, 396, False, 128, 8), (2, 40, 1, 1544, 396, False, 128, 4),
+    (4, 40, 1, 1544, 396, False, 128, 2), (4, 40, 1, 1544, 264, False, 128, 1),
+    (8, 40, 1, 512, 396, False, 128, 1), (64, 40, 1, 1544, 396, False, 128, 1),
+    (1, 40, 1, 1544, 132, False, 128, 2), (1, 40, 1, 300, 396, False, 128, 4),
+    (1, 8, 5, 1544, 264, False, 128, 8), (4, 8, 5, 1544, 264, False, 128, 8),
+    (4, 8, 8, 1000, 264, False, 128, 8), (2, 8, 1, 60, 396, False, 128, 1),
+    (1, 2, 20, 200, 264, False, 128, 4), (1, 40, 1, 300, 396, True, 128, 4),
+    (1, 8, 29, 80, 264, False, 64, 2), (1, 8, 29, 80, 264, True, 64, 1),
+    (1, 8, 29, 200, 264, True, 64, 2), (4, 8, 29, 2048, 264, True, 64, 2),
+    (1, 1, 232, 1001, 264, True, 64, 8)])
+def test_decode_splits(B, Hkv, G, S, slots, quant, D, want):
     """The decode kernel's cluster size: the largest power of two up to 8
     whose blocks (one a batch row, kv head and group of 8 query rows, per
     cluster rank) still fit the card in one wave, with at least 64 cache
-    rows a block; one when even a single block each overfills the card."""
-    C = dec.decode_splits(B, Hkv, G, S, slots)
+    rows and one whole stage a block; one when even a single block each
+    overfills the card."""
+    C = dec.decode_splits(B, Hkv, G, S, slots, quant, D)
     assert C == want
     assert C & (C - 1) == 0 and 1 <= C <= dec.DECODE_MAX_CLUSTER
     blocks = B * Hkv * -(-G // 8)
     assert C == 1 or blocks * C <= slots
-    assert C == 1 or 64 * (C - 1) < S
+    floor = max(64, dec.decode_stage_rows(quant, D))
+    assert C == 1 or floor * (C - 1) < S
 
 
 @pytest.mark.parametrize("H,D", [(4, 64), (2, 88)])

@@ -249,9 +249,8 @@ def test_decode_attention_cuda(gen):
 _CACHE_SHAPES = [(1, 40, 1, 1544), (4, 8, 5, 1544), (2, 40, 1, 1000)]
 
 
-def _cache_case(gen, B, Hkv, G, S, span=1):
+def _cache_case(gen, B, Hkv, G, S, span=1, D=128):
     """q [B, span, Hq, D], dense caches, this step's k/v, ragged pos."""
-    D = 128
     q = _randn(B, span, Hkv * G, D, gen=gen)
     ck, cv = _randn(B, Hkv, S, D, gen=gen), _randn(B, Hkv, S, D, gen=gen)
     xk, xv = _randn(B, 1, Hkv, D, gen=gen), _randn(B, 1, Hkv, D, gen=gen)
@@ -349,12 +348,12 @@ def _decode_fused_and_attend(q, ck, cv, xk, xv, pos, valid):
     assert torch.equal(got, fused)
 
 
-def _decode_split(quant, B, Hkv, G, S, v):
+def _decode_split(quant, B, Hkv, G, S, v, D=128):
     """(cluster size, rows of a block's run at valid == v): what the card's
-    rule gives the decode kernel of this cache kind."""
+    rule gives the decode kernel of this cache kind and head dim."""
     C = dec.decode_splits(B, Hkv, G, S, dec._decode_slots(
-        _kernels.lib(), torch.cuda.current_device(), quant, G))
-    rows = dec.DECODE_STAGE_ROWS[quant]
+        _kernels.lib(), torch.cuda.current_device(), quant, G, D), quant, D)
+    rows = dec.decode_stage_rows(quant, D)
     return C, -(-(-(-v // rows)) // C) * rows
 
 
@@ -370,15 +369,12 @@ _DECODE_EDGE_SHAPES = [(1, 40, 1, 1544), (8, 40, 1, 512), (2, 8, 5, 1000),
                        (4, 8, 8, 1001), (2, 5, 8, 24), (1, 8, 1, 1001)]
 
 
-@pytest.mark.parametrize("where", ["cache_first", "run_first", "run_last",
-                                   "valid_last", "cache_last", "short"])
-@pytest.mark.parametrize("B,Hkv,G,S", _DECODE_EDGE_SHAPES)
-def test_decode_attention_edges_cuda(gen, B, Hkv, G, S, where):
-    q, ck, cv, xk, xv, _ = _cache_case(gen, B, Hkv, G, S)
+def _decode_edges(gen, B, Hkv, G, S, where, D=128):
+    q, ck, cv, xk, xv, _ = _cache_case(gen, B, Hkv, G, S, D=D)
     v = max(S - 7, 1)
     valid = torch.full((B,), v, dtype=torch.int32, device="cuda")
     for quant in (False, True):  # the run edges of both kinds' splits
-        C, per = _decode_split(quant, B, Hkv, G, S, v)
+        C, per = _decode_split(quant, B, Hkv, G, S, v, D)
         first = min(per if C > 1 else 0, v - 1)
         p = {"cache_first": 0, "run_first": first,
              "run_last": min(per - 1, v - 1), "valid_last": v - 1,
@@ -387,6 +383,46 @@ def test_decode_attention_edges_cuda(gen, B, Hkv, G, S, where):
         if where == "short":
             valid = pos + 1
         _decode_fused_and_attend(q, ck, cv, xk, xv, pos, valid)
+
+
+_EDGE_WHERE = ["cache_first", "run_first", "run_last", "valid_last",
+               "cache_last", "short"]
+
+
+@pytest.mark.parametrize("where", _EDGE_WHERE)
+@pytest.mark.parametrize("B,Hkv,G,S", _DECODE_EDGE_SHAPES)
+def test_decode_attention_edges_cuda(gen, B, Hkv, G, S, where):
+    _decode_edges(gen, B, Hkv, G, S, where)
+
+
+# The head-dim-64 instance (falcon): Falcon-180B's 232 query heads over 8
+# kv heads (G 29: four blocks of rows a kv head, the last holding 5), G 1
+# and 4, and multi-query (one kv head, every query head on it: G 8 and
+# 232), at batch 1 and 4; stages of 64 bf16 or 128 int8 rows.
+_D64_SHAPES = [(1, 8, 29, 1544), (4, 8, 29, 1001), (1, 8, 1, 1544),
+               (4, 8, 4, 1000), (2, 1, 8, 1544), (4, 1, 232, 264),
+               (1, 1, 232, 1001)]
+
+
+@pytest.mark.parametrize("B,Hkv,G,S", _D64_SHAPES)
+def test_decode_attention_d64_cuda(gen, B, Hkv, G, S):
+    """Both cache kinds, fused and attend-only, at D 64 against the plain
+    versions (``_decode_fused_and_attend``), ragged positions."""
+    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S, D=64)
+    _decode_fused_and_attend(q, ck, cv, xk, xv, pos, pos + 1)
+
+
+# (1, 8, 29, 80): falcon's cache at batch 1, below two int8 stages of 128
+# rows; (1, 8, 29, 200) between one and two.
+_D64_EDGE_SHAPES = [(1, 8, 29, 1001), (2, 5, 8, 24), (8, 8, 1, 512),
+                    (1, 1, 232, 1000), (1, 1, 29, 1001), (1, 8, 29, 80),
+                    (1, 8, 29, 200)]
+
+
+@pytest.mark.parametrize("where", _EDGE_WHERE)
+@pytest.mark.parametrize("B,Hkv,G,S", _D64_EDGE_SHAPES)
+def test_decode_attention_d64_edges_cuda(gen, B, Hkv, G, S, where):
+    _decode_edges(gen, B, Hkv, G, S, where, D=64)
 
 
 # The slot pool of continuous batching: every row of one step at its own
@@ -416,28 +452,38 @@ def test_verify_per_row_windows_cuda(gen, span, start):
 
 def test_decode_cluster_sizes_cuda(gen):
     """The edge shapes above reach the rule's largest and smallest cluster
-    on the card."""
+    on the card, at both head dims."""
     for quant in (False, True):
         assert (_decode_split(quant, 1, 8, 1, 1001, 1001)[0]
                 == dec.DECODE_MAX_CLUSTER)
         assert _decode_split(quant, 8, 40, 1, 512, 512)[0] == 1
+        assert (_decode_split(quant, 1, 1, 29, 1001, 1001, 64)[0]
+                == dec.DECODE_MAX_CLUSTER)
+        # falcon's short caches: no rank of a cluster without a stage
+        for S in (80, 200):
+            C, per = _decode_split(quant, 1, 8, 29, S, S - 7, 64)
+            assert C == 1 or (C - 1) * per < S - 7, (quant, S, C, per)
+    assert _decode_split(True, 1, 8, 29, 80, 73, 64)[0] == 1
 
 
-@pytest.mark.parametrize("B,Hkv,G,S", [(1, 40, 1, 1544), (4, 8, 5, 1001),
-                                       (2, 8, 8, 1000)])
-def test_decode_attention_ignores_rows_past_valid_cuda(gen, B, Hkv, G, S):
+@pytest.mark.parametrize("B,Hkv,G,S,D", [(1, 40, 1, 1544, 128),
+                                         (4, 8, 5, 1001, 128),
+                                         (2, 8, 8, 1000, 128),
+                                         (4, 8, 29, 1001, 64),
+                                         (2, 1, 232, 1000, 64)])
+def test_decode_attention_ignores_rows_past_valid_cuda(gen, B, Hkv, G, S,
+                                                      D):
     """Cache rows at or past valid[b] hold NaN (bf16) or NaN scales (int8):
     the fused and the attend-only outputs equal the plain versions' over
     the same cache with those rows zeroed, so nothing past the visible
     prefix reaches them. One row of the batch sees no key at all."""
-    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S)
+    q, ck, cv, xk, xv, pos = _cache_case(gen, B, Hkv, G, S, D=D)
     pos = pos - 40
     valid = pos + 1
     if B > 1:
         valid[-1] = 0
     past = (torch.arange(S, device="cuda")[None, :]
             >= valid.long()[:, None])[:, None, :].expand(B, Hkv, S)
-    D = 128
     nk, nv = xk.reshape(B, Hkv, D), xv.reshape(B, Hkv, D)
     zk = ck.masked_fill(past[..., None], 0)
     zv = cv.masked_fill(past[..., None], 0)
@@ -465,20 +511,21 @@ def test_decode_attention_ignores_rows_past_valid_cuda(gen, B, Hkv, G, S):
 
 def test_decode_attention_refuses_cuda(gen):
     """What the decode kernels cannot take raises on the card: a head dim
-    other than 128, float32 queries, a float32 cache, float64 scales."""
+    other than 64 and 128, float32 queries, a float32 cache, float64
+    scales."""
     q, ck, cv, xk, xv, pos = _cache_case(gen, 1, 8, 1, 256)
     valid = pos + 1
     kq, vq = _quantized(ck, cv)
-    q64 = q[..., :64].contiguous()
-    k64, v64 = ck[..., :64].contiguous(), cv[..., :64].contiguous()
-    x64 = xk[..., :64].contiguous()
+    q96 = q[..., :96].contiguous()
+    k96, v96 = ck[..., :96].contiguous(), cv[..., :96].contiguous()
+    x96 = xk[..., :96].contiguous()
     calls = [
-        lambda: dec.decode_attention(q64, k64, v64, valid),
+        lambda: dec.decode_attention(q96, k96, v96, valid),
         lambda: dec.decode_attention(q.float(), ck, cv, valid),
         lambda: dec.decode_attention(q, ck.float(), cv.float(), valid),
-        lambda: decode_attention_update(q64.reshape(1, 8, 1, 64), k64, v64,
-                                        x64.reshape(1, 8, 64),
-                                        x64.reshape(1, 8, 64), pos, valid),
+        lambda: decode_attention_update(q96.reshape(1, 8, 1, 96), k96, v96,
+                                        x96.reshape(1, 8, 96),
+                                        x96.reshape(1, 8, 96), pos, valid),
         lambda: decode_attention_update(q.reshape(1, 8, 1, 128).float(), ck,
                                         cv, xk.reshape(1, 8, 128),
                                         xv.reshape(1, 8, 128), pos, valid),
@@ -486,8 +533,8 @@ def test_decode_attention_refuses_cuda(gen):
         lambda: dec.decode_attention_quant(
             q, QuantizedKV(kq.qv, kq.scale.double()), vq, valid),
         lambda: dec.decode_attention_quant(
-            q64, QuantizedKV(kq.qv[..., :64].contiguous(), kq.scale),
-            QuantizedKV(vq.qv[..., :64].contiguous(), vq.scale), valid),
+            q96, QuantizedKV(kq.qv[..., :96].contiguous(), kq.scale),
+            QuantizedKV(vq.qv[..., :96].contiguous(), vq.scale), valid),
         lambda: dec.decode_attention_update_quant(q, kq, vq, xk.float(),
                                                   xv.float(), pos, valid),
         lambda: dec.decode_attention_update_quant(q, kq, vq, xk, xv,
@@ -1537,3 +1584,46 @@ def test_tiny_2images_on_the_card_cuda(gen):
     assert img_rel < 2e-2 and rel < 2e-2, (img_rel, rel)
     with pytest.raises(ValueError, match="depth"):
         model.generate_tokens(tokens.tolist(), images=images, max_gen_len=2)
+
+
+@pytest.mark.parametrize("kv_heads,multi_query", [(2, False), (1, True)])
+def test_tiny_falcon_on_the_card_cuda(gen, kv_heads, multi_query):
+    """A tiny ``falcon`` (head dim 64, grouped-query or multi-query, int4)
+    on the card: prefill and decode logits of the kernel path within 2e-2
+    relative of the plain path's over the bf16 and the int8 cache (the
+    decode kernel's head-dim-64 instance launched each step), and a greedy
+    request through ``generate_tokens``."""
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.models import falcon
+
+    args = falcon.FalconArgs(num_layers=2, hidden_size=256,
+                             num_attention_heads=4, num_kv_heads=kv_heads,
+                             multi_query=multi_query)
+    model = MetaModel("falcon", dtype=torch.bfloat16, vocab_size=256,
+                      model_cfg=args, max_seq_len=512, seed=0,
+                      device="cuda")
+    model.quantize(bits=4)
+    tokens = torch.randint(3, 256, (4, 40), generator=gen, device="cuda")
+    for dtype, wrapper in ((torch.bfloat16, dec.decode_attention_update),
+                           (torch.int8, dec.decode_attention_update_quant)):
+        out = {}
+        with torch.inference_mode():
+            for impl in ("auto", "plain"):
+                cache = falcon.FalconKVCache.create(
+                    model.args, 4, 44, dtype=dtype, device="cuda")
+                logits, cache, S = falcon.prefill(
+                    model.decoder, model.args, cache, tokens[:, :36], impl)
+                before = wrapper.launches
+                steps = [logits]
+                for i in range(4):
+                    steps.append(falcon.decode_step(
+                        model.decoder, model.args, cache,
+                        tokens[:, 36 + i:37 + i], S + i, impl)[0])
+                if impl == "auto":
+                    assert wrapper.launches == before + 4 * args.num_layers
+                out[impl] = torch.stack(steps)
+        rel = float((out["auto"] - out["plain"]).norm()
+                    / out["plain"].norm())
+        assert rel < 2e-2, (dtype, rel)
+    ids = model.generate_tokens(tokens[:2].tolist(), max_gen_len=8)
+    assert len(ids) == 2 and all(0 <= t < 256 for o in ids for t in o)
