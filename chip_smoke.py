@@ -223,6 +223,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    dataset with a depth stream: two epochs cached (no K10 launch in the
    second) give the uncached run's losses exactly.
 
+13. ModelServer, datagen and the closed-loop gates: (a) right after phase
+   4, ``ModelServer(meta_model=<phase 4's model>)`` serves phase 4's
+   requests through ``generate`` (their ids as text, ``_TokenText``), the
+   ids equal to phase 4's, and one ``stream_generate``, ``compute_logits``
+   and ``evaluate_examples`` equal the ``MetaModel`` calls; after phase 12,
+   ``ModelServer(pretrained_path=<phase 8's 2-layer checkpoint>,
+   quant=True, kv_cache_bits=8)`` runs phase 8's task file through
+   ``run_eval`` (K1, K2, K4 fused and K10, no fallback). (b) datagen at
+   the reference's defaults (960 px, 5 poses x 8 joint values, 32768
+   points a frame) with each stage's seconds; the native rasterizer must
+   have built. (c) the accuracy gate of ``scripts/torch_end_task_gate.py``:
+   the 192 px corpus, a small ``llama_ens5`` (``card_config``) trained to
+   memorization in bf16 over float32 masters, scored through
+   ``ModelServer.generate`` against the JAX gate's thresholds; (d) the A8
+   gate on the same model (dense, int4, W4A8 decode, W8A8 prefill), no
+   delta against int4 below -0.05. The gate path must launch K1 (GEMV and
+   tile), K2 with and without lse, K9a, K9b, K10, K3 fused, K7 and K8, no
+   fallback.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -232,9 +251,9 @@ and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the serving, continuous-batching, latency, training, quantized-mode,
-fine-tuning-loop, families and phase-12 runs, ``launches_by_path`` splits
-them as ``serve``, ``cb``, ``latency``, ``train``, ``quant``, ``ckpt``,
-``fam`` and ``p12``; ``bound_ms`` is the larger of the bytes
+fine-tuning-loop, families, phase-12 and gate runs, ``launches_by_path``
+splits them as ``serve``, ``cb``, ``latency``, ``train``, ``quant``,
+``ckpt``, ``fam``, ``p12`` and ``gate``; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
 PyTorch library call on the same inputs, timed here and used nowhere in
@@ -244,6 +263,7 @@ the port); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -4292,6 +4312,261 @@ def run_phase12(card: str) -> dict:
     return totals
 
 
+
+# Phase 13: ModelServer, datagen and the closed-loop gates. The kernels
+# the gate path, (c) and (d), must launch: K1 (its GEMV and its tile), K2
+# (with and without lse), K9a, K9b, K10, K3 fused, K7 and K8; and the
+# 2-layer checkpoint's server in (a): K1, K2, K4 fused and K10.
+GATE_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "vit_attention", "decode_attention",
+                "int4_matmul_w4a8", "int4_matmul_w8a8p")
+SERVER_CKPT_KERNELS = ("int4_matmul", "flash_attention",
+                       "decode_attention_q8_fused", "vit_attention")
+
+
+class _TokenText(_PieceTable):
+    """``_PieceTable`` that also reads a prompt written as its ids
+    (``PREFIX`` then the ids after BOS, space-separated), so a text prompt
+    carries phase 4's token ids through ``generate`` exactly; any other
+    text is encoded as the table encodes it."""
+
+    PREFIX = "ids:"
+
+    def encode(self, s: str, bos: bool, eos: bool) -> list[int]:
+        if not s.startswith(self.PREFIX):
+            return super().encode(s, bos, eos)
+        ids = [int(t) for t in s[len(self.PREFIX):].split()]
+        return [self.bos_id] * bos + ids + [self.eos_id] * eos
+
+    @classmethod
+    def text(cls, ids) -> str:
+        """The prompt text of token ids that begin with BOS."""
+        return cls.PREFIX + " ".join(str(t) for t in ids[1:])
+
+
+def run_server_main(card: str, model) -> dict:
+    """Phase 13 (a), first part, right after phase 4 on its model:
+    ``ModelServer(meta_model=...)`` serves phase 4's four requests through
+    ``generate`` (text prompts that carry phase 4's ids, ``_TokenText``),
+    whose generated ids must equal phase 4's; then one ``stream_generate``,
+    one ``compute_logits`` and one ``evaluate_examples``, each equal to the
+    direct ``MetaModel`` call on the same inputs. Returns the launch counts
+    of the ``generate`` run."""
+    import numpy as np
+
+    from a3vlm_tpu_torch.serving import ModelServer
+
+    prompts, images = serving_inputs()
+    table, tok = model.tokenizer, _TokenText(32000)
+    model.tokenizer = tok
+    try:
+        server = ModelServer(meta_model=model)
+        tok.decoded = []
+        reset_launches()
+        t0 = time.perf_counter()
+        texts = server.generate([_TokenText.text(p) for p in prompts],
+                                images=images, max_gen_len=32,
+                                temperature=0.0)
+        synchronize(model.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = require_launched(SERVE_KERNELS, "ModelServer")
+        ids = tok.decoded
+        tok.decoded = None
+        print(f"[{card}] phase 13 (a) ModelServer.generate on phase 4's "
+              f"model: {len(texts)} answers in {ms:.1f} ms, ids digest "
+              f"{ids_digest(ids)} (phase 4's {ids_digest(IDS['serve'])}); "
+              f"launches {launches}")
+        if ids != IDS["serve"]:
+            raise AssertionError("ModelServer.generate: ids differ from "
+                                 "phase 4's")
+        one, image = _TokenText.text(prompts[0]), images[0]
+        got = list(server.stream_generate(one, image=image, max_gen_len=8))
+        want = list(model.stream_generate(one, image=image, max_gen_len=8))
+        if got != want or not got[-1]["end_of_content"]:
+            raise AssertionError("ModelServer.stream_generate differs from "
+                                 "MetaModel.stream_generate")
+        got = server.compute_logits([one], images=images[:1])
+        want = model.compute_logits([one], images=images[:1])
+        if not (len(got) == 1 and got[0].shape == want[0].shape
+                == (len(prompts[0]), 32000)
+                and np.array_equal(got[0], want[0])):
+            raise AssertionError("ModelServer.compute_logits differs")
+        ctx = _TokenText.text(prompts[0][:20])
+        got = server.evaluate_examples([one], contexts=[ctx],
+                                       images=images[:1])
+        want = model.evaluate_examples([one], contexts=[ctx],
+                                       images=images[:1])
+        if (got["log_likelihood"] != want["log_likelihood"]
+                or got["ppl"] != want["ppl"]
+                or got["max_equal"] != want["max_equal"]
+                or not np.array_equal(got["non_context_logits"][0],
+                                      want["non_context_logits"][0])):
+            raise AssertionError("ModelServer.evaluate_examples differs")
+        print(f"[{card}] phase 13 (a) stream_generate (8 new ids at most), "
+              f"compute_logits ({len(prompts[0])} x 32000) "
+              f"and evaluate_examples (log-likelihood "
+              f"{want['log_likelihood'][0]:.4f}) equal to MetaModel's")
+    finally:
+        model.tokenizer = table
+        model._generator = None
+    return launches
+
+
+def run_server_ckpt(card: str, root) -> dict:
+    """Phase 13 (a), second part: ``ModelServer(pretrained_path=..., quant=
+    True, kv_cache_bits=8)`` on phase 8's 2-layer full-width checkpoint
+    (written again from its seed), phase 8's task file through
+    ``run_eval``: K1, K2, K4 fused and K10 launched, no fallback, the
+    records in order and in the schema. Returns the launch counts."""
+    from a3vlm_tpu_torch.eval_affordance import (VQADataset, _question_of,
+                                                 run_eval)
+    from a3vlm_tpu_torch.serving import ModelServer
+
+    task = write_eval_tasks(root, card)
+    ckpt, sd = write_decoder_checkpoint(root)
+    del sd
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    t0 = time.perf_counter()
+    server = ModelServer(pretrained_path=str(ckpt), quant=True,
+                         kv_cache_bits=8, device="cuda",
+                         tokenizer=_PieceTable(32000))
+    synchronize(server.model.device)
+    load_s = time.perf_counter() - t0
+    ds = VQADataset(task, input_size=448)
+    reset_launches()
+    t0 = time.perf_counter()
+    records = run_eval(server, ds, batch_size=4, max_gen_len=8,
+                       temperature=0.0)
+    secs = time.perf_counter() - t0
+    launches = require_launched(SERVER_CKPT_KERNELS,
+                                "ModelServer (2-layer checkpoint)")
+    require_no_fallback(card, "ModelServer (2-layer checkpoint)")
+    keys = {"answer", "format_answer", "annotation", "question", "image",
+            "fail"}
+    if [(r["image"], r["question"]) for r in records] != [
+            (d["image"], _question_of(d)) for d in ds.data] or any(
+                set(r) != keys for r in records):
+        raise AssertionError("ModelServer run_eval: records out of order "
+                             "or schema")
+    print(f"[{card}] phase 13 (a) ModelServer(pretrained_path=<2-layer "
+          f"checkpoint>, quant=True, kv_cache_bits=8): loaded in "
+          f"{load_s:.1f} s; {len(records)} records in order in {secs:.1f} s;"
+          f" launches { {n: launches[n] for n in SERVER_CKPT_KERNELS} }")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_datagen_full(card: str, gate) -> None:
+    """Phase 13 (b): the synthetic object through datagen at the
+    reference's defaults (960 px, 5 poses x 8 joint values, 32768 points a
+    frame); prints each stage's seconds and the rasterizer's route, which
+    must be the native one on this host."""
+    import cv2
+
+    from a3vlm_tpu_torch.datagen import rasterizer
+
+    route = "native" if rasterizer._load_native() is not None else "numpy"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = gate.run_datagen(tmp)
+        size = sum(f.stat().st_size for f in Path(tmp, "vqa").iterdir())
+        frames = len(list(Path(out["render_dir"], "101",
+                               "raw_images").iterdir()))
+    s = out["seconds"]
+    print(f"[{card}] phase 13 (b) datagen at the reference's defaults "
+          f"(960 px, {frames} frames, 32768 points a frame; cv2 "
+          f"{cv2.__version__}, rasterizer {route}): render {s['render']:.2f}"
+          f" s, points {s['points']:.2f} s, labels {s['label']:.2f} s; "
+          f"{len(out['files'])} task files, {size / 1e6:.2f} MB")
+    if route != "native":
+        raise AssertionError("datagen took the numpy rasterizer: the native "
+                             "one did not build")
+
+
+@contextlib.contextmanager
+def int4_routes():
+    """Counts the K1 launches by route while it is open: ``gemv`` (M <=
+    GEMV_MAX_M) and ``tile``, around the dispatcher's exact-int4 route (the
+    wrapper keeps its own count)."""
+    routes = qmm._INT4_ROUTES
+    real = routes["v1"]
+    tally = {"gemv": 0, "tile": 0}
+
+    def counted(x, *args, **kw):
+        before = int4_matmul_2d.launches
+        out = real[0](x, *args, **kw)
+        if int4_matmul_2d.launches > before:
+            tally["gemv" if x.shape[0] <= qmm.GEMV_MAX_M else "tile"] += 1
+        return out
+
+    routes["v1"] = (counted, *real[1:])
+    try:
+        yield tally
+    finally:
+        routes["v1"] = real
+
+
+def run_phase13(card: str) -> dict:
+    """Phase 13 after phase 12: (a)'s 2-layer checkpoint server, (b) the
+    reference-size datagen, then (c) the accuracy gate and (d) the A8 gate
+    (``scripts/torch_end_task_gate.py``'s ``run_gates``). Returns the
+    launch counts of the gate path, (c) and (d)."""
+    from scripts import torch_end_task_gate as gate
+
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_server_ckpt(card, Path(tmp))
+    t_b = time.perf_counter()
+    run_datagen_full(card, gate)
+    t_c = time.perf_counter()
+    if hasattr(qmm, "reset_fallbacks"):
+        qmm.reset_fallbacks()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, int4_routes() as routes:
+        out = gate.run_gates(tmp, "cuda", max_epochs=400, tol=0.05,
+                             log=lambda line: print(f"[{card}] {line}"))
+    launches = launch_counts()
+    lse = flash_attention_bhsd.lse_launches
+    cfg = out["config"]
+    print(f"[{card}] phase 13 (c) gate model: decoder dim {cfg.llama.dim}, "
+          f"{cfg.llama.n_layers} layers, {cfg.llama.n_heads} heads of "
+          f"{cfg.llama.head_dim}, ffn {cfg.llama.ffn_hidden_dim}, vocab "
+          f"{cfg.llama.vocab_size}; towers at width {cfg.clip.width} / "
+          f"{cfg.clip.heads} heads, {cfg.image_size} px images, "
+          f"{cfg.image_words} image words; bf16 compute over float32 "
+          f"masters, served in bf16")
+    tr, sec = out["train"], out["seconds"]
+    print(f"[{card}] phase 13 (c) trained {tr['epochs']} epochs "
+          f"({tr['steps']} steps) to a final max batch loss "
+          f"{tr['final_loss']:.6f} in {tr['seconds']:.1f} s; metrics "
+          f"{json.dumps(out['accuracy'])}")
+    print(f"[{card}] phase 13 (d) " + json.dumps(
+        {"results": out["a8"]["results"], "verdicts": out["a8"]["verdicts"]}))
+    print(f"[{card}] phase 13 (c)-(d) seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sec.items())
+          + "; A8 arms " + ", ".join(
+              f"{k} {v:.1f}" for k, v in out["a8"]["seconds"].items()))
+    print(f"[{card}] phase 13 gate launches "
+          f"{ {n: c for n, c in launches.items() if c} }; K1 by route "
+          f"{routes}; flash forward with lse {lse}")
+    require_counts(launches, GATE_KERNELS, "gate")
+    if not (routes["gemv"] and routes["tile"]):
+        raise AssertionError(f"gate: K1 routes {routes}, want both")
+    if not 0 < lse < launches["flash_attention"]:
+        raise AssertionError("gate: want the flash forward with and "
+                             "without lse")
+    require_no_fallback(card, "gate")
+    if out["failures"]:
+        raise AssertionError("phase 13 gates failed:\n"
+                             + "\n".join(out["failures"]))
+    t_end = time.perf_counter()
+    print(f"[{card}] phase 13: {t_end - t13:.1f} s ((a) {t_b - t13:.1f} s, "
+          f"(b) {t_c - t_b:.1f} s, (c)-(d) {t_end - t_c:.1f} s)")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4390,6 +4665,9 @@ def main(argv=None) -> int:
         qmm.reset_fallbacks()
     model, serve = run_main_path(card)
     require_no_fallback(card, "serving")
+    # 13. (a) ModelServer on phase 4's model
+    run_server_main(card, model)
+    require_no_fallback(card, "ModelServer")
     evals, lockstep = run_eval_path(card, model)
     print(f"[{card}] launches in the eval path: "
           f"{ {n: evals[n] for n in EVAL_KERNELS} }")
@@ -4429,6 +4707,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 12. falcon, the families' training and the depth cache
     p12 = run_phase12(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 13. ModelServer from a checkpoint, datagen and the gates
+    p13 = run_phase13(card)
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -4440,7 +4722,8 @@ def main(argv=None) -> int:
                    "quant": quant.get(name, 0),
                    "ckpt": ckpt.get(name, 0),
                    "fam": fam.get(name, 0),
-                   "p12": p12.get(name, 0)}
+                   "p12": p12.get(name, 0),
+                   "gate": p13.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

@@ -16,7 +16,8 @@ from PIL import Image
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "a3vlm_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_end_task_gate.py",
+    ROOT / "scripts" / "torch_gate_train_sweep.py"]
 FORBIDDEN = ("jax", "a3vlm_tpu")
 
 
@@ -55,7 +56,15 @@ def test_port_entry_points_load_neither_package():
             "a3vlm_tpu_torch.tools.convert_weights_to_hf, "
             "a3vlm_tpu_torch.tools.weight_operate, "
             "a3vlm_tpu_torch.models.internlm_ems5_light, "
-            "a3vlm_tpu_torch.models.ens5_2images; "
+            "a3vlm_tpu_torch.models.ens5_2images, "
+            "a3vlm_tpu_torch.serving, "
+            + "".join(f"a3vlm_tpu_torch.datagen.{m}, " for m in (
+                "urdf", "mesh", "rasterizer", "render", "render_robot",
+                "point_render", "labeler", "grounding_tasks", "texture_aug",
+                "annotation_visualizer", "create_demo_json"))
+            + "a3vlm_tpu_torch.tools.generate_packed_data, "
+            "a3vlm_tpu_torch.tools.data_conversion, "
+            "a3vlm_tpu_torch.tools.download; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'a3vlm_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -73,12 +82,14 @@ def test_entry_points_default_to_the_card():
     from a3vlm_tpu_torch.meta import MetaModel
     from a3vlm_tpu_torch.models.llama import KVCache
     from a3vlm_tpu_torch.ops import attention, decode_attention, resize, rope
+    from a3vlm_tpu_torch.serving import ModelServer
 
     def default(fn):
         return inspect.signature(fn).parameters["device"].default
 
     for fn in (MetaModel.__init__, MetaModel.from_pretrained,
-               bridge.params_from_numpy, bridge.kv_cache_from_numpy):
+               bridge.params_from_numpy, bridge.kv_cache_from_numpy,
+               ModelServer.__init__):
         assert default(fn) == "cuda", fn
     from a3vlm_tpu_torch import eval_affordance, main_finetune
 
@@ -299,9 +310,16 @@ def _case_data_transforms(tmp_path, tok_dir):
 
 def _defs(path: Path) -> dict:
     """Top-level functions, classes and assignments of a file by name, as
-    their AST dumps (imports and the module docstring left out)."""
+    their AST dumps (imports and the module docstring left out; an import
+    inside a definition from ``a3vlm_tpu_torch`` reads as one from
+    ``a3vlm_tpu``, the package the copy stands in for)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").split(
+                ".")[0] == "a3vlm_tpu_torch":
+            node.module = "a3vlm_tpu" + node.module[len("a3vlm_tpu_torch"):]
     out = {}
-    for node in ast.parse(path.read_text()).body:
+    for node in tree.body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             out[node.name] = ast.dump(node)
         elif isinstance(node, ast.Assign):
@@ -489,15 +507,16 @@ def _case_checkpoint_export(tmp_path, tok_dir):
 
 
 def _case_tools_convert_weights_to_hf(tmp_path, tok_dir):
-    """``convert`` differs in its imports alone; the files it writes are
-    held against the original's in tests/test_torch_checkpoint.py."""
-    _same_defs("tools/convert_weights_to_hf.py", differ=("convert",))
+    """``convert`` differs in its imports' package alone; the files it
+    writes are held against the original's in
+    tests/test_torch_checkpoint.py."""
+    _same_defs("tools/convert_weights_to_hf.py")
 
 
 def _case_tools_weight_operate(tmp_path, tok_dir):
-    """``operate`` differs in its imports alone; both write the same
-    extract and apply files (tests/test_torch_checkpoint.py)."""
-    _same_defs("tools/weight_operate.py", differ=("operate",))
+    """``operate`` differs in its imports' package alone; both write the
+    same extract and apply files (tests/test_torch_checkpoint.py)."""
+    _same_defs("tools/weight_operate.py")
 
 
 def _case_utils_tensorboard_logger(tmp_path, tok_dir):
@@ -553,6 +572,83 @@ def _case_data_falcon_stream(tmp_path, tok_dir):
         _assert_same(runs[1], runs[0])
 
 
+def _case_tools_generate_packed_data(tmp_path, tok_dir):
+    """Both CLIs pack the same text and jsonl documents into the same
+    blocks."""
+    import pickle
+
+    _same_defs("tools/generate_packed_data.py")
+    orig, port = _both("tools/generate_packed_data.py")
+    (tmp_path / "docs.txt").write_text("\n".join(
+        f"door {i} drawer lid " * 4 for i in range(12)))
+    (tmp_path / "notes.jsonl").write_text("\n".join(json.dumps(
+        {"content" if i % 2 else "text": f"lid {i} hinge " * 5})
+        for i in range(6)))
+    inputs = [str(tmp_path / "docs.txt"), str(tmp_path / "notes.jsonl")]
+    got = []
+    for mod, name in ((orig, "orig"), (port, "port")):
+        out = tmp_path / name
+        mod.main(["--input", *inputs, "--output_dir", str(out),
+                  "--tokenizer_path", tok_dir, "--block_size", "16"])
+        got.append({f.name: pickle.loads(f.read_bytes())
+                    for f in sorted(out.iterdir())})
+    assert got[1] == got[0]
+    assert set(got[0]) == {"docs_packed.pkl", "notes_packed.pkl"}
+    assert all(got[0].values())
+
+
+def _case_tools_data_conversion(tmp_path, tok_dir):
+    """Both converters, through their CLIs, write the same records."""
+    _same_defs("tools/data_conversion.py")
+    orig, port = _both("tools/data_conversion.py")
+    llava = [{"image": "x.png", "conversations": [
+        {"from": "human", "value": "<image> what?"},
+        {"from": "gpt", "value": "a box"},
+        {"from": "human", "value": "sure?"},
+        {"from": "gpt", "value": "yes"}]}, {"conversations": [
+            {"from": "gpt", "value": "no"},
+            {"from": "human", "value": "hi"}]}]
+    gorilla = [{"code": "###Instruction: call api ###Output: x",
+                "api_call": "api.call()"}, {"output": "y"}]
+    for recipe, records in (("llava_to_single_turn", llava),
+                            ("gorilla_to_alpaca", gorilla)):
+        src = tmp_path / f"{recipe}.json"
+        src.write_text(json.dumps(records))
+        outs = []
+        for mod, name in ((orig, "orig"), (port, "port")):
+            out = tmp_path / f"{recipe}_{name}.json"
+            mod.main(["--input", str(src), "--output", str(out),
+                      "--recipe", recipe])
+            outs.append(json.loads(out.read_text()))
+        assert outs[1] == outs[0] and outs[0]
+
+
+def _case_tools_download(tmp_path, tok_dir):
+    """A copy only: the same zoo, and ``download`` hands the same request
+    to ``huggingface_hub.snapshot_download`` (a stub here: nothing is
+    fetched)."""
+    import types
+
+    _same_defs("tools/download.py")
+    orig, port = _both("tools/download.py")
+    assert port.MODEL_ZOO == orig.MODEL_ZOO
+    calls = []
+    stub = types.ModuleType("huggingface_hub")
+    stub.snapshot_download = lambda **kw: calls.append(kw) or kw["local_dir"]
+    saved = sys.modules.get("huggingface_hub")
+    sys.modules["huggingface_hub"] = stub
+    try:
+        for mod in (orig, port):
+            assert mod.download("org/model", str(tmp_path)) == str(tmp_path)
+    finally:
+        if saved is None:
+            del sys.modules["huggingface_hub"]
+        else:
+            sys.modules["huggingface_hub"] = saved
+    assert calls[0] == calls[1] == {"repo_id": "org/model",
+                                    "local_dir": str(tmp_path)}
+
+
 _CASES = {
     "config": _case_config,
     "config.probe_pretrained_dir": _case_config_probe,
@@ -578,6 +674,9 @@ _CASES = {
     "tools.convert_weights_to_hf": _case_tools_convert_weights_to_hf,
     "tools.weight_operate": _case_tools_weight_operate,
     "utils.logging.TensorBoardLogger": _case_utils_tensorboard_logger,
+    "tools.generate_packed_data": _case_tools_generate_packed_data,
+    "tools.data_conversion": _case_tools_data_conversion,
+    "tools.download": _case_tools_download,
 }
 
 
@@ -585,3 +684,29 @@ _CASES = {
 def test_copied_module_behaves_as_the_original(module, tmp_path,
                                                tiny_tokenizer_dir):
     _CASES[module](tmp_path, tiny_tokenizer_dir)
+
+
+# The port's copies of the JAX package's framework-free modules that came
+# with datagen and the data tools; only the rasterizer's loader differs (it
+# builds its library into the port's build directory under its own name).
+COPIES = {
+    **{f"datagen/{m}.py": () for m in (
+        "urdf", "mesh", "render", "render_robot", "point_render", "labeler",
+        "grounding_tasks", "texture_aug", "annotation_visualizer",
+        "create_demo_json")},
+    "datagen/rasterizer.py": ("_load_native",),
+    **{f"tools/{m}.py": () for m in (
+        "generate_packed_data", "data_conversion", "download")},
+}
+
+
+@pytest.mark.parametrize("rel", list(COPIES))
+def test_copy_defines_what_the_original_defines(rel):
+    _same_defs(rel, differ=COPIES[rel])
+
+
+@pytest.mark.parametrize("rel", ["datagen/native/rasterizer.cpp",
+                                 "datagen/prompts/grounding_task_generation.txt"])
+def test_copied_data_file_is_the_original(rel):
+    assert (ROOT / "a3vlm_tpu_torch" / rel).read_bytes() == (
+        ROOT / "a3vlm_tpu" / rel).read_bytes()
