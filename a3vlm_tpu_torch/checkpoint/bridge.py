@@ -14,7 +14,9 @@ np.asarray, params)``); this module imports no JAX and recognizes a
 - ``QuantizedWeight`` leaves, int4 or int8, stacked or not, keep ``q``,
   ``scale``, ``bits``, ``group`` and ``in_dim`` as they are; a chunk-packed
   int4 leaf (``k_chunks > 1``, the JAX package's row-parallel layout) is
-  repacked to ``k_chunks = 1`` (``repack_chunked_int4``);
+  repacked to ``k_chunks = 1`` for one device (``repack_chunked_int4``),
+  or kept as its chunks with ``keep_chunks=True``, for a mesh, where rank r
+  of mp takes chunks [r * c / mp, (r + 1) * c / mp) (``shard_params``);
 - conv ``"kernel"`` leaves turn from HWIO into torch's OIHW.
 """
 
@@ -44,7 +46,7 @@ def _tensor(x, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def _convert(x, key, leaf):
+def _convert(x, key, leaf, keep_chunks: bool = False):
     """``x`` in the port's layout, each tensor made by ``leaf(x, dtype)``
     (``dtype`` the one a float leaf of this place takes); a stacked
     ``"layers"`` subtree becomes a per-layer list, ``None`` if it holds no
@@ -52,19 +54,22 @@ def _convert(x, key, leaf):
     if x is None:
         return None
     if isinstance(x, dict):
-        out = {k: _convert(v, k, leaf) for k, v in x.items()}
+        out = {k: _convert(v, k, leaf, keep_chunks) for k, v in x.items()}
         if isinstance(x.get("layers"), dict):
             out["layers"] = _unstack_or_none(out["layers"])
         return out
     if isinstance(x, (list, tuple)):
-        return [_convert(v, None, leaf) for v in x]
+        return [_convert(v, None, leaf, keep_chunks) for v in x]
     if _is_quantized(x):
         q, scale = x.q, x.scale
-        if getattr(x, "k_chunks", 1) != 1:
+        chunks = int(getattr(x, "k_chunks", 1))
+        if chunks != 1 and not keep_chunks:
             q, scale = repack_chunked_int4(np.asarray(q), np.asarray(scale))
+            chunks = 1
         return QuantizedWeight(
             leaf(q, torch.int8), leaf(scale, torch.float32),
             bits=int(x.bits), group=int(x.group), in_dim=int(x.in_dim),
+            k_chunks=chunks,
         )
     t = leaf(x, None)
     if key == "kernel" and t.dim() == 4:
@@ -110,13 +115,16 @@ def _unstack_or_none(stacked: dict):
 
 def params_from_numpy(tree: dict[str, Any],
                       device: torch.device | str = "cuda",
-                      dtype: torch.dtype = torch.float32) -> dict[str, Any]:
+                      dtype: torch.dtype = torch.float32,
+                      keep_chunks: bool = False) -> dict[str, Any]:
     """Convert a numpy copy of a JAX parameter tree (any family's: a bare
     llama or falcon decoder, or a whole tree with the decoder under
     ``"llama"``, with or without a ``"lora"`` adapter tree, whose stacked
-    ``layers`` become per-layer lists like the decoder's)."""
+    ``layers`` become per-layer lists like the decoder's). ``keep_chunks``
+    keeps chunk-packed int4 leaves as chunks, for a mesh."""
     return _convert(tree, None,
-                    lambda x, dt: _tensor(x, device, dt or dtype))
+                    lambda x, dt: _tensor(x, device, dt or dtype),
+                    keep_chunks)
 
 
 def _hwio(t: torch.Tensor, key) -> torch.Tensor:
@@ -156,7 +164,8 @@ def _stack_host(ts: list, key, numpy: bool):
         return SimpleNamespace(
             q=_stack_host([lp.q for lp in ts], None, numpy),
             scale=_stack_host([lp.scale for lp in ts], None, numpy),
-            bits=first.bits, group=first.group, in_dim=first.in_dim)
+            bits=first.bits, group=first.group, in_dim=first.in_dim,
+            k_chunks=first.k_chunks)
     first = _hwio(first, key)
     dtype = torch.float32 if numpy and first.dtype == torch.bfloat16 \
         else first.dtype
@@ -185,7 +194,8 @@ def _to_host(x, key, stack: bool, numpy: bool):
     if isinstance(x, QuantizedWeight):
         return SimpleNamespace(q=_host_leaf(x.q, numpy),
                                scale=_host_leaf(x.scale, numpy), bits=x.bits,
-                               group=x.group, in_dim=x.in_dim)
+                               group=x.group, in_dim=x.in_dim,
+                               k_chunks=x.k_chunks)
     return _host_leaf(_hwio(x, key), numpy)
 
 

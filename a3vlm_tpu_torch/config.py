@@ -174,8 +174,9 @@ CONVNEXT_XXLARGE = ConvNeXtConfig()
 
 @dataclass(frozen=True)
 class Ens5Config:
-    """ens5.py:46-70. The JAX config's ``crop_shard_axes`` (a mesh
-    sharding of the crop batch) has no counterpart on one GPU."""
+    """ens5.py:46-70. The JAX config's ``crop_shard_axes`` is not a
+    field: under a mesh the crops split over every rank, its default
+    ("data", "model") (models/ens5.py)."""
 
     llama: ModelArgs = field(default_factory=ModelArgs)
     clip: ViTConfig = CLIP_VIT_L14

@@ -36,10 +36,12 @@ __device__ __forceinline__ __nv_bfloat16 glu_bf16(__nv_bfloat16 g,
 // - Copies. One thread asks the TMA for a step's boxes: two x boxes
 //   [BM][64] bf16 in the 128-byte swizzle (a K-major A operand as it lies,
 //   rows past M and columns past K as zeros) into a ring of XST slots; the
-//   packed bytes of q and, for the int4 modes, the step's scale row of each
-//   half ([128] f32; a step lies in one group, group % 64 == 0) into a ring
-//   of QST slots, since the weights are needed a step before their x. One
-//   mbarrier per slot; no thread spends instructions on a copy.
+//   packed bytes of q and, for the int4 modes, the step's scale rows of
+//   each half ([128] f32: one where a step lies in one group, group % 64
+//   == 0; two at group 32, the group of the chunk-packed row-parallel
+//   weights, MODE_V1 and MODE_GLU) into a ring of QST slots, since the
+//   weights are needed a step before their x. One mbarrier per slot; no
+//   thread spends instructions on a copy.
 // - Dequantization. All 256 threads turn a step's packed bytes into its
 //   two bf16 tiles in shared memory, in the MN-major 128-byte swizzle that
 //   K2 reads V from (the B operand through the transpose flag): a thread
@@ -86,7 +88,9 @@ struct QmmCfg {
   static constexpr int X_BYTES = BM * BK * 2;   // one [BM][64] bf16 box
   static constexpr int QROWS = INT8 ? 2 * BK : BK;  // packed rows a step
   static constexpr int Q_BYTES = QROWS * BN;
-  static constexpr int S_BYTES = INT8 ? 0 : 2 * BN * 4;
+  // two scale rows a half (the second read at group 32 only)
+  static constexpr int S_ROWS = 2;
+  static constexpr int S_BYTES = INT8 ? 0 : 2 * S_ROWS * BN * 4;
   static constexpr int Q_SLOT = (Q_BYTES + S_BYTES + SWIZZLE_ALIGN - 1) /
                                 SWIZZLE_ALIGN * SWIZZLE_ALIGN;
   static constexpr int W_BYTES = BK * BN * 2;   // one [64][128] bf16 tile
@@ -191,17 +195,17 @@ __device__ __forceinline__ void qmm_dequant(const uint8_t* qs, uint8_t* w,
 }
 
 // This thread's 8 columns' scales of both halves of a step (MODE_V1,
-// MODE_GLU): the scale rows after the packed bytes.
+// MODE_GLU): scale row ``sub`` of each half, after the packed bytes.
 template <class C>
 __device__ __forceinline__ void qmm_scales(const uint8_t* qs, int tid,
-                                           float (&sc)[2][8]) {
+                                           float (&sc)[2][8], int sub) {
   const float4* sp = reinterpret_cast<const float4*>(qs + C::Q_BYTES);
   const int nc = tid & 15;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float4 a = sp[h * (C::BN / 4) + 2 * nc + i];
+      const float4 a = sp[(h * C::S_ROWS + sub) * (C::BN / 4) + 2 * nc + i];
       sc[h][4 * i] = a.x;
       sc[h][4 * i + 1] = a.y;
       sc[h][4 * i + 2] = a.z;
@@ -236,6 +240,9 @@ __device__ __forceinline__ void qmm_tile(
   const int m_blk = blockIdx.y * C::BM, n_blk = blockIdx.x * C::BN;
   const int steps = (rows + C::QROWS - 1) / C::QROWS;
   const int hg = C::INT8 ? 0 : rows / group;  // groups per half
+  // scale rows of a half in a step: 2 at group 32 (rows 0-31 of the step,
+  // dequantized by pieces 0 and 1, then rows 32-63 by pieces 2 and 3)
+  const int srows = (!C::INT8 && group < C::BK) ? C::BK / group : 1;
 
   if (tid == 0) {
 #pragma unroll
@@ -263,12 +270,12 @@ __device__ __forceinline__ void qmm_tile(
     const uint32_t slot = smem_u32(qring) + (s % QST) * C::Q_SLOT;
     const uint32_t bar = smem_u32(&q_full[s % QST]);
     const int k0 = s * C::QROWS;
-    mbar_expect_tx(bar, C::Q_BYTES + C::S_BYTES);
+    mbar_expect_tx(bar, C::Q_BYTES + (C::INT8 ? 0 : 2 * srows * C::BN * 4));
     tma_load_2d(slot, q_map, bar, n_blk, k0);
     if (!C::INT8) {
       tma_load_2d(slot + C::Q_BYTES, s_map, bar, n_blk, k0 / group);
-      tma_load_2d(slot + C::Q_BYTES + C::BN * 4, s_map, bar, n_blk,
-                  hg + k0 / group);
+      tma_load_2d(slot + C::Q_BYTES + C::S_ROWS * C::BN * 4, s_map, bar,
+                  n_blk, hg + k0 / group);
     }
   };
   auto q_of = [&](int s) { return qring + (s % QST) * C::Q_SLOT; };
@@ -284,7 +291,15 @@ __device__ __forceinline__ void qmm_tile(
   // step s's weights landed, and this thread's scales of them read
   auto weights_ready = [&](int s) {
     mbar_wait(smem_u32(&q_full[s % QST]), (s / QST) & 1);
-    if (MODE == MODE_V1 || MODE == MODE_GLU) qmm_scales<C>(q_of(s), tid, sc);
+    if (MODE == MODE_V1 || MODE == MODE_GLU)
+      qmm_scales<C>(q_of(s), tid, sc, 0);
+  };
+  // piece j of step s's dequantization, after the second scale rows at
+  // group 32
+  auto dequant = [&](int s, int j) {
+    if ((MODE == MODE_V1 || MODE == MODE_GLU) && srows == 2 && j == 2)
+      qmm_scales<C>(q_of(s), tid, sc, 1);
+    qmm_dequant<C, MODE>(q_of(s), w_of(s), j, tid, sc);
   };
 
   if (tid == 0) {
@@ -293,8 +308,7 @@ __device__ __forceinline__ void qmm_tile(
   }
   weights_ready(0);
 #pragma unroll
-  for (int j = 0; j < C::CHUNKS; ++j)
-    qmm_dequant<C, MODE>(q_of(0), w_of(0), j, tid, sc);
+  for (int j = 0; j < C::CHUNKS; ++j) dequant(0, j);
   fence_proxy_async();
   __syncthreads();
   if (tid == 0 && C::Q_LEAD == 1) load_q(QST);  // step 0's slot is free
@@ -329,15 +343,14 @@ __device__ __forceinline__ void qmm_tile(
       }
       if (C::INTERLEAVE && next) {
         if (ks == 0) weights_ready(s + 1);
-        qmm_dequant<C, MODE>(q_of(s + 1), w_of(s + 1), ks, tid, sc);
+        dequant(s + 1, ks);
       }
     }
     wgmma_commit();
     if (!C::INTERLEAVE && next) {
       weights_ready(s + 1);
 #pragma unroll
-      for (int j = 0; j < C::CHUNKS; ++j)
-        qmm_dequant<C, MODE>(q_of(s + 1), w_of(s + 1), j, tid, sc);
+      for (int j = 0; j < C::CHUNKS; ++j) dequant(s + 1, j);
     }
     if (next) fence_proxy_async();
     wgmma_wait<0>();
@@ -351,7 +364,8 @@ __device__ __forceinline__ void qmm_tile(
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const float2 sv =
-              *reinterpret_cast<const float2*>(sp + h * C::BN + 8 * j + 2 * cq);
+              *reinterpret_cast<const float2*>(sp + h * C::S_ROWS * C::BN +
+                                               8 * j + 2 * cq);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[0][4 * j + e] = fmaf(part[h][4 * j + e], e & 1 ? sv.y : sv.x,
@@ -408,7 +422,8 @@ __device__ __forceinline__ void qmm_tile(
 // once per instantiation, encodes the tensor maps of this call (x [M, Kpad
 // or K] bf16 in boxes of 64 columns x BM rows, 128-byte swizzle; q [rows,
 // N] bytes in boxes of 128 columns x a step's rows; for the int4 modes
-// scale [Kpad / group, N] f32 in boxes of 128 x 1) and launches one block
+// scale [Kpad / group, N] f32 in boxes of 128 x 1, 128 x 2 at group 32)
+// and launches one block
 // per [BM, 128] output tile. Returns a cudaError_t.
 template <int MODE, typename Kernel>
 int qmm_launch(Kernel kernel, const void* x, const void* q, const void* scale,
@@ -442,7 +457,9 @@ int qmm_launch(Kernel kernel, const void* x, const void* q, const void* scale,
   if (MODE != MODE_INT8) {
     const cuuint64_t s_dims[2] = {(cuuint64_t)N, (cuuint64_t)(xcols / group)};
     const long s_strides[1] = {(long)N};
-    const cuuint32_t s_box[2] = {(cuuint32_t)C::BN, 1};
+    const cuuint32_t s_box[2] = {(cuuint32_t)C::BN,
+                                 (cuuint32_t)(group < C::BK ? C::BK / group
+                                                            : 1)};
     e = encode_map_of(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                       CU_TENSOR_MAP_SWIZZLE_NONE, scale, 2, s_dims, s_strides,
                       s_box);

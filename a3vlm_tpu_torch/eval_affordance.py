@@ -7,15 +7,17 @@ out.
     python -m a3vlm_tpu_torch.eval_affordance --pretrained_path CKPT \\
         --dataset tasks.json --quant [--device cuda]
 
-One process drives one device: ``--device`` (default ``cuda``) takes the
-place of the JAX CLI's ``JAX_PLATFORMS``, and the CLI never falls back to
-the CPU by itself. The flags and their defaults are the JAX CLI's. The
-quantized-matmul flags set the port's mode switches
-(``ops.quant_matmul.W4A8_DECODE``, ``W8A8_PREFILL``);
-``--continuous_batching`` serves the task file through the slot pool
-(``run_eval_continuous``); the flags of parts not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (``--llama_type
-falcon``, ``--model_parallel_size`` above 1). The released 7B runs with
+``--device`` (default ``cuda``) takes the place of the JAX CLI's
+``JAX_PLATFORMS``, and the CLI never falls back to the CPU by itself. The
+flags and their defaults are the JAX CLI's. The quantized-matmul flags set
+the port's mode switches (``ops.quant_matmul.W4A8_DECODE``,
+``W8A8_PREFILL``); ``--continuous_batching`` serves the task file through
+the slot pool (``run_eval_continuous``). ``--model_parallel_size`` above 1
+serves through ``ModelServer(meta_model=...)`` over a ("data", "model")
+mesh of one process per device (every visible card, or
+``--model_parallel_size`` ranks on the CPU with ``--device cpu``);
+``--continuous_batching`` refuses it, as the JAX CLI's assert does. The
+released 7B runs with
 ``--llama_type internlm_ems5_light --input_size 1024``. As with the JAX
 CLI, ``llama_ens5_2images`` and ``llama`` fail at the first batch
 (``run_eval`` passes no depth images, and ``llama`` has no towers), and
@@ -214,7 +216,10 @@ def run_eval_continuous(
     question about it admits as a text-only extension into a pool of
     ``batch_size`` slots (``serving_batch.ContinuousBatcher``). The task
     files ask about 12 questions per object render. Same records as
-    ``run_eval``; ``fsm`` grammar-constrains every slot's tokens."""
+    ``run_eval``; ``fsm`` grammar-constrains every slot's tokens. A model
+    holding its shard of a mesh (``model.mesh``, set on each rank) serves
+    through ``ContinuousBatcher(mesh=)``: every rank calls this function
+    and gets the same records."""
     from a3vlm_tpu_torch.serving_batch import ContinuousBatcher
 
     cb = ContinuousBatcher(
@@ -229,6 +234,7 @@ def run_eval_continuous(
         draft_k=draft_k,
         fsm=fsm,
         device=model.device,
+        mesh=getattr(model, "mesh", None),
     )
     # every admission here extends a [BOS | image words] prefix with a
     # question, which lands in the small buckets
@@ -368,8 +374,11 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "output equals the vanilla loop's, greedy or "
                         "sampled")
     parser.add_argument("--model_parallel_size", type=int, default=1,
-                        help="only 1: one device (more is ROADMAP Queue 1 "
-                        "item 17)")
+                        help="TP degree over the ('data', 'model') mesh "
+                        "(the reference's torchrun --model_parallel_size, "
+                        "scripts/a3vlm_infer.sh): one process per device, "
+                        "this one rank 0; every visible card, or "
+                        "model_parallel_size ranks with --device cpu")
     parser.add_argument("--device", default="cuda",
                         help="torch device the model runs on (cuda, or cpu "
                         "for tests); the counterpart of JAX_PLATFORMS")
@@ -377,14 +386,13 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    unported = [
-        (args.model_parallel_size > 1, "--model_parallel_size > 1",
-         "Queue 1 item 17 (several devices)"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                      f"{item})")
+    if args.continuous_batching and args.model_parallel_size > 1:
+        # the JAX CLI's assert (eval_affordance.py:482-485): the pool drives
+        # its own cache; a sharded pool is ContinuousBatcher(mesh=) through
+        # the API
+        raise ValueError("--continuous_batching drives its own pooled "
+                         "cache: it does not combine with "
+                         "--model_parallel_size > 1")
     if args.continuous_batching and not args.tiny_random_model and \
             args.llama_type in _NO_SLOT_POOL:
         # the JAX CLI fails on these after loading: the batcher reads the
@@ -467,12 +475,17 @@ def main(argv=None, tokenizer=None):
             with_visual=True,
             max_seq_len=args.max_seq_len,
             device=device,
+            # mp-aligned vocab pad: the column-parallel head's shards stay
+            # lane-aligned (a quantized head stays whole at mp > 2 without)
+            vocab_align=args.model_parallel_size * 128,
         )
         input_size = args.input_size
 
+    mp = args.model_parallel_size
     if args.quant or args.tower_bits:
         model.quantize(
             bits=args.quant_bits if args.quant else None,
+            tp_align=mp * 128 if mp > 1 else 0,
             tower_bits=args.tower_bits,
         )
     if args.adapter_path:
@@ -480,6 +493,16 @@ def main(argv=None, tokenizer=None):
         model.load_adapter_checkpoint(args.adapter_path)
     if args.kv_cache_bits:
         model.kv_cache_bits = args.kv_cache_bits
+    server = None
+    if mp > 1:
+        # the weights split over the mesh; ModelServer.generate has the
+        # surface run_eval drives
+        from a3vlm_tpu_torch.serving import ModelServer
+
+        devices = ["cpu"] * mp if device.type == "cpu" else None
+        model = server = ModelServer(meta_model=model,
+                                     model_parallel_size=mp,
+                                     devices=devices)
 
     os.makedirs(args.output_dir, exist_ok=True)
     results_file = str(
@@ -503,22 +526,27 @@ def main(argv=None, tokenizer=None):
     if args.constrained:
         from a3vlm_tpu_torch.constrained import fsm_for_task
 
-        fsm = fsm_for_task(Path(args.dataset).stem, model.tokenizer)
+        tok = (server.model if server is not None else model).tokenizer
+        fsm = fsm_for_task(Path(args.dataset).stem, tok)
         print(
             f"constrained decoding: "
             f"{'grammar FSM with %d states' % fsm.n_states if fsm else 'no grammar family matches this task; running unconstrained'}"
         )
     run = run_eval_continuous if args.continuous_batching else run_eval
-    outputs = run(
-        model,
-        dataset,
-        batch_size=args.batch_size,
-        max_gen_len=args.max_gen_len,
-        temperature=args.temperature,
-        top_p=args.top_p,
-        fsm=fsm,
-        draft_k=args.draft_k,
-    )
+    try:
+        outputs = run(
+            model,
+            dataset,
+            batch_size=args.batch_size,
+            max_gen_len=args.max_gen_len,
+            temperature=args.temperature,
+            top_p=args.top_p,
+            fsm=fsm,
+            draft_k=args.draft_k,
+        )
+    finally:
+        if server is not None:
+            server.close()
     if existing:
         outputs.extend(existing)
     with open(results_file, "w") as f:

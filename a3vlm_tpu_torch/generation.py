@@ -22,7 +22,12 @@ eager steps:
 - ``ops``: the decoder family's cache, prefill and decode step
   (``LLAMA_GEN_OPS``, or ``FALCON_GEN_OPS``, which has no chunked prefill
   and no lookup decoding: those requests take the one-piece prefill and
-  the vanilla loop, as in the JAX ``Generator``).
+  the vanilla loop, as in the JAX ``Generator``);
+- ``mesh`` (a ``parallel.Mesh``, generation.py:397-455): every rank runs
+  this loop in lockstep over its shard of the weights. The cache holds
+  this rank's kv heads ("model") and, where the batch divides over
+  "data", this rank's rows; each step's logits are gathered, so every
+  rank picks the same tokens. The grammar table is replicated.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from a3vlm_tpu_torch.lookup_decode import lookup_generate
 from a3vlm_tpu_torch.models import falcon, llama
 from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
 from a3vlm_tpu_torch.ops.sampling import sample_token
+from a3vlm_tpu_torch.parallel import tp
+from a3vlm_tpu_torch.parallel.mesh import DATA_AXIS, on_mesh
 
 
 class GenOps(NamedTuple):
@@ -46,13 +53,14 @@ class GenOps(NamedTuple):
     ``prefill(params, args, cache, tokens, image_tokens, impl)``,
     ``decode_step(params, args, cache, token, seq_pos, impl)`` and
     ``prefill_chunked(params, args, cache, tokens, image_tokens, chunk,
-    impl)`` or None. The JAX tuple's ``cache_specs`` places a cache on
-    several devices and has no counterpart on one."""
+    impl)`` or None, and ``cache_specs(args, mesh, batch, quant)``, the
+    spec of a cache panel on a mesh."""
 
     create_cache: Callable
     prefill: Callable
     decode_step: Callable
     prefill_chunked: Optional[Callable] = None
+    cache_specs: Optional[Callable] = None
 
 
 def _llama_cache(args, batch, max_seq_len, dtype, device):
@@ -61,7 +69,7 @@ def _llama_cache(args, batch, max_seq_len, dtype, device):
 
 
 LLAMA_GEN_OPS = GenOps(_llama_cache, llama.prefill, llama.decode_step,
-                       llama.prefill_chunked)
+                       llama.prefill_chunked, llama.decode_cache_specs)
 
 
 def _falcon_cache(args, batch, max_seq_len, dtype, device):
@@ -76,7 +84,8 @@ def _falcon_prefill(params, args, cache, tokens, image_tokens, impl):
 
 
 # (generation.py:84-125)
-FALCON_GEN_OPS = GenOps(_falcon_cache, _falcon_prefill, falcon.decode_step)
+FALCON_GEN_OPS = GenOps(_falcon_cache, _falcon_prefill, falcon.decode_step,
+                        None, falcon.falcon_cache_specs)
 
 
 def decoder_device(params: dict) -> torch.device:
@@ -105,7 +114,7 @@ class Generator:
                  image_words: int = 0, vocab_limit: Optional[int] = None,
                  kv_cache_bits: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 ops: GenOps = LLAMA_GEN_OPS):
+                 ops: GenOps = LLAMA_GEN_OPS, mesh=None):
         if kv_cache_bits not in (None, 8):
             raise ValueError(f"kv_cache_bits {kv_cache_bits}: want None or 8")
         self.params = params
@@ -119,6 +128,7 @@ class Generator:
         # chunked prefill: bounds activation temporaries for long prompts
         self.prefill_chunk = prefill_chunk
         self.ops = ops
+        self.mesh = mesh
         # wall times of the last call's phases (ms), synchronized on CUDA
         self.last_stats: dict = {}
         # set by the lookup path (draft_k > 0): emitted tokens and verify
@@ -149,13 +159,35 @@ class Generator:
                                 host)
         return self._fsm_tables[1], self._fsm_tables[2]
 
+    def _batch_rows(self, batch: int) -> int:
+        """The rows a cache of ``batch`` holds on this rank: a share where
+        the family's cache spec puts the batch on "data"."""
+        if not tp.is_parallel(self.mesh):
+            return batch
+        spec = self.ops.cache_specs(self.args, self.mesh, batch)
+        return batch // self.mesh.dp_size if spec[0] == DATA_AXIS else batch
+
     def _prefill(self, cache, tokens, image_tokens, impl):
+        """The family's prefill on this rank's rows; every row's logits."""
+        B = tokens.shape[0]
+        tokens = tp.data_rows(tokens, B, self.mesh)
+        image_tokens = tp.data_rows(image_tokens, B, self.mesh)
         if self.prefill_chunk and self.ops.prefill_chunked is not None:
-            return self.ops.prefill_chunked(self.params, self.args, cache,
-                                            tokens, image_tokens,
-                                            self.prefill_chunk, impl)
-        return self.ops.prefill(self.params, self.args, cache, tokens,
-                                image_tokens, impl)
+            logits, cache, S = self.ops.prefill_chunked(
+                self.params, self.args, cache, tokens, image_tokens,
+                self.prefill_chunk, impl)
+        else:
+            logits, cache, S = self.ops.prefill(self.params, self.args,
+                                                cache, tokens, image_tokens,
+                                                impl)
+        return tp.data_gather(logits, B, self.mesh), cache, S
+
+    def _decode(self, cache, token, seq_pos: int, impl):
+        B = token.shape[0]
+        logits, cache = self.ops.decode_step(
+            self.params, self.args, cache,
+            tp.data_rows(token, B, self.mesh), seq_pos, impl)
+        return tp.data_gather(logits, B, self.mesh), cache
 
     def _truncate(self, prompt_tokens, image_tokens, max_gen_len):
         """Left-truncated prompts and the text positions left for them."""
@@ -165,6 +197,7 @@ class Generator:
         return ([list(t)[-(max_seq_len - max_gen_len):]
                  for t in prompt_tokens], max_seq_len)
 
+    @on_mesh
     @torch.inference_mode()
     def generate_tokens(
         self,
@@ -222,7 +255,7 @@ class Generator:
         P = _prefill_bucket(min_prompt)
         W = 0 if image_tokens is None else self.image_words
         cache = self.ops.create_cache(
-            args, bsz, total_len + W,
+            args, self._batch_rows(bsz), total_len + W,
             kv_cache_dtype(self.kv_cache_bits, device), device)
         uniforms = self._uniforms(seed, total_len - P, bsz, temperature)
         t0 = time.perf_counter()
@@ -279,9 +312,8 @@ class Generator:
                 fstate = torch.where(prompt_here | stopped, fstate, nf)
             if cur_pos + 1 >= total_len or bool(stopped.all()):
                 break
-            logits, cache = self.ops.decode_step(self.params, args, cache,
-                                                 next_tok[:, None],
-                                                 cur_pos + W, impl)
+            logits, cache = self._decode(cache, next_tok[:, None],
+                                         cur_pos + W, impl)
             steps += 1
         synchronize(device)
         t2 = time.perf_counter()

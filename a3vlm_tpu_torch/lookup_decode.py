@@ -35,8 +35,8 @@ import torch
 
 from a3vlm_tpu_torch.models import llama
 from a3vlm_tpu_torch.ops.norms import rms_norm
-from a3vlm_tpu_torch.ops.quant_matmul import qmat
 from a3vlm_tpu_torch.ops.sampling import sample_token
+from a3vlm_tpu_torch.parallel import tp
 
 
 def _verify_step(params, args, cache, tokens_k: torch.Tensor, pos: int,
@@ -55,7 +55,7 @@ def _verify_step(params, args, cache, tokens_k: torch.Tensor, pos: int,
         impl=impl,
     )
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
-    logits = qmat(h[0], params["output"]["weight"], impl).float()
+    logits = tp.head(h[0], params["output"]["weight"], impl).float()
     return logits, cache
 
 

@@ -39,6 +39,7 @@ from a3vlm_tpu_torch.models import ens5_2images as e2_mod
 from a3vlm_tpu_torch.models import falcon as falcon_mod
 from a3vlm_tpu_torch.models import internlm_ems5_light as il_mod
 from a3vlm_tpu_torch.models import llama as llama_mod
+from a3vlm_tpu_torch.parallel.mesh import on_mesh, use_mesh
 from a3vlm_tpu_torch.quant import quantize_params, tree_map
 from a3vlm_tpu_torch.train.losses import next_token_loss
 
@@ -135,6 +136,9 @@ class MetaModel:
             gen = torch.Generator(device=device).manual_seed(seed)
             params = _INIT[llama_type](model_cfg, dtype, device, gen)
         self.params = params
+        # the mesh whose shard of the weights ``params`` holds (set by
+        # ModelServer or a caller running the model on several ranks)
+        self.mesh = None
         self._loras: list = []  # adapters served unmerged (load_lora)
         self._generator: Optional[Generator] = None
         self._kv_cache_bits: Optional[int] = None
@@ -143,6 +147,18 @@ class MetaModel:
         self.last_stats: dict = {}
         # emitted tokens and verify rounds of the last draft_k request
         self.last_spec_stats: Optional[dict] = None
+
+    def __getstate__(self) -> dict:
+        """Pickled for another rank: the family's module goes by name, the
+        cached generator and the mesh (a process's own) stay behind."""
+        state = dict(self.__dict__)
+        del state["_mod"]
+        state.update(_generator=None, mesh=None)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._mod = _FAMILY[self.llama_type]
 
     @property
     def decoder(self) -> dict:
@@ -286,20 +302,25 @@ class MetaModel:
             tree["output"]["weight"] = torch.nn.functional.pad(
                 head, (0, V - head.shape[-1]))
 
-    def quantize(self, bits: Optional[int] = 4,
+    def quantize(self, bits: Optional[int] = 4, tp_align: int = 0,
+                 row_parallel: int = 0,
                  tower_bits: Optional[int] = None) -> None:
         """Weight-only quantization (meta.py:302). ``bits`` 4 or 8
         quantizes the decoder (None leaves it); projectors stay dense.
+        ``tp_align`` (model_parallel_size * 128) pads the ffn hidden dim so
+        the gate / up shards stay lane-aligned; ``row_parallel``
+        (model_parallel_size) chunk-packs wo / w2 so they split by rows
+        (``quant.quantize_params``).
         ``tower_bits=8`` makes the four vision towers' linears per-channel
         int8, which sends them through ``w8a8_matmul`` (the activations
         round to int8 there: opt-in). In place, leaf by leaf; attached
-        adapters are dropped, as the JAX method resets its transform. The
-        JAX method's ``tp_align`` and ``row_parallel`` are for several
-        devices and have no counterpart. A ``llama`` or ``falcon`` model
-        has no towers and ignores ``tower_bits``, as the JAX method does;
-        ``internlm_ems5_light``'s DINOv2 and ConvNeXt take it."""
+        adapters are dropped, as the JAX method resets its transform. A
+        ``llama`` or ``falcon`` model has no towers and ignores
+        ``tower_bits``, as the JAX method does; ``internlm_ems5_light``'s
+        DINOv2 and ConvNeXt take it."""
         if bits:
-            quantize_params(self.decoder, bits=bits)
+            quantize_params(self.decoder, bits=bits, tp_align=tp_align,
+                            row_parallel=row_parallel)
         if tower_bits and self.llama_type not in _BARE:
             if tower_bits != 8:
                 raise ValueError("towers support W8A8 only: tower_bits=8")
@@ -393,6 +414,7 @@ class MetaModel:
         return self._mod.build_image_tokens(self.params, self.cfg, images,
                                             impl)
 
+    @on_mesh
     @torch.inference_mode()
     def encode_images(self, images, depth_images=None, impl: str = "auto"
                       ) -> Optional[torch.Tensor]:
@@ -427,7 +449,12 @@ class MetaModel:
         text positions, label 0 ignored, padded vocab masked. The towers
         run without gradient and take ``impl`` only as "plain" or
         "auto". A ``falcon`` model ignores images, as the JAX method
-        does."""
+        does. Not on a mesh of several ranks: training there is not
+        ported (ROADMAP Queue 1 item 17)."""
+        if self.mesh is not None and self.mesh.world_size > 1:
+            raise NotImplementedError(
+                "training on several devices is not ported yet (ROADMAP "
+                "Queue 1 item 17)")
         if self.llama_type == "falcon":
             logits = falcon_mod.forward_train(self._decoder_params(),
                                               self.args, examples, impl=impl)
@@ -474,6 +501,7 @@ class MetaModel:
                 image_words=self.image_words, vocab_limit=self.true_vocab,
                 kv_cache_bits=self._kv_cache_bits,
                 prefill_chunk=self._prefill_chunk, ops=self._gen_ops,
+                mesh=self.mesh,
             )
         return self._generator
 
@@ -510,6 +538,7 @@ class MetaModel:
                 seed=seed, impl=impl, fsm=fsm, draft_k=draft_k,
                 lookup_max_n=lookup_max_n)))
 
+    @on_mesh
     def _timed(self, images, depth_images, impl: str, run):
         """The path both entries share: the towers timed on the device,
         then ``run(generator, image_tokens)``; sets ``last_stats`` (towers,
@@ -587,12 +616,16 @@ class MetaModel:
         params = self._decoder_params()
         W = 0 if image_tokens is None else image_tokens.shape[1]
         ops = self._gen_ops
-        cache = ops.create_cache(args, 1, total_len + W,
-                                 kv_cache_dtype(self.kv_cache_bits, device),
-                                 device)
-        logits, cache, _ = ops.prefill(
-            params, args, cache, torch.tensor([prompt_tokens], device=device),
-            image_tokens, impl)
+        # the mesh around each device call only: the caller runs between
+        # the yields
+        with use_mesh(self.mesh):
+            cache = ops.create_cache(
+                args, 1, total_len + W,
+                kv_cache_dtype(self.kv_cache_bits, device), device)
+            logits, cache, _ = ops.prefill(
+                params, args, cache,
+                torch.tensor([prompt_tokens], device=device), image_tokens,
+                impl)
         gen = (torch.Generator(device=device).manual_seed(seed)
                if temperature > 0 else None)
         generated: list[int] = []
@@ -609,12 +642,14 @@ class MetaModel:
                     yield {"text": text[:stop_pos], "end_of_content": True}
                     return
             yield {"text": text, "end_of_content": False}
-            logits, cache = ops.decode_step(
-                params, args, cache,
-                torch.tensor([[next_token]], device=device), cur_pos + W,
-                impl)
+            with use_mesh(self.mesh):
+                logits, cache = ops.decode_step(
+                    params, args, cache,
+                    torch.tensor([[next_token]], device=device),
+                    cur_pos + W, impl)
         yield {"text": tok.decode(generated), "end_of_content": True}
 
+    @on_mesh
     @torch.inference_mode()
     def compute_logits(self, examples: List, images=None, bos: bool = True,
                        eos: bool = False, impl: str = "auto",

@@ -19,6 +19,8 @@ from a3vlm_tpu_torch.models import llama, qformer, vit
 from a3vlm_tpu_torch.models._init import trunc_normal
 from a3vlm_tpu_torch.ops.norms import layer_norm
 from a3vlm_tpu_torch.ops.resize import resize
+from a3vlm_tpu_torch.parallel import tp
+from a3vlm_tpu_torch.parallel.mesh import P
 from a3vlm_tpu_torch.quant import _quantize_leaf_int8, tree_map
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -34,6 +36,16 @@ def trainable_mask(params: dict) -> dict:
     projectors, image tags and decoder train."""
     return {k: tree_map(lambda _: k not in FROZEN_PREFIXES, v)
             for k, v in params.items()}
+
+
+def ens5_partition_specs(cfg: Ens5Config, params: dict) -> dict:
+    """Tensor-parallel specs (ens5.py:140): the towers, projectors and
+    image tags replicated, the decoder split as
+    ``llama.llama_partition_specs``."""
+    specs = {k: tree_map(lambda _: P(), v) for k, v in params.items()
+             if k != "llama"}
+    specs["llama"] = llama.llama_partition_specs(cfg.llama)
+    return specs
 
 
 def quant_blocklist() -> tuple[str, ...]:
@@ -129,8 +141,10 @@ def encode_image_features(params: dict, cfg: Ens5Config,
     """Towers only (ens5.py:245): image [B, 448, 448, 3] -> {"q": Q-Former
     queries [5B, nq, 768], "ens": [5B, 257, 5632]}. The towers are frozen
     and run without recording a gradient (the JAX ``stop_gradient`` at
-    ens5.py:289-292)."""
-    crops = five_crop(image, cfg.crop_size)
+    ens5.py:289-292). Inside ``use_mesh`` each rank encodes its share of
+    the 5B crops and the features are gathered before they are returned
+    (the crop sharding over the whole mesh, ens5.py:256-259, :306-312)."""
+    crops, counts = tp.crop_share(five_crop(image, cfg.crop_size))
 
     blip = vit.vit_forward(params["blip2_vision"], cfg.blip2_vision, crops,
                            impl)
@@ -153,7 +167,8 @@ def encode_image_features(params: dict, cfg: Ens5Config,
     dino = vit.vit_forward(params["dinov2"], cfg.dinov2, dino_in, impl)
 
     ens = torch.cat([clip_feats, cn, dino], dim=-1)
-    return {"q": q_feats, "ens": ens}
+    return {"q": tp.crop_gather(q_feats, counts),
+            "ens": tp.crop_gather(ens, counts)}
 
 
 def project_image_features(params: dict, cfg: Ens5Config,

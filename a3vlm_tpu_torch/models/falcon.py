@@ -16,7 +16,10 @@ with biases), ``ln_f`` and ``output``; linear weights ``[in, out]``, dense,
 place. A decode step writes and attends in one call
 (``update_and_attend_decode_cache``: the decode kernel's D 64 instance on
 the card), where the JAX decode updates the cache, then attends: the same
-values. ``impl`` as in ``models/llama.py``."""
+values. ``impl`` as in ``models/llama.py``. Inside ``parallel.use_mesh``
+the forward is tensor-parallel over "model" (``falcon_partition_specs``):
+a rank holds its query and kv heads and its share of the MLP, and
+``wo`` and ``dense_4h_to_h`` are row-parallel (falcon.py:121)."""
 
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ from a3vlm_tpu_torch.ops.decode_attention import (
     update_decode_cache,
 )
 from a3vlm_tpu_torch.ops.norms import layer_norm
-from a3vlm_tpu_torch.ops.quant_matmul import qmat
+from a3vlm_tpu_torch.parallel import tp
+from a3vlm_tpu_torch.parallel.mesh import MODEL_AXIS, P
 
 Params = dict
 
@@ -113,6 +117,38 @@ def init_falcon_params(args: FalconArgs, dtype: torch.dtype,
             "ln_f": ln(), "output": lin((D, args.vocab_size))}
 
 
+def falcon_partition_specs(args: FalconArgs) -> Params:
+    """Tensor-parallel specs (falcon.py:121), one per layer of the
+    per-layer list: wq / wk / wv / dense_h_to_4h column-parallel, wo /
+    dense_4h_to_h row-parallel, the embedding split along its dim, the head
+    column-parallel, LayerNorms replicated."""
+    col, row = P(None, MODEL_AXIS), P(MODEL_AXIS, None)
+    ln = {"weight": P(None), "bias": P(None)}
+    layer = {
+        "attention": {"wq": {"weight": col}, "wk": {"weight": col},
+                      "wv": {"weight": col}, "wo": {"weight": row}},
+        "mlp": {"dense_h_to_4h": {"weight": col},
+                "dense_4h_to_h": {"weight": row}},
+        "ln_attn": ln,
+        "ln_mlp": ln,
+    }
+    return {
+        "word_embeddings": {"weight": P(None, MODEL_AXIS)},
+        "layers": [layer for _ in range(args.num_layers)],
+        "ln_f": {"weight": P(None), "bias": P(None)},
+        "output": {"weight": P(None, MODEL_AXIS)},
+    }
+
+
+def falcon_cache_specs(args: FalconArgs, mesh, batch: int,
+                       quant: bool = False):
+    """Every layer's cache panel spec on ``mesh`` (generation.py:104):
+    batch over "data", kv heads over "model", where they divide."""
+    b_ax = "data" if batch % mesh.dp_size == 0 else None
+    h_ax = MODEL_AXIS if args.kv_heads % mesh.mp_size == 0 else None
+    return P(b_ax, h_ax, None, None)
+
+
 class FalconKVCache(KVCache):
     """Layered decode cache (falcon.py:146-188, ``layered=True``): per-layer
     [batch, kv_heads, S, head_dim] tensors, S rounded up to a multiple of
@@ -124,7 +160,8 @@ class FalconKVCache(KVCache):
                dtype: torch.dtype = torch.bfloat16, *,
                device: torch.device | str) -> "FalconKVCache":
         S = -(-(max_seq_len or args.max_seq_len) // 8) * 8
-        shape = (batch_size, args.kv_heads, S, args.head_dim)
+        shape = (batch_size, tp.local_kv_heads(args.kv_heads), S,
+                 args.head_dim)
 
         def make():
             if dtype == torch.int8:
@@ -141,16 +178,17 @@ def _block(h, lp, args: FalconArgs, freqs_cis, mask, cache_k, cache_v,
     """One layer (falcon.py:191-227): attention and MLP over the same
     residual, each from its own LayerNorm."""
     B, S, _ = h.shape
-    H, Hkv, hd = args.num_attention_heads, args.kv_heads, args.head_dim
+    hd = args.head_dim
     eps = args.layer_norm_epsilon
     attn_in = layer_norm(h, lp["ln_attn"]["weight"], lp["ln_attn"]["bias"],
                          eps)
     mlp_in = layer_norm(h, lp["ln_mlp"]["weight"], lp["ln_mlp"]["bias"], eps)
 
     att = lp["attention"]
-    xq = qmat(attn_in, att["wq"]["weight"], impl).reshape(B, S, H, hd)
-    xk = qmat(attn_in, att["wk"]["weight"], impl).reshape(B, S, Hkv, hd)
-    xv = qmat(attn_in, att["wv"]["weight"], impl).reshape(B, S, Hkv, hd)
+    # this rank's heads under a mesh, every head otherwise
+    xq = tp.column(attn_in, att["wq"]["weight"], impl).reshape(B, S, -1, hd)
+    xk = tp.column(attn_in, att["wk"]["weight"], impl).reshape(B, S, -1, hd)
+    xv = tp.column(attn_in, att["wv"]["weight"], impl).reshape(B, S, -1, hd)
     xq = apply_rotary_half_split(xq, freqs_cis)
     xk = apply_rotary_half_split(xk, freqs_cis)
     if cache_k is None:
@@ -163,11 +201,11 @@ def _block(h, lp, args: FalconArgs, freqs_cis, mask, cache_k, cache_v,
         # prefill: this call's k/v are the whole visible history
         update_decode_cache(cache_k, cache_v, xk, xv, write_pos)
         out = attention(xq, xk, xv, mask=mask, impl=impl)
-    attn_out = qmat(out.reshape(B, S, H * hd), att["wo"]["weight"], impl)
+    attn_out = tp.row(out.reshape(B, S, -1), att["wo"]["weight"], impl)
 
     mlp = lp["mlp"]
-    up = F.gelu(qmat(mlp_in, mlp["dense_h_to_4h"]["weight"], impl))
-    mlp_out = qmat(up, mlp["dense_4h_to_h"]["weight"], impl)
+    up = F.gelu(tp.column(mlp_in, mlp["dense_h_to_4h"]["weight"], impl))
+    mlp_out = tp.row(up, mlp["dense_4h_to_h"]["weight"], impl)
     return h + attn_out + mlp_out
 
 
@@ -181,7 +219,7 @@ def _freqs(args: FalconArgs, positions: torch.Tensor) -> torch.Tensor:
 def _final(params: Params, args: FalconArgs, h: torch.Tensor, impl: str):
     h = layer_norm(h, params["ln_f"]["weight"], params["ln_f"]["bias"],
                    args.layer_norm_epsilon)
-    return qmat(h, params["output"]["weight"], impl)
+    return tp.head(h, params["output"]["weight"], impl)
 
 
 def forward_train(params: Params, args: FalconArgs, examples: torch.Tensor,
@@ -189,7 +227,7 @@ def forward_train(params: Params, args: FalconArgs, examples: torch.Tensor,
     """Training forward (falcon.py:238): causal blocks without a cache,
     logits [B, S, V]. ``remat`` recomputes each block in the backward
     pass."""
-    h = params["word_embeddings"]["weight"][examples]
+    h = tp.embed(params["word_embeddings"]["weight"], examples)
     freqs_cis = _freqs(args, torch.arange(h.shape[1], device=h.device))
 
     def block(hc, lp):
@@ -215,7 +253,7 @@ def prefill(params: Params, args: FalconArgs, cache: FalconKVCache,
     """The prompt through the decoder, cache rows [0, S) written
     (falcon.py:289). Returns (last-position logits [B, V] float32, cache,
     S)."""
-    h = params["word_embeddings"]["weight"][tokens]
+    h = tp.embed(params["word_embeddings"]["weight"], tokens)
     S = h.shape[1]
     freqs_cis = _freqs(args, torch.arange(S, device=h.device))
     h = _run_layers_cached(params, args, h, freqs_cis, "causal", cache, 0,
@@ -229,7 +267,7 @@ def decode_step(params: Params, args: FalconArgs, cache: FalconKVCache,
     ``seq_pos``, its row written there and every row attending [0,
     seq_pos]. Returns ([B, V] float32 logits, cache)."""
     B = token.shape[0]
-    h = params["word_embeddings"]["weight"][token]
+    h = tp.embed(params["word_embeddings"]["weight"], token)
     kv_valid = torch.full((B,), seq_pos + 1, dtype=torch.int32,
                           device=h.device)
     freqs_cis = _freqs(args, torch.tensor([seq_pos], device=h.device))

@@ -10,6 +10,12 @@ buffers. ``impl="plain"`` runs
 every op through its plain PyTorch version; ``"auto"`` sends
 kernel-eligible ops to the kernels; ``"flash"`` also sends every causal
 attention to the flash op, whatever its dtype.
+
+Inside ``parallel.use_mesh`` every function here is tensor-parallel over
+the mesh's "model" axis (``llama_partition_specs``, ``parallel/tp.py``):
+each rank holds its q / k / v heads and its share of the ffn, its kv
+heads of the cache, and ends every call with the same logits as the
+others.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from a3vlm_tpu_torch.ops.decode_attention import (
 from a3vlm_tpu_torch.ops.norms import rms_norm
 from a3vlm_tpu_torch.ops.quant_matmul import int4_ffn_down, qmat
 from a3vlm_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
+from a3vlm_tpu_torch.parallel import tp
+from a3vlm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, P
 from a3vlm_tpu_torch.quant import QuantizedWeight
 
 Params = dict
@@ -46,7 +54,8 @@ class KVCache:
     """Layered decode cache (llama.py:56-107): lists ``k`` and ``v`` of
     per-layer [batch, n_kv_heads, S, head_dim] tensors, S rounded up to a
     multiple of 8 as in the JAX package. ``dtype=torch.int8`` makes each
-    layer a ``QuantizedKV`` (int8 values, float32 per-row scales)."""
+    layer a ``QuantizedKV`` (int8 values, float32 per-row scales). Made
+    inside ``use_mesh``, it holds this rank's kv heads."""
 
     def __init__(self, k: list, v: list):
         self.k = k
@@ -59,7 +68,8 @@ class KVCache:
                device: torch.device | str) -> "KVCache":
         S = max_seq_len or args.max_seq_len
         S = -(-S // 8) * 8
-        shape = (batch_size, args.kv_heads, S, args.head_dim)
+        shape = (batch_size, tp.local_kv_heads(args.kv_heads), S,
+                 args.head_dim)
 
         def make():
             if dtype == torch.int8:
@@ -112,18 +122,52 @@ def init_llama_params(args: ModelArgs, dtype: torch.dtype,
     }
 
 
+def llama_partition_specs(args: ModelArgs) -> Params:
+    """Tensor-parallel specs of the decoder (llama.py:163), one per layer
+    of the port's per-layer list: wq / wk / wv / w1 / w3 column-parallel,
+    wo / w2 row-parallel, the embedding split along its dim, the head
+    column-parallel, norms replicated."""
+    col, row, rep = P(None, MODEL_AXIS), P(MODEL_AXIS, None), P(None)
+    layer = {
+        "attention": {"wq": {"weight": col}, "wk": {"weight": col},
+                      "wv": {"weight": col}, "wo": {"weight": row}},
+        "feed_forward": {"w1": {"weight": col}, "w2": {"weight": row},
+                         "w3": {"weight": col}},
+        "attention_norm": {"weight": rep},
+        "ffn_norm": {"weight": rep},
+    }
+    return {
+        "tok_embeddings": {"weight": P(None, MODEL_AXIS)},
+        "layers": [layer for _ in range(args.n_layers)],
+        "norm": {"weight": rep},
+        "output": {"weight": P(None, MODEL_AXIS)},
+    }
+
+
+def decode_cache_specs(args: ModelArgs, mesh, batch: int,
+                       quant: bool = False):
+    """The spec of every layer's cache panel on ``mesh`` (llama.py:200):
+    [B, Hkv, S, D] with the batch over "data" and the kv heads over
+    "model" where they divide. The int8 cache's scales [B, Hkv, S] follow
+    the panel's first three axes (``quant`` changes nothing else)."""
+    b_ax = DATA_AXIS if batch % mesh.dp_size == 0 else None
+    h_ax = MODEL_AXIS if args.kv_heads % mesh.mp_size == 0 else None
+    return P(b_ax, h_ax, None, None)
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok_embeddings"]["weight"][tokens]
+    return tp.embed(params["tok_embeddings"]["weight"], tokens)
 
 
 def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
                         cache_v, write_pos, kv_valid_len, impl: str,
                         attend_cache: bool = True, attend_valid_static=None):
     B, S, _ = x.shape
-    H, Hkv, hd = args.n_heads, args.kv_heads, args.head_dim
-    xq = qmat(x, lp["wq"]["weight"], impl).reshape(B, S, H, hd)
-    xk = qmat(x, lp["wk"]["weight"], impl).reshape(B, S, Hkv, hd)
-    xv = qmat(x, lp["wv"]["weight"], impl).reshape(B, S, Hkv, hd)
+    hd = args.head_dim
+    # this rank's heads under a mesh, every head otherwise
+    xq = tp.column(x, lp["wq"]["weight"], impl).reshape(B, S, -1, hd)
+    xk = tp.column(x, lp["wk"]["weight"], impl).reshape(B, S, -1, hd)
+    xv = tp.column(x, lp["wv"]["weight"], impl).reshape(B, S, -1, hd)
     xq, xk = apply_rotary_emb(xq, xk, freqs_cis)
 
     if cache_k is None:
@@ -138,13 +182,13 @@ def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
         # prefill: this call's k/v are the whole visible history
         update_decode_cache(cache_k, cache_v, xk, xv, write_pos)
         out = attention(xq, xk, xv, mask=mask, impl=impl)
-    return qmat(out.reshape(B, S, H * hd), lp["wo"]["weight"], impl)
+    return tp.row(out.reshape(B, S, -1), lp["wo"]["weight"], impl)
 
 
 def _ffn_sublayer(x, lp, impl: str):
-    gate = qmat(x, lp["w1"]["weight"], impl)
-    up = qmat(x, lp["w3"]["weight"], impl)
-    return qmat(F.silu(gate) * up, lp["w2"]["weight"], impl)
+    gate = tp.column(x, lp["w1"]["weight"], impl)
+    up = tp.column(x, lp["w3"]["weight"], impl)
+    return tp.row(F.silu(gate) * up, lp["w2"]["weight"], impl)
 
 
 def _block(h, lp, args: ModelArgs, freqs_cis, mask, cache_k, cache_v,
@@ -161,7 +205,8 @@ def _block(h, lp, args: ModelArgs, freqs_cis, mask, cache_k, cache_v,
     w2 = fw["w2"]["weight"]
     if (FUSE_FFN_DOWN and cache_k is not None
             and type(w2) is QuantizedWeight and w2.bits == 4):
-        # training (no cache) and LoraWeight keep the unfused ops
+        # training (no cache), LoraWeight and a weight shard (a mesh) keep
+        # the unfused ops
         gate = qmat(ffn_in, fw["w1"]["weight"], impl)
         up = qmat(ffn_in, fw["w3"]["weight"], impl)
         return int4_ffn_down(gate, up, w2, h, impl)
@@ -229,7 +274,7 @@ def forward_train(params: Params, args: ModelArgs, examples: torch.Tensor,
         else:
             h = block(h, lp)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
-    return qmat(h[:, image_words:, :], params["output"]["weight"], impl)
+    return tp.head(h[:, image_words:, :], params["output"]["weight"], impl)
 
 
 def prefill(params: Params, args: ModelArgs, cache: KVCache,
@@ -247,7 +292,7 @@ def prefill(params: Params, args: ModelArgs, cache: KVCache,
                               cache=cache, write_pos=0, attend_cache=False,
                               impl=impl)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
-    logits = qmat(h[:, -1, :], params["output"]["weight"], impl)
+    logits = tp.head(h[:, -1, :], params["output"]["weight"], impl)
     return logits.float(), cache, S
 
 
@@ -276,7 +321,7 @@ def prefill_chunked(params: Params, args: ModelArgs, cache: KVCache,
             attend_cache=True, impl=impl, attend_valid_static=end,
         )
     h_last = rms_norm(out[:, -1, :], params["norm"]["weight"], args.norm_eps)
-    logits = qmat(h_last, params["output"]["weight"], impl)
+    logits = tp.head(h_last, params["output"]["weight"], impl)
     return logits.float(), cache, S
 
 
@@ -296,7 +341,7 @@ def decode_step(params: Params, args: ModelArgs, cache: KVCache,
                               write_pos=kv_valid - 1, kv_valid_len=kv_valid,
                               impl=impl)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
-    logits = qmat(h[:, -1, :], params["output"]["weight"], impl)
+    logits = tp.head(h[:, -1, :], params["output"]["weight"], impl)
     return logits.float(), cache
 
 
@@ -317,7 +362,7 @@ def decode_step_ragged(params: Params, args: ModelArgs, cache: KVCache,
                               cache=cache, write_pos=pos,
                               kv_valid_len=pos + 1, impl=impl)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
-    logits = qmat(h[:, -1, :], params["output"]["weight"], impl)
+    logits = tp.head(h[:, -1, :], params["output"]["weight"], impl)
     return logits.float(), cache
 
 
@@ -341,5 +386,5 @@ def decode_step_ragged_multi(params: Params, args: ModelArgs, cache: KVCache,
                               cache=cache, write_pos=pos,
                               kv_valid_len=pos + T, impl=impl)
     h = rms_norm(h, params["norm"]["weight"], args.norm_eps)
-    logits = qmat(h, params["output"]["weight"], impl)
+    logits = tp.head(h, params["output"]["weight"], impl)
     return logits.float(), cache

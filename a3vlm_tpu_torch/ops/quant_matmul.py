@@ -376,9 +376,10 @@ def _launch_int4(name: str, mode: str, x, q, scale, group: int, u=None,
                                None if res is None else p(res), p(out), M,
                                half, N, group, xld, C, _kernels.stream())
         return out, err
-    _kernels.require(half % _TILE_MIN == 0 and group % _TILE_MIN == 0,
-                     f"{name}: K/2 ({half}) and group ({group}) must be "
-                     f"multiples of {_TILE_MIN} for M > {GEMV_MAX_M}")
+    _kernels.require(half % _TILE_MIN == 0 and _tile_group(mode, group),
+                     f"{name}: K/2 ({half}) must be a multiple of "
+                     f"{_TILE_MIN} and group ({group}) one of {_TILE_MIN} "
+                     f"(or 32, v1 and glu) for M > {GEMV_MAX_M}")
     if mode == "glu":
         z = torch.empty_like(x)  # silu(g) * u, formed once by the kernel
         err = lib.a3_int4_mma_glu(p(x), p(u), p(q), p(scale), p(res), p(z),
@@ -556,20 +557,28 @@ def _pad_k(x, qw: QuantizedWeight, name: str):
     return x.reshape(-1, kpad).contiguous()
 
 
+def _tile_group(mode: str, group: int) -> bool:
+    """Groups the tiled route takes: multiples of 64, and 32 (the
+    chunk-packed row-parallel weights, ``int4_chunked_geometry``) in the
+    modes that scale every weight, "v1" and "glu"."""
+    return group % _TILE_MIN == 0 or (group == 32 and mode in ("v1", "glu"))
+
+
 def int4_kernel_takes(mode: str, M: int, half: int, N: int,
                       group: int) -> bool:
     """Whether the card's kernel of ``mode`` ("v1", "v3", "glu", "w4a8",
     "w8a8p") takes x [M, 2 half] against a packed weight [half, N] in groups
     of ``group``, from the shapes alone: N % 16 == 0 and a group that
     divides half for all; the GEMV (M <= 32) nothing more; the tiled routes
-    (M > 32, and K8 at any M) half and group in multiples of 64."""
+    (M > 32, and K8 at any M) half in multiples of 64 and a group in
+    multiples of 64, or 32 in "v1" and "glu" (``_tile_group``)."""
     if N % 16 or group < 1 or half % group:
         return False
     if mode == "w4a8":
         return M <= GEMV_MAX_M
     if mode != "w8a8p" and M <= GEMV_MAX_M:
         return True
-    return half % _TILE_MIN == 0 and group % _TILE_MIN == 0
+    return half % _TILE_MIN == 0 and _tile_group(mode, group)
 
 
 def int8_kernel_takes(M: int, K: int, N: int) -> bool:
@@ -598,12 +607,15 @@ INT4_FALLBACK = {mode: route[2] for mode, route in _INT4_ROUTES.items()
                  if mode != "dense"}
 
 
-def int4_mode(M: int, variant: str = "auto") -> str:
+def int4_mode(M: int, variant: str = "auto", flags: bool = True) -> str:
     """The math ``int4_matmul`` takes for M rows under the mode flags, in
     the JAX dispatcher's order (quant_matmul.py:970-983): "w8a8p" (M >=
     ``W8A8_PREFILL_MIN_M``), "dense" (M >= ``PREFILL_DENSE_MIN_M``),
     "w4a8" (M <= ``W4A8_MAX_M``), else the exact kernel's variant, "v1" or
-    "v3"."""
+    "v3". ``flags=False``: "v1", whatever the flags say (a weight shard
+    under a mesh; quant_matmul.py:956-960)."""
+    if not flags:
+        return "v1"
     if W8A8_PREFILL and M >= W8A8_PREFILL_MIN_M:
         return "w8a8p"
     if PREFILL_DENSE_MIN_M is not None and M >= PREFILL_DENSE_MIN_M:
@@ -617,13 +629,13 @@ def int4_mode(M: int, variant: str = "auto") -> str:
 
 
 def int4_route(M: int, half: int, N: int, group: int, variant: str = "auto",
-               impl: str = "auto", card: bool = True):
+               impl: str = "auto", card: bool = True, flags: bool = True):
     """(function, fallback) that ``int4_matmul`` calls for x [M, 2 half]
     against a packed weight [half, N] in groups of ``group``: the mode's
     kernel wrapper (``impl="plain"``: its plain version), or, on the card
     where the kernel does not take the shape, the reference's route, with
     ``fallback`` the mode (else None). Shapes and flags alone decide."""
-    mode = int4_mode(M, variant)
+    mode = int4_mode(M, variant, flags)
     kernel, plain, fallback = _INT4_ROUTES[mode]
     if mode != "dense" and card and not int4_kernel_takes(mode, M, half, N,
                                                           group):
@@ -632,7 +644,7 @@ def int4_route(M: int, half: int, N: int, group: int, variant: str = "auto",
 
 
 def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto",
-                variant: str = "auto"):
+                variant: str = "auto", flags: bool = True):
     """x [..., K] @ int4-packed weight -> [..., N] (quant_matmul.py:946):
     x is zero-padded to the packed K. With ``W8A8_PREFILL`` set, M >=
     ``W8A8_PREFILL_MIN_M`` rows take the W8A8 prefill math; then, with
@@ -642,12 +654,17 @@ def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto",
     ``variant``. ``impl="plain"`` takes the same route through the plain
     versions, on any device. On the card a shape the mode's kernel does
     not take goes to the reference's route (``int4_route``), counted in
-    ``int4_matmul.fallbacks``. The flags are read at every call."""
+    ``int4_matmul.fallbacks``. The flags are read at every call
+    (``flags=False`` ignores them). A chunk-packed weight runs chunk by
+    chunk, the partials summed in float32 and cast once
+    (``_int4_local_chunked``, quant_matmul.py:753)."""
+    if qw.k_chunks > 1:
+        return _int4_chunked(x, qw, impl, variant, flags)
     lead = x.shape[:-1]
     x2 = _pad_k(x, qw, "int4_matmul")
     half, N = qw.q.shape
     fn, fallback = int4_route(x2.shape[0], half, N, qw.group, variant, impl,
-                              x2.is_cuda)
+                              x2.is_cuda, flags)
     if fallback is not None:
         int4_matmul.fallbacks[fallback] += 1
     out = fn(x2, qw.q, qw.scale, qw.group)
@@ -656,6 +673,37 @@ def int4_matmul(x, qw: QuantizedWeight, impl: str = "auto",
 
 int4_matmul.fallbacks = {mode: 0 for mode in ("v1", "v3", "w4a8", "w8a8p",
                                               "glu")}
+
+
+def _int4_chunked(x, qw: QuantizedWeight, impl: str, variant: str,
+                  flags: bool):
+    c = qw.k_chunks
+    kc = 2 * qw.q.shape[-2]
+    if x.shape[-1] != qw.in_dim:
+        raise ValueError(f"int4_matmul: x has K={x.shape[-1]}, weight "
+                         f"{qw.in_dim}")
+    x = F.pad(x, (0, c * kc - x.shape[-1]))
+    out = None
+    for i in range(c):
+        part = int4_matmul(x[..., i * kc:(i + 1) * kc], qw.chunk(i), impl,
+                           variant, flags).float()
+        out = part if out is None else out + part
+    return out.to(x.dtype)
+
+
+def sharded_matmul(x, w, impl: str = "auto"):
+    """A rank's product with its block of a weight under a mesh of more
+    than one rank, the counterpart of the per-shard bodies of
+    ``_spmd_int4`` (quant_matmul.py:781), ``_spmd_int4_rowp`` (:838) and
+    ``_spmd_int8`` (:1076): the exact int4 kernel (K1) on the local shape,
+    whatever the mode flags, chunk by chunk for a run of chunks; the int8
+    kernel (K6); a dense product. The collective after it is the
+    caller's (``parallel.tp``)."""
+    if isinstance(w, QuantizedWeight):
+        if w.bits == 8:
+            return int8_matmul(x, w, impl)
+        return int4_matmul(x, w, impl, variant="v1", flags=False)
+    return x @ w
 
 
 def int4_ffn_down(g, u, qw: QuantizedWeight, res, impl: str = "auto"):

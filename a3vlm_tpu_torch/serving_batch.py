@@ -27,7 +27,14 @@ truth: a step uploads them as two tensors instead of writing per slot.
 Sampling draws from one ``torch.Generator`` seeded by ``seed`` on the
 pool's device: greedy output equals the JAX package's token for token,
 sampled output agrees with it in distribution and is reproducible from the
-seed."""
+seed.
+
+With ``mesh=`` (serving_batch.py:399-465) the batcher is driven SPMD:
+every rank constructs it over its shard of the weights and steps it. The
+pool holds this rank's kv heads ("model") and, where the slots divide over
+"data", this rank's slots; a ragged step runs on the local slots and
+gathers every slot's logits, so every rank keeps the same host state.
+Admissions run on every rank, each writing its own slots."""
 
 from __future__ import annotations
 
@@ -42,8 +49,9 @@ from a3vlm_tpu_torch.config import ModelArgs
 from a3vlm_tpu_torch.models import llama
 from a3vlm_tpu_torch.ops.decode_attention import QuantizedKV, kv_cache_dtype
 from a3vlm_tpu_torch.ops.norms import rms_norm
-from a3vlm_tpu_torch.ops.quant_matmul import qmat
 from a3vlm_tpu_torch.ops.sampling import sample_top_p
+from a3vlm_tpu_torch.parallel import tp
+from a3vlm_tpu_torch.parallel.mesh import DATA_AXIS, on_mesh
 
 # masked logits: finite, so the softmax of a sampled pick stays finite
 _MASKED = -1e30
@@ -67,11 +75,21 @@ def _pick(logits, gen, vocab_limit, temperature, top_p, fsm_rows=None):
     return sample_top_p(probs, top_p, generator=gen)
 
 
+def _ragged(step, params, args, cache, tokens, pos):
+    """A ragged ``step`` of llama over the pool: on this rank's slots where
+    the slots split over "data", every slot's logits back."""
+    B = tokens.shape[0]
+    logits, cache = step(params, args, cache, tp.data_rows(tokens, B),
+                         tp.data_rows(pos, B))
+    return tp.data_gather(logits, B), cache
+
+
 def _ragged_step(params, args, cache, token, pos, gen, vocab_limit,
                  temperature, top_p, fsm_table=None, fsm_state=None):
     """One ragged decode step over the pool (serving_batch.py:68): token
     [B, 1], pos [B] int32. Returns ([B] int32 picks, cache)."""
-    logits, cache = llama.decode_step_ragged(params, args, cache, token, pos)
+    logits, cache = _ragged(llama.decode_step_ragged, params, args, cache,
+                            token, pos)
     rows = None if fsm_table is None else fsm_table[fsm_state]  # [B, V]
     return _pick(logits, gen, vocab_limit, temperature, top_p, rows), cache
 
@@ -95,8 +113,8 @@ def _ragged_step_chunk(params, args, cache, token, pos, active, remaining,
     toks = torch.zeros((B, t_steps), dtype=torch.int32, device=token.device)
     for i in range(t_steps):
         emit = active & (remaining > 0)
-        logits, cache = llama.decode_step_ragged(params, args, cache, token,
-                                                 pos)
+        logits, cache = _ragged(llama.decode_step_ragged, params, args,
+                                cache, token, pos)
         rows = None if fsm_table is None else fsm_table[fsm_state]
         pick = _pick(logits, gen, vocab_limit, temperature, top_p, rows)
         nxt = torch.where(emit, pick, token[:, 0])
@@ -121,8 +139,8 @@ def _ragged_verify_step(params, args, cache, tokens, pos, vocab_limit,
     with all K+1 rows written. ``fsm_states`` [B, K+1]: the grammar state
     each position's pick must respect, walked along the draft on the host
     (positions past the first illegal draft are never accepted)."""
-    logits, cache = llama.decode_step_ragged_multi(params, args, cache,
-                                                   tokens, pos)
+    logits, cache = _ragged(llama.decode_step_ragged_multi, params, args,
+                            cache, tokens, pos)
     if fsm_table is not None:
         rows = fsm_table[fsm_states]  # [B, K+1, V]
         logits = torch.where(rows >= 0, logits,
@@ -173,7 +191,7 @@ def _head_at(params, args, h, last_idx):
     """float32 logits [B, V] of row b's hidden state at ``last_idx[b]``."""
     h_last = h[torch.arange(h.shape[0], device=h.device), last_idx.long()]
     h_last = rms_norm(h_last, params["norm"]["weight"], args.norm_eps)
-    return qmat(h_last, params["output"]["weight"]).float()
+    return tp.head(h_last, params["output"]["weight"]).float()
 
 
 def _prefill(params, args, cache, tokens, image_tokens, last_idx, gen,
@@ -248,15 +266,25 @@ class CachedPrefix:
         self.tokens = list(tokens) if tokens is not None else []
 
 
-def _write_slots(cache, temp, slots):
+def _write_slots(cache, temp, slots, first: int = 0):
     """Copy a batch-B temporary cache into B pool slots (``slots``, B
     ints; one for a batch-1 admission), one indexed copy a tensor
     (serving_batch.py:310, :326). The temporary holds no more rows than the
     pool; the pool's rows past it keep stale data, never attendable before
-    they are rewritten. In place."""
-    idx = torch.tensor(list(slots), device=next(_panels(cache)).device)
+    they are rewritten. In place. ``first``: the first slot the pool holds
+    (its slots split over "data"); slots it does not hold are skipped."""
+    device = next(_panels(cache)).device
+    n = next(_panels(cache)).shape[0]
+    rows = [(i, s - first) for i, s in enumerate(slots)
+            if first <= s < first + n]
+    if not rows:
+        return cache
+    src = None
+    if len(rows) < len(slots):
+        src = torch.tensor([i for i, _ in rows], device=device)
+    idx = torch.tensor([s for _, s in rows], device=device)
     for pool, tmp in zip(_panels(cache), _panels(temp)):
-        pool[idx, :, :tmp.shape[2]] = tmp
+        pool[idx, :, :tmp.shape[2]] = tmp if src is None else tmp[src]
     return cache
 
 
@@ -302,17 +330,16 @@ class ContinuousBatcher:
         equals the per-step path's, admissions land at chunk boundaries.
 
         ``device``: where the pool lives; the weights must lie there.
-        ``mesh``: several devices are not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded slot pool (mesh=) is not ported yet (ROADMAP "
-                "Queue 1 item 17: several devices)")
+        ``mesh``: the ``parallel.Mesh`` whose shard of the weights
+        ``params`` (and ``ens5_params``) hold; every rank constructs the
+        batcher and steps it (module docstring)."""
         if kv_cache_bits not in (None, 8):
             raise ValueError(f"kv_cache_bits {kv_cache_bits}: want None or 8")
         weights = params["norm"]["weight"].device
         if torch.device(device).type != weights.type:
             raise ValueError(f"the weights lie on {weights}, not on {device}")
         self.device = weights
+        self.mesh = mesh
         self.params = params
         self.args = args
         self.ens5_params = ens5_params
@@ -337,7 +364,11 @@ class ContinuousBatcher:
         # emitted position: spare rows keep those writes inside the pool
         pool_rows = self.max_seq_len + (
             self.draft_k + 1 if self.draft_k else 0)
-        self.cache = self._new_cache(slots, pool_rows)
+        self.cache = self._new_cache(slots, pool_rows, pool=True)
+        # the first slot this rank's pool holds
+        self._slot0 = 0
+        if next(_panels(self.cache)).shape[0] < slots:  # split over "data"
+            self._slot0 = mesh.data_index * (slots // mesh.dp_size)
         self._host_tok = np.zeros((slots, 1), np.int32)
         self._host_pos = np.zeros((slots,), np.int64)
         self._active: list[Optional[int]] = [None] * slots
@@ -369,7 +400,13 @@ class ContinuousBatcher:
 
     # -- internal ------------------------------------------------------------
 
-    def _new_cache(self, batch: int, rows: int):
+    @on_mesh
+    def _new_cache(self, batch: int, rows: int, pool: bool = False):
+        """A cache of ``batch`` rows; the ``pool``'s slots split over
+        "data" where ``llama.decode_cache_specs`` puts them there."""
+        if pool and tp.is_parallel(self.mesh) and llama.decode_cache_specs(
+                self.args, self.mesh, batch)[0] == DATA_AXIS:
+            batch //= self.mesh.dp_size
         return llama.KVCache.create(self.args, batch, max_seq_len=rows,
                                     dtype=self._cache_dtype,
                                     device=self.device)
@@ -382,6 +419,7 @@ class ContinuousBatcher:
                 else self._upload(self._fsm_state))
 
     @torch.inference_mode()
+    @on_mesh
     def warmup(self, buckets=(64, 128, 256, 512), groups=(1, 2, 4, 8),
                prefix_len: Optional[int] = None, temperature: float = 0.0,
                top_p: float = 0.95):
@@ -453,6 +491,7 @@ class ContinuousBatcher:
         self._gen.set_state(rng)
 
     @torch.inference_mode()
+    @on_mesh
     def make_prefix(self, image=None, tokens=None) -> CachedPrefix:
         """A reusable KV prefix (serving_batch.py:571): ``[BOS | image
         words]`` when ``image`` (HWC, CLIP-normalized) is given, then
@@ -515,7 +554,7 @@ class ContinuousBatcher:
             torch.tensor([len(text) - 1], device=self.device), self._gen,
             self.vocab_limit, self._temperature, self._top_p, self._fsm_row0)
         first = int(first_arr[0])
-        self.cache = _write_slots(self.cache, temp, [slot])
+        self.cache = _write_slots(self.cache, temp, [slot], self._slot0)
         self._take(slot, req_idx, first, prefix.length + len(text),
                    list(prefix.tokens) + list(text))
         return first
@@ -543,7 +582,7 @@ class ContinuousBatcher:
             torch.tensor([W + len(toks) - 1], device=self.device), self._gen,
             self.vocab_limit, self._temperature, self._top_p, self._fsm_row0)
         first = int(first_arr[0])
-        self.cache = _write_slots(self.cache, cache1, [slot])
+        self.cache = _write_slots(self.cache, cache1, [slot], self._slot0)
         self._take(slot, req_idx, first, W + len(toks), toks)
         return first
 
@@ -569,7 +608,8 @@ class ContinuousBatcher:
                 self.params, self.args, temp, tokens, None, last, self._gen,
                 self.vocab_limit, self._temperature, self._top_p,
                 self._fsm_row0)
-        self.cache = _write_slots(self.cache, temp, [s for s, _, _ in items])
+        self.cache = _write_slots(self.cache, temp,
+                                  [s for s, _, _ in items], self._slot0)
         firsts = firsts.cpu().numpy()
         pre = list(prefix.tokens) if prefix is not None else []
         out = {}
@@ -580,6 +620,7 @@ class ContinuousBatcher:
             out[req_idx] = first
         return out
 
+    @on_mesh
     def _admit_many(self, items) -> dict:
         """Admit a set of requests, ``items`` [(slot, req_idx, toks, image,
         prefix)], batching where it can (serving_batch.py:737): the same
@@ -644,6 +685,7 @@ class ContinuousBatcher:
             self._fsm_state[slot] = max(
                 int(self._fsm_np[self._fsm_state[slot], t]), 0)
 
+    @on_mesh
     def _speculative_round(self, out_tokens, gen_lims, stops,
                            additional_stop_symbols):
         """One prompt-lookup verify round over all slots, greedy
@@ -704,6 +746,7 @@ class ContinuousBatcher:
             else:
                 self._host_tok[slot, 0] = int(preds[slot, emitted - 1])
 
+    @on_mesh
     def _decode_round_chunked(self, out_tokens, gen_lims, stops,
                               additional_stop_symbols):
         """``steps_per_dispatch`` ragged steps and one readback
@@ -743,6 +786,7 @@ class ContinuousBatcher:
                 self._active[slot] = None
                 self._finish_t[idx] = now
 
+    @on_mesh
     def _decode_round(self, out_tokens, gen_lims, stops,
                       additional_stop_symbols):
         """One vanilla ragged step over all slots and the per-slot

@@ -242,6 +242,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    tile), K2 with and without lse, K9a, K9b, K10, K3 fused, K7 and K8, no
    fallback.
 
+14. several ranks (``a3vlm_tpu_torch/parallel``), two on this one card
+   (``devices=["cuda:0", "cuda:0"]``: the gloo backend, collectives
+   through host memory): (a) right after phase 13 (a),
+   ``ModelServer(meta_model=<phase 4's model>, model_parallel_size=2)``
+   (the all-column int4 tree) on phase 4's requests, 8 new ids, its ids
+   phase 4's or a near tie by the gap rule of phases 9 and 11; (c) right
+   after phase 9, ``ContinuousBatcher(mesh=)`` at mp 2 through
+   ``run_eval_continuous`` on every rank over phase 9's task file, 8 new
+   ids, held against phase 9 (a); (b)
+   after phase 13, phase 8's 2-layer checkpoint through
+   ``ModelServer(pretrained_path=..., quant=True, model_parallel_size=2)``
+   (the row-parallel tree: wo and w2 chunk-packed, a chunk a rank, K1's
+   tile at group 32), held against the same tree on one rank. Each prints
+   every rank's backend, launches by kernel, fallbacks (0 required) and
+   ids (every rank's equal to rank 0's).
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -251,9 +267,9 @@ and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the serving, continuous-batching, latency, training, quantized-mode,
-fine-tuning-loop, families, phase-12 and gate runs, ``launches_by_path``
-splits them as ``serve``, ``cb``, ``latency``, ``train``, ``quant``,
-``ckpt``, ``fam``, ``p12`` and ``gate``; ``bound_ms`` is the larger of the bytes
+fine-tuning-loop, families, phase-12, gate and phase-14 runs (rank 0's),
+``launches_by_path`` splits them as ``serve``, ``cb``, ``latency``,
+``train``, ``quant``, ``ckpt``, ``fam``, ``p12``, ``gate`` and ``mp``; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
 PyTorch library call on the same inputs, timed here and used nowhere in
@@ -2454,6 +2470,7 @@ def run_cb_path(card: str, model, lockstep: dict) -> dict:
                                          "or schema")
                 runs[label] = (records, ids, wall)
             model.kv_cache_bits = None
+            PHASE9_IDS["a"] = runs["a"][1]  # phase 14 (c)'s reference
 
             # exact agreement where the same kernels see the same operands
             if runs["e"][1] != runs["a"][1]:
@@ -4567,6 +4584,299 @@ def run_phase13(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- 14. several ranks
+# Two ranks on the one card (``devices`` naming it twice: the gloo backend,
+# collectives through host memory), the caller's process rank 0.
+P14_DEVICES = ["cuda:0", "cuda:0"]
+# new ids a request in (a) and (c), against phase 4's and phase 9's 32: the
+# host-memory collectives make a step ~0.5 s (PR 18's debug call)
+P14_NEW_IDS = 8
+PHASE9_IDS: dict = {}
+
+
+def _rank_reset(model) -> None:
+    """A rank's launch counts and fallbacks set to 0, its tokenizer
+    recording the ids it decodes (``ModelServer.map_ranks``)."""
+    reset_launches()
+    qmm.reset_fallbacks()
+    model.tokenizer.decoded = []
+
+
+def _rank_state(model) -> dict:
+    """A rank's ids decoded since ``_rank_reset``, launch counts by kernel,
+    fallback count and peak memory (rank 0 without a mesh)."""
+    mesh = model.mesh
+    return {"rank": mesh.rank if mesh else 0,
+            "backend": mesh.backend if mesh else "none",
+            "ids": model.tokenizer.decoded,
+            "launches": {n: KERNELS[n][2].launches for n in KERNELS},
+            "fallbacks": qmm.fallback_count(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def p14_hold_ranks(card: str, label: str, states: list, need) -> dict:
+    """Every rank's ids equal to rank 0's, each kernel of ``need``
+    launched on every rank, no fallback; prints each rank's line. Returns
+    rank 0's launch counts."""
+    for st in states:
+        launched = {n: c for n, c in st["launches"].items() if c}
+        print(f"[{card}] phase 14 {label}: rank {st['rank']} backend "
+              f"{st['backend']}, launches {launched}, fallbacks "
+              f"{st['fallbacks']}, peak {st['peak_gib']:.2f} GiB, ids "
+              f"digest {ids_digest(st['ids'])}")
+        require_counts(st["launches"], need, f"phase 14 {label} rank "
+                       f"{st['rank']}")
+        if st["fallbacks"]:
+            raise AssertionError(f"phase 14 {label}: rank {st['rank']} "
+                                 f"took {st['fallbacks']} fallback routes")
+        if st["ids"] != states[0]["ids"]:
+            raise AssertionError(f"phase 14 {label}: rank {st['rank']}'s "
+                                 "ids differ from rank 0's")
+    return states[0]["launches"]
+
+
+def p14_hold_ids(card: str, label: str, ids: list, ref: list,
+                 ref_label: str, gap_of) -> None:
+    """The sharded run's ids against one rank's (a longer run's: its ids
+    cut to this run's lengths, greedy ids being prefixes of longer runs'):
+    equal, or else, at the first differing id, the reference's top-2
+    logit gap there must not exceed the kernel-vs-plain error of the same
+    logits (``gap_of(row, at)`` gives both): the gap rule of phases 9 and
+    11."""
+    ref = [r[:len(g)] for g, r in zip(ids, ref)]
+    rows = [i for i, (a, b) in enumerate(zip(ids, ref)) if a != b]
+    line = (f"[{card}] phase 14 {label}: {len(rows)} of {len(ids)} "
+            f"requests' ids differ from {ref_label}'s")
+    if len(ids) != len(ref):
+        raise AssertionError(line + ": request counts differ")
+    if rows:
+        row = rows[0]
+        at = first_difference(ids[row], ref[row])
+        gap, err = gap_of(row, at)
+        line += (f"; first at request {row} id {at}: top-2 logit gap "
+                 f"{gap:.4f}, kernel vs plain max |logit diff| {err:.4f}")
+        if gap > err:
+            raise AssertionError(line + ": the gap exceeds the error")
+    print(line)
+
+
+def run_phase14_server(card: str, model) -> dict:
+    """Phase 14 (a), right after phase 4: ``ModelServer(meta_model=<phase
+    4's model>, model_parallel_size=2)`` over two ranks on the card (the
+    all-column int4 tree: every quantized linear split by its output
+    columns) serves phase 4's four requests, 8 new ids (the collectives
+    go through host memory here: ~0.5 s a step); the ids phase 4's (or
+    the gap rule). Returns rank 0's launch counts."""
+    import copy
+
+    from a3vlm_tpu_torch.serving import ModelServer
+
+    prompts, images = serving_inputs()
+    served = copy.copy(model)  # the shards replace the copy's tree only
+    served.tokenizer = _TokenText(32000)
+    t0 = time.perf_counter()
+    server = ModelServer(meta_model=served, model_parallel_size=2,
+                         devices=P14_DEVICES)
+    try:
+        setup_s = time.perf_counter() - t0
+        server.map_ranks(_rank_reset)
+        t0 = time.perf_counter()
+        server.generate([_TokenText.text(p) for p in prompts],
+                        images=images, max_gen_len=P14_NEW_IDS,
+                        temperature=0.0)
+        synchronize(served.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        states = server.map_ranks(_rank_state)
+        st = served.last_stats
+    finally:
+        server.close()
+    print(f"[{card}] phase 14 (a) ModelServer(meta_model=<phase 4's "
+          f"model>, model_parallel_size=2, devices={P14_DEVICES}): "
+          f"started and sharded in {setup_s:.1f} s; 4 requests in "
+          f"{ms:.1f} ms (rank 0: towers {st['towers_ms']:.1f} ms, prefill "
+          f"{st['prefill_ms']:.1f} ms, decode {st['decode_ms']:.1f} ms over "
+          f"{st['decode_steps']} steps)")
+    launches = p14_hold_ranks(card, "(a)", states, SERVE_KERNELS)
+    ids = states[0]["ids"]
+    IDS["mp2 serve"] = ids
+    p14_hold_ids(card, "(a)", ids, IDS["serve"], "phase 4",
+                 lambda row, at: logit_gap(model, prompts, images,
+                                           IDS["serve"], row, at)[:2])
+    return launches
+
+
+def _p14_cb_rank(mesh, model, specs, task: str):
+    """A rank of phase 14 (c): its shard of the model (the whole model
+    where ``specs`` is None), then ``run_eval_continuous`` over the task
+    file through ``ContinuousBatcher(mesh=)`` (``_TimedBatcher`` in its
+    place, as in phase 9)."""
+    from a3vlm_tpu_torch.eval_affordance import (VQADataset,
+                                                 run_eval_continuous)
+    from a3vlm_tpu_torch.serving import _take_shard
+
+    if specs is not None:
+        _take_shard(model, mesh, specs)
+    real = serving_batch.ContinuousBatcher
+    serving_batch.ContinuousBatcher = _TimedBatcher
+    _TimedBatcher.spd = 1
+    _TimedBatcher.log = []
+    try:
+        ds = VQADataset(task, input_size=model.cfg.image_size)
+        _rank_reset(model)
+        torch.cuda.reset_peak_memory_stats()
+        synchronize(model.device)
+        t0 = time.perf_counter()
+        records = run_eval_continuous(model, ds, batch_size=4,
+                                      max_gen_len=P14_NEW_IDS,
+                                      temperature=0.0)
+        synchronize(model.device)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        serving_batch.ContinuousBatcher = real
+    state = _rank_state(model)
+    state["ids"] = [row for e in _TimedBatcher.log if e[0] == "generate"
+                    for row in e[1]]
+    state.update(records=records, wall_ms=wall, steps=[
+        e[3] for e in _TimedBatcher.log if e[0] == "generate"])
+    return state
+
+
+def run_phase14_cb(card: str, model) -> dict:
+    """Phase 14 (c), right after phase 9: ``ContinuousBatcher(mesh=)`` at
+    mp 2, driven SPMD (every rank shards phase 4's model, builds the
+    batcher through ``run_eval_continuous`` and steps it) over phase 9's
+    task file, 8 new ids a request; the ids phase 9 (a)'s (or the gap
+    rule). Returns rank 0's launch counts."""
+    import copy
+
+    from a3vlm_tpu_torch.eval_affordance import VQADataset
+    from a3vlm_tpu_torch.parallel.launch import run_spmd
+    from a3vlm_tpu_torch.serving import partition_specs
+
+    served = copy.copy(model)
+    served.tokenizer = _PieceTable(32000)
+    specs = partition_specs(model, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        task = write_eval_tasks(Path(tmp), card)
+        t0 = time.perf_counter()
+        states = run_spmd(_p14_cb_rank, P14_DEVICES, served, specs, task,
+                          model_parallel_size=2)
+        secs = time.perf_counter() - t0
+        ds = VQADataset(task, input_size=model.cfg.image_size)
+        print(f"[{card}] phase 14 (c) ContinuousBatcher(mesh=) at mp 2 on "
+              f"phase 9's task file: {secs:.1f} s with the ranks' start; "
+              f"run_eval_continuous {states[0]['wall_ms']:.1f} ms on rank "
+              f"0, steps {states[0]['steps']}")
+        launches = p14_hold_ranks(card, "(c)", states, CB_KERNELS)
+        if any(st["records"] != states[0]["records"] for st in states):
+            raise AssertionError("phase 14 (c): records differ by rank")
+        ids = states[0]["ids"]
+        IDS["mp2 cb"] = ids
+        p14_hold_ids(card, "(c)", ids, PHASE9_IDS["a"], "phase 9 (a)",
+                     lambda row, at: cb_logit_gap(model, ds[row],
+                                                  PHASE9_IDS["a"][row], at))
+    return launches
+
+
+def run_phase14_ckpt(card: str) -> dict:
+    """Phase 14 (b), after phase 13: phase 8's 2-layer full-width
+    checkpoint through ``ModelServer(pretrained_path=..., quant=True,
+    model_parallel_size=2)``, the chunk-packed row-parallel tree (wo and w2
+    in 2 chunks of group 32, a chunk a rank, the partials all-reduced),
+    against the same tree on one rank (``quantize(tp_align=256,
+    row_parallel=2)``), phase 8's task file through ``run_eval``. Returns
+    rank 0's launch counts."""
+    from a3vlm_tpu_torch.eval_affordance import VQADataset, run_eval
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.serving import ModelServer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        task = write_eval_tasks(root, card)
+        ckpt, sd = write_decoder_checkpoint(root)
+        del sd
+        ds = VQADataset(task, input_size=448)
+        one = MetaModel.from_pretrained(str(ckpt), with_visual=True,
+                                        vocab_align=256, device="cuda",
+                                        tokenizer=_PieceTable(32000))
+        one.quantize(tp_align=256, row_parallel=2)
+        w2 = one.params["llama"]["layers"][0]["feed_forward"]["w2"]["weight"]
+        one.tokenizer.decoded = []
+        run = dict(batch_size=4, max_gen_len=8, temperature=0.0)
+        run_eval(one, ds, **run)
+        ref = one.tokenizer.decoded
+        t0 = time.perf_counter()
+        server = ModelServer(pretrained_path=str(ckpt), quant=True,
+                             model_parallel_size=2, devices=P14_DEVICES,
+                             tokenizer=_PieceTable(32000))
+        try:
+            setup_s = time.perf_counter() - t0
+            server.map_ranks(_rank_reset)
+            t0 = time.perf_counter()
+            records = run_eval(server, ds, **run)
+            secs = time.perf_counter() - t0
+            states = server.map_ranks(_rank_state)
+        finally:
+            server.close()
+        print(f"[{card}] phase 14 (b) ModelServer(pretrained_path=<2-layer "
+              f"checkpoint>, quant=True, model_parallel_size=2): w2 "
+              f"{w2.k_chunks} chunks of {2 * w2.q.shape[-2]} rows, group "
+              f"{w2.group}; loaded, quantized and sharded in {setup_s:.1f} "
+              f"s; {len(records)} records in {secs:.1f} s")
+        launches = p14_hold_ranks(card, "(b)", states, ("int4_matmul",
+                                                        "flash_attention",
+                                                        "decode_attention",
+                                                        "vit_attention"))
+        ids = states[0]["ids"]
+        IDS["mp2 ckpt"] = ids
+        p14_hold_ids(card, "(b)", ids, ref, "one rank's (the same tree)",
+                     lambda row, at: cb_logit_gap(one, ds[row], ref[row],
+                                                  at))
+        del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def print_rows(card: str, results: list) -> None:
+    """Prints phase 3's rows: error, kernel, plain, bound and library ms,
+    and for the tensor-core kernels their rate and share of the bound."""
+    for r in results:
+        # the tensor-core kernels also get their achieved rate
+        # (the row's own operation or byte count over the kernel's time)
+        # and the share of the bound they reach
+        rate = ""
+        tiled = (r["name"] in TILED_MATMULS
+                 and int(r["case"].split()[0][2:]) > qmm.GEMV_MAX_M)
+        if r["name"] in TENSOR_CORE_ATTENTION or tiled:
+            rate = (f" {r['bytes'] / r['ms'] / 1e6:.1f} GB/s"
+                    if r["bound_by"] == "bytes"
+                    else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+            rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
+        lib = r["library_ms"]
+
+        def vs_lib(t):
+            return f"{t / lib:.2f}x library" if lib else "no library call"
+
+        if "device_ms" in r:  # timed cold (``time_cold``)
+            dev = r["device_ms"]
+            rate = (f" device {dev:.4f} ms ({r['bound_ms'] / dev:.0%} of "
+                    f"bound, {vs_lib(dev)}; "
+                    f"{r['launches_per_call']:g} launches a call)"
+                    if dev else " device not measured")
+            rate += (f" host {r['host_ms']:.4f} ms a call; kernel "
+                     f"{vs_lib(r['ms'])}; cold L2 over {r['copies']} copies")
+            if r.get("kernel_device_ms"):
+                k = r["kernel_device_ms"]
+                rate += (f"; the kernel alone {k:.4f} ms on the device "
+                         f"({r['bound_ms'] / k:.0%} of bound, {vs_lib(k)})")
+        print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
+              f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) library "
+              + (f"{lib:.4f} ms" if lib else "none"))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4618,40 +4928,7 @@ def main(argv=None) -> int:
         check_vit(gen, results)
         check_families(results)
         check_falcon(results)
-    for r in results:
-        # the tensor-core kernels also get their achieved rate
-        # (the row's own operation or byte count over the kernel's time)
-        # and the share of the bound they reach
-        rate = ""
-        tiled = (r["name"] in TILED_MATMULS
-                 and int(r["case"].split()[0][2:]) > qmm.GEMV_MAX_M)
-        if r["name"] in TENSOR_CORE_ATTENTION or tiled:
-            rate = (f" {r['bytes'] / r['ms'] / 1e6:.1f} GB/s"
-                    if r["bound_by"] == "bytes"
-                    else f" {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
-            rate += f" ({r['bound_ms'] / r['ms']:.0%} of bound)"
-        lib = r["library_ms"]
-
-        def vs_lib(t):
-            return f"{t / lib:.2f}x library" if lib else "no library call"
-
-        if "device_ms" in r:  # timed cold (``time_cold``)
-            dev = r["device_ms"]
-            rate = (f" device {dev:.4f} ms ({r['bound_ms'] / dev:.0%} of "
-                    f"bound, {vs_lib(dev)}; "
-                    f"{r['launches_per_call']:g} launches a call)"
-                    if dev else " device not measured")
-            rate += (f" host {r['host_ms']:.4f} ms a call; kernel "
-                     f"{vs_lib(r['ms'])}; cold L2 over {r['copies']} copies")
-            if r.get("kernel_device_ms"):
-                k = r["kernel_device_ms"]
-                rate += (f"; the kernel alone {k:.4f} ms on the device "
-                         f"({r['bound_ms'] / k:.0%} of bound, {vs_lib(k)})")
-        print(f"[{card}] {r['name']:25s} {r['case']:46s} max_abs_err "
-              f"{r['err']:.3e} kernel {r['ms']:.4f} ms{rate} plain "
-              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) library "
-              + (f"{lib:.4f} ms" if lib else "none"))
+    print_rows(card, results)
     if FAILURES:
         raise AssertionError("kernel checks failed:\n" + "\n".join(FAILURES))
     if opts.kernels_only:
@@ -4668,11 +4945,20 @@ def main(argv=None) -> int:
     # 13. (a) ModelServer on phase 4's model
     run_server_main(card, model)
     require_no_fallback(card, "ModelServer")
+    # 14. (a) the same model split over two ranks
+    t14 = time.perf_counter()
+    p14 = run_phase14_server(card, model)
+    t14 = time.perf_counter() - t14
     evals, lockstep = run_eval_path(card, model)
     print(f"[{card}] launches in the eval path: "
           f"{ {n: evals[n] for n in EVAL_KERNELS} }")
     cb = run_cb_path(card, model, lockstep)
     require_no_fallback(card, "continuous batching")
+    # 14. (c) the slot pool split over two ranks
+    t = time.perf_counter()
+    for n, c in run_phase14_cb(card, model).items():
+        p14[n] += c
+    t14 += time.perf_counter() - t
     latency = run_latency_path(card, model)
     require_no_fallback(card, "latency")
     quant = run_quant_modes(card, model)
@@ -4711,6 +4997,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 13. ModelServer from a checkpoint, datagen and the gates
     p13 = run_phase13(card)
+    # 14. (b) the row-parallel tree of a checkpoint over two ranks
+    t = time.perf_counter()
+    for n, c in run_phase14_ckpt(card).items():
+        p14[n] += c
+    t14 += time.perf_counter() - t
+    print(f"[{card}] phase 14: {t14:.1f} s")
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -4723,7 +5015,8 @@ def main(argv=None) -> int:
                    "ckpt": ckpt.get(name, 0),
                    "fam": fam.get(name, 0),
                    "p12": p12.get(name, 0),
-                   "gate": p13.get(name, 0)}
+                   "gate": p13.get(name, 0),
+                   "mp": p14.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

@@ -277,19 +277,22 @@ def test_main_modes_on_the_cpu(tiny_towers, ckpt, tasks, tmp_path, extra,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model_parallel_size", "2"], "item 17"),
+    (["--model_parallel_size", "2", "--continuous_batching"], "item 17"),
     (["--llama_type", "falcon"], "item 15"),
 ])
 def test_unported_flags_name_their_item(tmp_path, extra, item):
-    """Flags of parts not ported raise naming their ROADMAP item. Item 15
-    (falcon) is ported: the CLI takes ``--llama_type falcon`` and fails
-    where the JAX CLI does, in ``from_pretrained``, with ``ValueError``."""
+    """Flags the CLI refuses. Item 15 (falcon) is ported: the CLI takes
+    ``--llama_type falcon`` and fails where the JAX CLI does, in
+    ``from_pretrained``, with ``ValueError``. Item 17's serving part is
+    ported (``--model_parallel_size 2``: tests/test_torch_parallel_cli.py);
+    with ``--continuous_batching`` it is refused before loading, as the
+    JAX CLI's assert refuses it (eval_affordance.py:482-485)."""
     argv = ["--dataset", str(tmp_path / "t.json"), "--device", "cpu"] + extra
     if item == "item 15":
         with pytest.raises(ValueError, match="falcon"):
             teval.main(argv + ["--pretrained_path", str(tmp_path)])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+    with pytest.raises(ValueError, match="--continuous_batching"):
         teval.main(argv + ["--tiny_random_model"])
 
 

@@ -872,6 +872,48 @@ def test_int4_glu_cuda(gen, M, K, N):
     assert torch.equal(got, qmm.int4_ffn_down(g, u, qw, res))
 
 
+# the row-parallel chunks a rank holds (quantize_params(row_parallel=mp)):
+# the 13B's wo and w2 at mp 2 and mp 4 (in 5120, ffn 14336), Falcon-180B's
+# wo (in 14848 -> 16384) and dense_4h_to_h (59392) at mp 4; group 32
+@pytest.mark.parametrize("M", [4, 33, 300, 1487])
+@pytest.mark.parametrize("K,N,chunks", [(5120, 5120, 2), (14336, 5120, 2),
+                                        (14336, 5120, 4), (14848, 14848, 4),
+                                        (59392, 14848, 4)])
+def test_int4_row_parallel_chunk_cuda(gen, M, K, N, chunks):
+    """A rank's chunk of a chunk-packed int4 weight (group 32) through the
+    kernel: the GEMV at M <= 32 and, since the tiled route takes group 32
+    in v1 and glu, the tiled route above; no fallback."""
+    qw = _quantize_leaf_int4(_weight(K, N, gen), k_chunks=chunks)
+    assert qw.group == 32
+    part = qw.chunk(chunks - 1)
+    kc = part.in_dim
+    x = _randn(M, kc, gen=gen)
+    before = (int4_matmul_2d.launches, qmm.fallback_count())
+    got = qmm.sharded_matmul(x, part)
+    assert (int4_matmul_2d.launches, qmm.fallback_count()) == (
+        before[0] + 1, before[1])
+    _check(got, int4_matmul(x, part, impl="plain"))
+    assert torch.equal(got, qmm.sharded_matmul(x, part))
+    if M > 32:
+        g, u, res = (_randn(M, kc, gen=gen), _randn(M, kc, gen=gen),
+                     _randn(M, N, gen=gen))
+        n = qmm.int4_matmul_2d_glu.launches
+        got = qmm.int4_ffn_down(g, u, part, res)
+        assert qmm.int4_matmul_2d_glu.launches == n + 1
+        _check(got, qmm.int4_ffn_down(g, u, part, res, impl="plain"))
+
+
+def test_int4_chunked_whole_cuda(gen):
+    """A whole chunk-packed weight on one card: the kernel a chunk, the
+    partials summed in float32, against the plain version of the same."""
+    qw = _quantize_leaf_int4(_weight(5120, 1280, gen), k_chunks=2)
+    x = _randn(300, 5120, gen=gen)
+    before = int4_matmul_2d.launches
+    got = int4_matmul(x, qw)
+    assert int4_matmul_2d.launches == before + 2
+    _check(got, int4_matmul(x, qw, impl="plain"))
+
+
 def test_tiled_route_refuses_cuda(gen):
     """Shapes the tiled route does not take: the 2-D wrappers raise on the
     card and launch nothing (an int4 weight whose group (16) and K/2 (48)
@@ -959,8 +1001,8 @@ def test_quant_fallback_flags_cuda(gen, monkeypatch):
 
 
 def test_tiny_decoder_int4_prefill_cuda(gen):
-    """The tiny ens5 config's decoder quantized to int4 (dim 64: K/2 32 and
-    group 32, which the tiled route does not take) prefills on the card:
+    """The tiny ens5 config's decoder quantized to int4 (dim 64: K/2 32,
+    which the tiled route does not take) prefills on the card:
     its M > 32 linears take the dense route (counted), the head the GEMV,
     and the logits hold to the plain path's within 2e-2 relative (both in
     bf16; the paths differ in summation order and the attention kernel)."""

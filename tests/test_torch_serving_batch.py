@@ -482,8 +482,13 @@ def test_lookup_draft_longest_suffix_wins():
 def test_refusals(setup):
     tok, args = setup["tok"], _args(setup["vocab"])
     kw = dict(vocab_limit=tok.n_words, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ContinuousBatcher(setup["tparams"], args, tok, mesh=object(), **kw)
+    # a mesh is taken (tests/test_torch_parallel_batch.py); a mesh of one
+    # rank is the unsharded pool
+    from a3vlm_tpu_torch.parallel import create_mesh
+
+    cb = ContinuousBatcher(setup["tparams"], args, tok,
+                           mesh=create_mesh(1, ["cpu"]), **kw)
+    assert cb._slot0 == 0 and cb.cache.k[0].shape[:2] == (4, 2)
     with pytest.raises(ValueError, match="lie on"):
         ContinuousBatcher(setup["tparams"], args, tok, vocab_limit=5,
                           device="cuda")

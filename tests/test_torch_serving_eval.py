@@ -124,7 +124,8 @@ def test_main_continuous_batching_matches_jax(float32_loads, ckpt, tasks,
 
 def test_cli_refusals(tiny_towers, ckpt, tasks, tmp_path):
     """``--draft_k`` with a temperature is refused by both CLIs as a usage
-    error; several devices are refused by the port, naming its item."""
+    error; ``--continuous_batching`` with several devices by the port
+    before loading (``ValueError``; the JAX CLI's assert fails after it)."""
     argv = ["--pretrained_path", str(ckpt), "--dataset", tasks,
             "--output_dir", str(tmp_path), "--continuous_batching",
             "--draft_k", "2", "--temperature", "0.5", "--max_seq_len",
@@ -133,7 +134,7 @@ def test_cli_refusals(tiny_towers, ckpt, tasks, tmp_path):
         with pytest.raises(SystemExit) as err:
             main(argv + more)
         assert err.value.code == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    with pytest.raises(ValueError, match="--model_parallel_size > 1"):
         teval.main(["--dataset", tasks, "--tiny_random_model", "--device",
                     "cpu", "--continuous_batching", "--model_parallel_size",
                     "2"])
