@@ -27,7 +27,17 @@ a background thread writes the files; ``_DONE`` is touched once the write
 has finished, on the next ``save`` or on ``wait_until_finished()``.
 
 Resume has two stages: ``restore_params`` (the model) and
-``restore_train_state`` (optimizer state, counters, dataset state)."""
+``restore_train_state`` (optimizer state, counters, dataset state).
+
+On a mesh of several ranks (``CheckpointManager(mesh=)``) every rank calls
+``save``: the leaves split over "model" (``parallel.tp.Shard``: the
+parameters, the adapters, the moments) are gathered whole, collectively,
+on the calling thread, and rank 0 alone writes the files a one-device save
+writes; the other ranks write nothing. ``wait_until_finished`` is a
+barrier of every rank after rank 0's write has finished and ``_DONE`` is
+there. A restore reads the whole leaves on every rank and each takes its
+block of a split leaf (the block the live leaf holds), so a checkpoint
+saved on one mesh resumes on any other, or on one device."""
 
 from __future__ import annotations
 
@@ -42,6 +52,9 @@ from typing import Any, Optional
 import torch
 
 from a3vlm_tpu_torch.checkpoint.bridge import params_from_host, params_to_host
+from a3vlm_tpu_torch.parallel.mesh import barrier as mesh_barrier
+from a3vlm_tpu_torch.parallel.mesh import is_parallel
+from a3vlm_tpu_torch.parallel.tp import Shard, gather_shard, local_weight
 from a3vlm_tpu_torch.quant import QuantizedWeight
 
 MODEL_FILE = "model.pt"
@@ -105,9 +118,14 @@ class _Write:
 
 
 class CheckpointManager:
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, mesh=None):
+        """``mesh``: the mesh whose ranks each hold a shard of the state
+        (every rank makes its manager; rank 0 writes)."""
         self.output_dir = Path(output_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh if is_parallel(mesh) else None
+        self.writes = self.mesh is None or self.mesh.rank == 0
+        if self.writes:
+            self.output_dir.mkdir(parents=True, exist_ok=True)
         self._pending: Optional[_Write] = None
         # seconds the last finished save's files took to write
         self.last_write_seconds: Optional[float] = None
@@ -136,22 +154,29 @@ class CheckpointManager:
         ``_DONE`` follows on the next save or ``wait_until_finished()``.
         Resume never sees a torn checkpoint: ``find_latest_checkpoint``
         requires ``_DONE``. A packed base cannot be stored: save with the
-        ``trainable_mask`` that freezes it."""
+        ``trainable_mask`` that freezes it. On a mesh every rank calls it
+        (the module's notes)."""
         self.wait_until_finished()
         ckpt_dir = self.output_dir / _ckpt_name(epoch, it)
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
-        (ckpt_dir / "_DONE").unlink(missing_ok=True)
-
         if trainable_mask is not None:
             # only_save_trainable (misc.py:347-353): frozen leaves dropped
             params = _filter_by_mask(params, trainable_mask)
         _refuse_packed(params)
+        params = self._whole(params)
+        if opt_state is not None:
+            mu, nu = self._whole(opt_state.mu), self._whole(opt_state.nu)
+        if not self.writes:
+            if wait:
+                self.wait_until_finished()
+            return str(ckpt_dir)
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        (ckpt_dir / "_DONE").unlink(missing_ok=True)
         files = {MODEL_FILE: params_to_host(params)}
         if opt_state is not None:
             files[OPTIMIZER_FILE] = {
                 "count": int(opt_state.count),
-                "mu": params_to_host(opt_state.mu),
-                "nu": params_to_host(opt_state.nu),
+                "mu": params_to_host(mu),
+                "nu": params_to_host(nu),
             }
         other = {
             "epoch": epoch,
@@ -179,12 +204,26 @@ class CheckpointManager:
             self.wait_until_finished()
         return str(ckpt_dir)
 
-    def wait_until_finished(self) -> None:
-        """Finalize an outstanding async save (write barrier + _DONE)."""
+    def wait_until_finished(self, barrier: bool = True) -> None:
+        """Finalize an outstanding async save (write barrier + _DONE); on
+        a mesh, with ``barrier``, a barrier of every rank after it."""
         pending, self._pending = self._pending, None
         if pending is not None:
             pending.finish()
             self.last_write_seconds = pending.seconds
+        if barrier and self.mesh is not None:
+            mesh_barrier(self.mesh)
+
+    def _whole(self, tree: Any) -> Any:
+        """``tree`` with every ``Shard`` gathered to its whole leaf (every
+        rank, in the same order)."""
+        if isinstance(tree, dict):
+            return {k: self._whole(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self._whole(v) for v in tree]
+        if isinstance(tree, Shard):
+            return gather_shard(tree, self.mesh)
+        return tree
 
     # -- restore ---------------------------------------------------------------
 
@@ -240,6 +279,8 @@ def _leaf_device(tree: Any) -> Optional[torch.device]:
             if d is not None:
                 return d
         return None
+    if isinstance(tree, Shard):
+        tree = tree.local
     if isinstance(tree, QuantizedWeight):
         return tree.q.device
     return None if tree is None else tree.device
@@ -256,7 +297,7 @@ def _refuse_packed(tree: Any) -> None:
     if isinstance(tree, (list, tuple)):
         for v in tree:
             _refuse_packed(v)
-    elif isinstance(tree, QuantizedWeight):
+    elif isinstance(local_weight(tree), QuantizedWeight):
         raise ValueError("a packed base is frozen: save with the "
                          "trainable_mask that leaves it out")
 
@@ -272,7 +313,8 @@ def _filter_by_mask(tree, mask):
 def _merge_partial(base, partial):
     """``partial`` over ``base``: a hole (``None``, also a whole subtree)
     keeps the base; a stored leaf takes the base leaf's dtype and must
-    have its shape."""
+    have its shape; a ``Shard`` takes its block of the stored whole
+    leaf."""
     if partial is None:
         return base
     if isinstance(base, dict):
@@ -282,7 +324,11 @@ def _merge_partial(base, partial):
             raise ValueError(f"{len(partial)} stored layers, {len(base)} "
                              "live")
         return [_merge_partial(b, p) for b, p in zip(base, partial)]
-    if base is None or isinstance(base, QuantizedWeight):
+    if isinstance(base, Shard) and not isinstance(base.local,
+                                                  QuantizedWeight):
+        return base.with_local(_merge_partial(base.local,
+                                              base.take(partial)))
+    if base is None or isinstance(base, (QuantizedWeight, Shard)):
         raise ValueError("a stored leaf where the live tree has "
                          f"{type(base).__name__}")
     if tuple(partial.shape) != tuple(base.shape):

@@ -39,7 +39,13 @@ from a3vlm_tpu_torch.models import ens5_2images as e2_mod
 from a3vlm_tpu_torch.models import falcon as falcon_mod
 from a3vlm_tpu_torch.models import internlm_ems5_light as il_mod
 from a3vlm_tpu_torch.models import llama as llama_mod
-from a3vlm_tpu_torch.parallel.mesh import on_mesh, use_mesh
+from a3vlm_tpu_torch.parallel import tp
+from a3vlm_tpu_torch.parallel.mesh import (
+    current_mesh,
+    is_parallel,
+    on_mesh,
+    use_mesh,
+)
 from a3vlm_tpu_torch.quant import quantize_params, tree_map
 from a3vlm_tpu_torch.train.losses import next_token_loss
 
@@ -449,23 +455,38 @@ class MetaModel:
         text positions, label 0 ignored, padded vocab masked. The towers
         run without gradient and take ``impl`` only as "plain" or
         "auto". A ``falcon`` model ignores images, as the JAX method
-        does. Not on a mesh of several ranks: training there is not
-        ported (ROADMAP Queue 1 item 17)."""
-        if self.mesh is not None and self.mesh.world_size > 1:
+        does. On a mesh of several ranks (``self.mesh``) every rank passes
+        the whole batch: the towers split its crops over every rank, each
+        data rank runs the decoder on its rows, and every rank returns the
+        mean over the whole batch's valid tokens. ``internlm_ems5_light``
+        trains on one device only (its towers train: the JAX method
+        freezes none of them)."""
+        mesh = self.mesh if is_parallel(self.mesh) else None
+        if mesh is not None and self.llama_type == "internlm_ems5_light":
             raise NotImplementedError(
-                "training on several devices is not ported yet (ROADMAP "
-                "Queue 1 item 17)")
-        if self.llama_type == "falcon":
-            logits = falcon_mod.forward_train(self._decoder_params(),
-                                              self.args, examples, impl=impl)
+                "internlm_ems5_light trains on one device: on a mesh its "
+                "trainable towers would need their own split")
+        with use_mesh(mesh):
+            if self.llama_type == "falcon":
+                examples, labels, data_mesh = _data_rows(examples, labels)
+                logits = falcon_mod.forward_train(self._decoder_params(),
+                                                  self.args, examples,
+                                                  impl=impl)
+                return next_token_loss(logits, labels,
+                                       vocab_size=self.true_vocab,
+                                       data_mesh=data_mesh)
+            image_tokens = self._image_tokens(
+                images, depth_images, "plain" if impl == "plain" else "auto")
+            B = examples.shape[0]
+            examples, labels, data_mesh = _data_rows(examples, labels)
+            image_tokens = tp.data_rows(image_tokens, B)
+            logits = llama_mod.forward_train(self._decoder_params(),
+                                             self.args, examples,
+                                             image_tokens=image_tokens,
+                                             impl=impl)
             return next_token_loss(logits, labels,
-                                   vocab_size=self.true_vocab)
-        image_tokens = self._image_tokens(
-            images, depth_images, "plain" if impl == "plain" else "auto")
-        logits = llama_mod.forward_train(self._decoder_params(), self.args,
-                                         examples, image_tokens=image_tokens,
-                                         impl=impl)
-        return next_token_loss(logits, labels, vocab_size=self.true_vocab)
+                                   vocab_size=self.true_vocab,
+                                   data_mesh=data_mesh)
 
     @property
     def kv_cache_bits(self) -> Optional[int]:
@@ -717,6 +738,45 @@ class MetaModel:
                 bool((item_logits.argmax(-1) == labels).all()))
             result["non_context_logits"].append(item_logits)
         return result
+
+
+def _data_rows(examples: torch.Tensor, labels: torch.Tensor):
+    """This data rank's rows of a batch's ids and labels and the mesh the
+    loss sums over (None where the batch is not split over "data")."""
+    B = examples.shape[0]
+    if not tp.data_split(B):
+        return examples, labels, None
+    return (tp.data_rows(examples, B), tp.data_rows(labels, B),
+            current_mesh())
+
+
+def data_local_batch(llama_type: str, params: dict, cfg, batch: dict,
+                     tower_impl: str = "auto") -> Optional[dict]:
+    """This rank's rows of a whole training batch (the training CLI's
+    loss; inside ``use_mesh``), or None where the batch does not split
+    over "data": ``examples`` and ``labels`` by rows; each image stream
+    through the frozen towers on the whole batch (its crops split over
+    every rank, the features the same bytes on every rank) or its cached
+    features, cut to the rows (``image_feat_q`` / ``image_feat_ens``,
+    ``depth_feat_q`` / ``depth_feat_ens``)."""
+    B = batch["examples"].shape[0]
+    if not tp.data_split(B):
+        return None
+    out = {k: tp.data_rows(batch[k], B) for k in ("examples", "labels")}
+    if not llama_type.startswith("llama_ens5"):
+        return out
+    for img, q, ens in (("image", "image_feat_q", "image_feat_ens"),
+                        ("depth_image", "depth_feat_q", "depth_feat_ens")):
+        if batch.get(img) is not None:
+            feats = ens5_mod.encode_image_features(params, cfg, batch[img],
+                                                   tower_impl)
+        elif q in batch:
+            feats = {"q": batch[q], "ens": batch[ens]}
+        else:
+            continue
+        out[q] = tp.data_crop_rows(feats["q"], B)
+        out[ens] = tp.data_crop_rows(feats["ens"], B)
+    return out
 
 
 def _default_config(llama_type: str, llama_config, max_seq_len: int):

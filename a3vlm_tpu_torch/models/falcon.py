@@ -186,9 +186,8 @@ def _block(h, lp, args: FalconArgs, freqs_cis, mask, cache_k, cache_v,
 
     att = lp["attention"]
     # this rank's heads under a mesh, every head otherwise
-    xq = tp.column(attn_in, att["wq"]["weight"], impl).reshape(B, S, -1, hd)
-    xk = tp.column(attn_in, att["wk"]["weight"], impl).reshape(B, S, -1, hd)
-    xv = tp.column(attn_in, att["wv"]["weight"], impl).reshape(B, S, -1, hd)
+    xq, xk, xv = (y.reshape(B, S, -1, hd) for y in tp.columns(
+        attn_in, [att[n]["weight"] for n in ("wq", "wk", "wv")], impl))
     xq = apply_rotary_half_split(xq, freqs_cis)
     xk = apply_rotary_half_split(xk, freqs_cis)
     if cache_k is None:

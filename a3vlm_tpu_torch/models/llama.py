@@ -165,9 +165,8 @@ def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
     B, S, _ = x.shape
     hd = args.head_dim
     # this rank's heads under a mesh, every head otherwise
-    xq = tp.column(x, lp["wq"]["weight"], impl).reshape(B, S, -1, hd)
-    xk = tp.column(x, lp["wk"]["weight"], impl).reshape(B, S, -1, hd)
-    xv = tp.column(x, lp["wv"]["weight"], impl).reshape(B, S, -1, hd)
+    xq, xk, xv = (y.reshape(B, S, -1, hd) for y in tp.columns(
+        x, [lp[n]["weight"] for n in ("wq", "wk", "wv")], impl))
     xq, xk = apply_rotary_emb(xq, xk, freqs_cis)
 
     if cache_k is None:
@@ -186,8 +185,8 @@ def _attention_sublayer(x, lp, args: ModelArgs, freqs_cis, mask, cache_k,
 
 
 def _ffn_sublayer(x, lp, impl: str):
-    gate = tp.column(x, lp["w1"]["weight"], impl)
-    up = tp.column(x, lp["w3"]["weight"], impl)
+    gate, up = tp.columns(x, [lp["w1"]["weight"], lp["w3"]["weight"]],
+                          impl)
     return tp.row(F.silu(gate) * up, lp["w2"]["weight"], impl)
 
 

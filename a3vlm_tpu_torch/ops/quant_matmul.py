@@ -697,12 +697,19 @@ def sharded_matmul(x, w, impl: str = "auto"):
     ``_spmd_int4`` (quant_matmul.py:781), ``_spmd_int4_rowp`` (:838) and
     ``_spmd_int8`` (:1076): the exact int4 kernel (K1) on the local shape,
     whatever the mode flags, chunk by chunk for a run of chunks; the int8
-    kernel (K6); a dense product. The collective after it is the
-    caller's (``parallel.tp``)."""
+    kernel (K6); a dense product. Where ``x`` records a gradient a
+    quantized block goes through ``_QmatQuant``, so ``dx = g @ W^T`` of
+    the local block (the JAX VJP, quant_matmul.py:1195-1204). A
+    ``LoraWeight`` of local blocks adds ``(x @ a) @ b``. The collectives
+    around it are the caller's (``parallel.tp``)."""
+    if isinstance(w, LoraWeight):
+        return (sharded_matmul(x, w.w, impl)
+                + (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype))
     if isinstance(w, QuantizedWeight):
-        if w.bits == 8:
-            return int8_matmul(x, w, impl)
-        return int4_matmul(x, w, impl, variant="v1", flags=False)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _QmatQuant.apply(x, w.q, w.scale, w.bits, w.group,
+                                    w.in_dim, w.k_chunks, impl, True)
+        return _quant_matmul(x, w, impl, exact=True)
     return x @ w
 
 
@@ -781,9 +788,13 @@ def w8a8_matmul(x, qw: QuantizedWeight):
     return out.reshape(*lead, out.shape[-1])
 
 
-def _quant_matmul(x, qw: QuantizedWeight, impl: str):
+def _quant_matmul(x, qw: QuantizedWeight, impl: str, exact: bool = False):
+    """``int8_matmul`` or ``int4_matmul``; ``exact``: the exact int4 kernel
+    whatever the mode flags say (a rank's block under a mesh)."""
     if qw.bits == 8:
         return int8_matmul(x, qw, impl)
+    if exact:
+        return int4_matmul(x, qw, impl, variant="v1", flags=False)
     return int4_matmul(x, qw, impl)
 
 
@@ -793,22 +804,23 @@ class _QmatQuant(torch.autograd.Function):
     ``int8_matmul`` (the kernel on CUDA tensors); the backward is
     ``g @ dequant(W)^T`` in g's dtype, the product of the dense weight's
     first ``in_dim`` rows, so the gradient has x's unpadded shape. The
-    quantized ints and scales get no gradient."""
+    quantized ints and scales get no gradient. ``exact``: the forward is
+    the exact kernel whatever the mode flags say (``sharded_matmul``)."""
 
     @staticmethod
     def forward(ctx, x, q, scale, bits: int, group: int, in_dim: int,
-                impl: str):
+                k_chunks: int, impl: str, exact: bool):
         ctx.save_for_backward(q, scale)
-        ctx.bits, ctx.group, ctx.in_dim = bits, group, in_dim
+        ctx.qw = (bits, group, in_dim, k_chunks)
         return _quant_matmul(x, QuantizedWeight(q, scale, bits, group,
-                                                in_dim), impl)
+                                                in_dim, k_chunks), impl,
+                             exact)
 
     @staticmethod
     def backward(ctx, g):
         q, scale = ctx.saved_tensors
-        w = _dequantize_leaf(QuantizedWeight(q, scale, ctx.bits, ctx.group,
-                                             ctx.in_dim), g.dtype)
-        return g @ w.transpose(-1, -2), None, None, None, None, None, None
+        w = _dequantize_leaf(QuantizedWeight(q, scale, *ctx.qw), g.dtype)
+        return (g @ w.transpose(-1, -2),) + (None,) * 8
 
 
 def qmat(x, w, impl: str = "auto"):
@@ -821,6 +833,6 @@ def qmat(x, w, impl: str = "auto"):
     if isinstance(w, QuantizedWeight):
         if torch.is_grad_enabled() and x.requires_grad:
             return _QmatQuant.apply(x, w.q, w.scale, w.bits, w.group,
-                                    w.in_dim, impl)
+                                    w.in_dim, w.k_chunks, impl, False)
         return _quant_matmul(x, w, impl)
     return x @ w

@@ -7,7 +7,10 @@ context) and joins rank 0, the caller, to them; ``run_spmd`` runs one
 function on every rank and returns every rank's result. Arguments reach the
 other ranks pickled by torch's reducers: a CUDA tensor as a handle to the
 same memory (the receiving rank copies what it keeps to its own device), a
-CPU tensor through shared memory.
+CPU tensor through shared memory. Either way the ranks (rank 0 too) share
+the storage of what they were given: a rank that updates a tensor in
+place (a train step's trainables) works on its own copy. Results come back
+by value (a rank may exit before rank 0 reads them).
 
 A rank started here exits when its caller's process is gone, so no
 orphan keeps a device.
@@ -16,6 +19,7 @@ orphan keeps a device.
 from __future__ import annotations
 
 import os
+import pickle
 import shutil
 import tempfile
 import threading
@@ -58,7 +62,7 @@ class Ranks:
         while len(got) < n:
             if not self.results.empty():
                 rank, ok, value = self.results.get()
-                got[rank] = (ok, value)
+                got[rank] = (ok, pickle.loads(value) if ok else value)
                 continue
             dead = [p for p in self.procs if p.exitcode not in (None, 0)]
             if dead and self.results.empty():
@@ -91,7 +95,9 @@ def _worker(rank: int, devices, init_file: str, mp_size: int, threads: int,
     try:
         init_ranks(rank, devices, init_file)
         mesh = create_mesh(mp_size, devices)
-        value = target(mesh, *args)
+        # by value: a tensor shared with rank 0 would need this process
+        # alive until rank 0 has read it
+        value = pickle.dumps(target(mesh, *args))
         results.put((rank, True, value))
     except BaseException:  # reported to rank 0, which raises it
         results.put((rank, False, traceback.format_exc()))

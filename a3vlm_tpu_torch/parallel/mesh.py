@@ -259,6 +259,21 @@ def _via_host(mesh: Mesh, x: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and x.is_cuda
 
 
+def _span(fn):
+    """Each call a ``torch.profiler`` span named ``collective:<name>`` (the
+    collective's host time, copies through host memory and waits for the
+    card included), so a trace can take the collectives' share."""
+    name = f"collective:{fn.__name__}"
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+@_span
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS
                ) -> torch.Tensor:
     """The sum of ``x`` over ``axis``; every rank of the group gets the
@@ -275,6 +290,7 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS
     return y
 
 
+@_span
 def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = -1,
                axis: str = MODEL_AXIS) -> torch.Tensor:
     """The group's pieces of ``x`` (equal shapes) concatenated along
@@ -296,6 +312,44 @@ def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = -1,
         *src.shape[:dim], n * src.shape[dim], *src.shape[dim + 1:])
 
 
+@_span
+def broadcast_from_first(x: torch.Tensor, mesh: Mesh,
+                         axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The first rank of ``axis``'s group's ``x`` on every rank of the
+    group (``x`` itself is left as it was)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    src = (mesh.data_index * mesh.mp_size if axis == MODEL_AXIS
+           else mesh.model_index)
+    y = x.detach().to("cpu", copy=True) if _via_host(mesh, x) \
+        else x.detach().clone()
+    dist.broadcast(y, src=src, group=group)
+    return y.to(x.device)
+
+
+@_span
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int = -1,
+                   axis: str = MODEL_AXIS) -> torch.Tensor:
+    """This rank's piece (along ``dim``, in rank order) of the sum of ``x``
+    over ``axis``. gloo has no reduce-scatter: there it is the sum, then
+    the piece."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    dim = dim % x.dim()
+    if mesh.backend == "gloo":
+        a, b = split_range(x.shape[dim], n, i)
+        return all_reduce.__wrapped__(x, mesh, axis).narrow(
+            dim, a, b - a).contiguous()
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+@_span
 def all_gather_uneven(x: torch.Tensor, mesh: Mesh, counts: Sequence[int]
                       ) -> torch.Tensor:
     """Every rank's rows of ``x`` (dim 0; rank r holds ``counts[r]``)
@@ -309,6 +363,111 @@ def all_gather_uneven(x: torch.Tensor, mesh: Mesh, counts: Sequence[int]
     parts = [torch.empty_like(src) for _ in counts]
     dist.all_gather(parts, src)
     return torch.cat([p[:c].to(x.device) for p, c in zip(parts, counts)])
+
+
+# ----------------------------------------------- differentiable collectives
+#
+# The training forward runs the collectives above through these, so that
+# every replicated tensor gets its whole gradient, the same bytes on every
+# rank, and every split tensor this rank's block of it (what XLA's
+# transposes of the JAX collectives give). Where no gradient is recorded
+# (inference, the frozen towers) each is the plain collective, or nothing:
+# a forward under ``torch.no_grad`` runs the collectives it ran before.
+
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis, scatter):
+        ctx.mesh, ctx.dim, ctx.axis, ctx.scatter = mesh, dim, axis, scatter
+        return all_gather(x, mesh, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, axis = ctx.mesh, ctx.dim, ctx.axis
+        if ctx.scatter:
+            return reduce_scatter(g, mesh, dim, axis), None, None, None, None
+        a, b = split_range(g.shape[dim], mesh.axis_size(axis),
+                           mesh.axis_index(axis))
+        return g.narrow(dim, a, b - a), None, None, None, None
+
+
+class _GatherUneven(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, counts):
+        ctx.mesh, ctx.counts = mesh, counts
+        return all_gather_uneven(x, mesh, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        a = sum(ctx.counts[: ctx.mesh.rank])
+        return g[a: a + ctx.counts[ctx.mesh.rank]], None, None
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS
+            ) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``axis``: the input of
+    products that differ by rank (a column-parallel linear's), whose
+    gradients are each rank's part of ``x``'s."""
+    if mesh.group(axis) is None or not _recording(x):
+        return x
+    return _CopyToModel.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS
+                ) -> torch.Tensor:
+    """``all_reduce`` whose gradient passes as it is: the sum of the
+    ranks' partials (a row-parallel product's), consumed the same on every
+    rank."""
+    if mesh.group(axis) is None or not _recording(x):
+        return all_reduce(x, mesh, axis)
+    return _ReduceFromModel.apply(x, mesh, axis)
+
+
+def gather(x: torch.Tensor, mesh: Mesh, dim: int = -1,
+           axis: str = MODEL_AXIS, consumer_replicated: bool = True
+           ) -> torch.Tensor:
+    """``all_gather`` with its gradient: this rank's slice of it where the
+    gathered tensor is consumed the same on every rank, the reduce-scatter
+    of it where each rank consumes it in a product of its own (the rank's
+    gradient is then a part of the whole)."""
+    if mesh.group(axis) is None or not _recording(x):
+        return all_gather(x, mesh, dim, axis)
+    return _Gather.apply(x, mesh, dim % x.dim(), axis,
+                         not consumer_replicated)
+
+
+def gather_uneven(x: torch.Tensor, mesh: Mesh, counts: Sequence[int]
+                  ) -> torch.Tensor:
+    """``all_gather_uneven`` with its gradient: this rank's rows (the
+    gathered rows are consumed the same on every rank)."""
+    if mesh.world_size == 1 or not _recording(x):
+        return all_gather_uneven(x, mesh, counts)
+    return _GatherUneven.apply(x, mesh, list(counts))
 
 
 def broadcast_object(obj: Any, mesh: Mesh, src: int = 0) -> Any:

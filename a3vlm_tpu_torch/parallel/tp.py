@@ -21,6 +21,21 @@ the weight and which dimension it split.
   logits' columns. Every rank then holds the same bytes, so greedy and
   sampled picks agree without a broadcast.
 
+In training the collectives carry gradients (``parallel/mesh.py``'s
+differentiable forms) so that a replicated tensor's gradient is the whole
+one, the same bytes on every rank, and a split tensor's this rank's block
+of it: the input of column products takes its gradient summed over
+"model" (``copy_to``, once for the products that share it); a row
+shard's partial sum passes its gradient as it is (``reduce_from``); a
+gather consumed the same on every rank (the logits, the embedding's
+columns, the all-column output) gives back this rank's slice, one
+consumed by a product of each rank's own (the all-column input, the
+padded-K input) the reduce-scatter. A ``LoraWeight`` over a split base
+keeps its adapters split as ``train.lora.lora_partition_specs`` splits
+them (a column weight's ``b`` on its output, a row weight's ``a`` on its
+input), and its side path takes a collective of its own between its two
+products.
+
 Every product under a mesh of more than one rank takes the exact int4 /
 int8 kernel whatever the mode flags say: the JAX dispatchers do the same
 under more than one device (quant_matmul.py:956-960).
@@ -43,14 +58,16 @@ from a3vlm_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
     all_gather,
-    all_gather_uneven,
-    all_reduce,
+    copy_to,
     current_mesh,
+    gather,
+    gather_uneven,
     is_parallel,
     local_slice,
+    reduce_from,
     split_range,
 )
-from a3vlm_tpu_torch.quant import QuantizedWeight
+from a3vlm_tpu_torch.quant import LoraWeight, QuantizedWeight
 
 
 class Shard:
@@ -66,6 +83,33 @@ class Shard:
         self.start = start
         self.stop = stop
         self.full = full
+
+    @property
+    def dim(self) -> int:
+        """The dimension a dense block splits: the last (columns) or the
+        one before it (rows)."""
+        return -1 if self.kind == "col" else -2
+
+    def with_local(self, local) -> "Shard":
+        """The same block of the same leaf, holding ``local``."""
+        return Shard(local, self.kind, self.start, self.stop, self.full)
+
+    def take(self, whole: torch.Tensor) -> torch.Tensor:
+        """This block of ``whole`` (the dense leaf it was cut from)."""
+        if whole.shape[self.dim] != self.full:
+            raise ValueError(f"a whole leaf of {whole.shape[self.dim]} "
+                             f"along its split dim, the block's has "
+                             f"{self.full}")
+        return whole.narrow(self.dim, self.start,
+                            self.stop - self.start).contiguous()
+
+
+def gather_shard(s: Shard, mesh: Mesh) -> torch.Tensor:
+    """The whole dense leaf of a ``Shard``, every rank's block gathered
+    over "model" (every rank of the group calls it)."""
+    if isinstance(s.local, QuantizedWeight):
+        raise ValueError("a packed base is frozen: it is not gathered")
+    return all_gather(s.local.contiguous(), mesh, s.dim, MODEL_AXIS)
 
 
 def _model_axis(spec) -> Optional[int]:
@@ -126,8 +170,18 @@ def shard_tree(params, mesh: Mesh, specs):
 
 
 def local_weight(w):
-    """The weight this rank multiplies by (a ``Shard``'s block)."""
+    """The weight this rank multiplies by (a ``Shard``'s block; a
+    ``LoraWeight`` of the blocks of its base and adapters)."""
+    if isinstance(w, LoraWeight):
+        return LoraWeight(local_weight(w.w), local_weight(w.a),
+                          local_weight(w.b))
     return w.local if isinstance(w, Shard) else w
+
+
+def base_weight(w):
+    """The base of a ``LoraWeight`` (``w`` itself otherwise): a ``Shard``
+    inside one says how the linear splits."""
+    return w.w if isinstance(w, LoraWeight) else w
 
 
 def _mesh() -> Optional[Mesh]:
@@ -149,55 +203,109 @@ def _share(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return y[..., a:b]
 
 
+def _replicated(t, what: str) -> torch.Tensor:
+    if isinstance(t, Shard):
+        raise ValueError(f"{what} is replicated (lora_partition_specs)")
+    return t
+
+
+def _col_block(b, mesh: Mesh) -> torch.Tensor:
+    """This rank's output columns of an adapter's ``b``."""
+    return b.local if isinstance(b, Shard) else _share(b, mesh)
+
+
+def _row_block(a, width: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's input rows of an adapter's ``a``: those of its share of
+    the input, ``width`` columns a rank."""
+    if isinstance(a, Shard):
+        return a.local
+    i = mesh.model_index
+    return a[i * width:(i + 1) * width]
+
+
+def columns(x, ws, impl: str = "auto") -> list:
+    """``x`` (the whole input, on every rank) by each column-parallel
+    linear of ``ws`` (q / k / v, gate / up): this rank's share of each
+    output's columns. The products share one input, so its gradient is
+    summed over "model" once (``copy_to``). A ``LoraWeight``'s side path
+    ``(x @ a) @ b`` takes ``x @ a`` whole on every rank (``a`` is
+    replicated), its gradient summed over "model" on its own, and this
+    rank's columns of ``b``."""
+    mesh = _mesh()
+    if mesh is None or mesh.mp_size == 1:
+        return [_mm(x, w, impl, mesh) for w in ws]
+    xc = copy_to(x, mesh)
+    out = []
+    for w in ws:
+        base = base_weight(w)
+        y = _mm(xc, base, impl, mesh)
+        if not (isinstance(base, Shard) and base.kind == "col"):
+            y = _share(y, mesh)  # a replicated weight: every column
+        if isinstance(w, LoraWeight):
+            a = _replicated(w.a, "a column LoRA's a")
+            u = copy_to(x @ a.to(x.dtype), mesh)
+            y = y + u @ _col_block(w.b, mesh).to(x.dtype)
+        out.append(y)
+    return out
+
+
 def column(x, w, impl: str = "auto"):
     """``x`` (the whole input, on every rank) by a column-parallel linear:
-    this rank's share of the output columns."""
-    mesh = _mesh()
-    y = _mm(x, w, impl, mesh)
-    if mesh is None or mesh.mp_size == 1 or (
-            isinstance(w, Shard) and w.kind == "col"):
-        return y
-    return _share(y, mesh)
+    this rank's share of the output columns (``columns`` of one)."""
+    return columns(x, [w], impl)[0]
 
 
 def row(x, w, impl: str = "auto"):
     """This rank's share of the input columns (``column``'s output) by a
-    row-parallel linear: the whole output, the same on every rank."""
+    row-parallel linear: the whole output, the same on every rank. A
+    ``LoraWeight``'s side path takes this rank's rows of ``a`` (split on
+    its input), sums ``x @ a`` over "model" in float32, then multiplies by
+    the replicated ``b``."""
     mesh = _mesh()
     if mesh is None or mesh.mp_size == 1:
         return _mm(x, w, impl, mesh)
-    if isinstance(w, Shard) and w.kind == "row":
+    base = base_weight(w)
+    if isinstance(base, Shard) and base.kind == "row":
         width = x.shape[-1]
-        if not (w.start == mesh.model_index * width
-                and w.stop - w.start == width
-                and w.full == width * mesh.mp_size):
+        xin = x
+        if not (base.start == mesh.model_index * width
+                and base.stop - base.start == width
+                and base.full == width * mesh.mp_size):
             # the input's shares are not the weight's chunks (a padded K):
             # the whole input, padded, then this rank's rows
-            xf = all_gather(x, mesh, dim=-1)
-            xf = F.pad(xf, (0, w.full - xf.shape[-1]))
-            x = xf[..., w.start:w.stop]
-        part = _mm(x, w, impl, mesh)
-        return all_reduce(part.float(), mesh).to(part.dtype)
-    y = _mm(all_gather(x, mesh, dim=-1), w, impl, mesh)
-    if isinstance(w, Shard):  # "col": the all-column form
-        y = all_gather(y, mesh, dim=-1)
+            xf = gather(x, mesh, -1, consumer_replicated=False)
+            xf = F.pad(xf, (0, base.full - xf.shape[-1]))
+            xin = xf[..., base.start:base.stop]
+        part = _mm(xin, base, impl, mesh)
+        y = reduce_from(part.float(), mesh).to(part.dtype)
+    else:
+        # a column shard (the all-column form) multiplies the whole input
+        # by its own columns; a replicated weight, the same on every rank
+        split = isinstance(base, Shard)
+        y = _mm(gather(x, mesh, -1, consumer_replicated=not split), base,
+                impl, mesh)
+        if split:
+            y = gather(y, mesh, -1)
+    if isinstance(w, LoraWeight):
+        u = x @ _row_block(w.a, x.shape[-1], mesh).to(x.dtype)
+        u = reduce_from(u.float(), mesh).to(x.dtype)
+        y = y + u @ _replicated(w.b, "a row LoRA's b").to(x.dtype)
     return y
 
 
 def head(x, w, impl: str = "auto"):
     """The LM head: the whole logits on every rank."""
     mesh = _mesh()
-    y = _mm(x, w, impl, mesh)
     if mesh is not None and isinstance(w, Shard):
-        y = all_gather(y, mesh, dim=-1)
-    return y
+        return gather(_mm(copy_to(x, mesh), w, impl, mesh), mesh, -1)
+    return _mm(x, w, impl, mesh)
 
 
 def embed(w, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of an embedding table, every column on every rank."""
     if not isinstance(w, Shard):
         return w[tokens]
-    return all_gather(w.local[tokens], current_mesh(), dim=-1)
+    return gather(w.local[tokens], current_mesh(), dim=-1)
 
 
 def local_kv_heads(kv_heads: int) -> int:
@@ -240,7 +348,20 @@ def data_gather(y: torch.Tensor, batch: int, mesh: Optional[Mesh] = None
     mesh = mesh or _mesh()
     if not data_split(batch, mesh):
         return y
-    return all_gather(y, mesh, dim=0, axis=DATA_AXIS)
+    return gather(y, mesh, dim=0, axis=DATA_AXIS)
+
+
+def data_crop_rows(x: Optional[torch.Tensor], batch: int, crops: int = 5,
+                   mesh: Optional[Mesh] = None):
+    """This rank's rows of crop-major features [crops * batch, ...] (crop
+    c of row b at c * batch + b, as ``ens5.five_crop`` orders them): each
+    crop's block of ``data_rows``."""
+    mesh = mesh or _mesh()
+    if x is None or not data_split(batch, mesh):
+        return x
+    a, b = split_range(batch, mesh.dp_size, mesh.data_index)
+    return x.reshape(crops, batch, *x.shape[1:])[:, a:b].reshape(
+        -1, *x.shape[1:])
 
 
 def crop_share(crops: torch.Tensor):
@@ -260,4 +381,4 @@ def crop_gather(x: torch.Tensor, counts) -> torch.Tensor:
     """Every rank's encoded crops, in order (``crop_share``'s inverse)."""
     if counts is None:
         return x
-    return all_gather_uneven(x, current_mesh(), counts)
+    return gather_uneven(x, current_mesh(), counts)

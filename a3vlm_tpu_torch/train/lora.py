@@ -90,6 +90,26 @@ def fit_lora_to(decoder_params: dict, lora_tree: dict) -> dict:
     return {"layers": layers}
 
 
+# the row-parallel linears: their adapters split ``a`` on its input
+ROW_PARALLEL = ("wo", "w2")
+
+
+def lora_partition_specs(lora: dict) -> dict:
+    """Specs of the adapters on a mesh (lora.py:135), per layer: a
+    column-parallel weight's ``b`` split on its output over "model" and
+    ``a`` replicated; a row-parallel weight's (wo, w2) ``a`` split on its
+    input and ``b`` replicated."""
+    from a3vlm_tpu_torch.parallel.mesh import MODEL_AXIS, P
+
+    col = {"a": P(None, None), "b": P(None, MODEL_AXIS)}
+    row = {"a": P(MODEL_AXIS, None), "b": P(None, None)}
+    return {"layers": [
+        {group: {name: (row if name in ROW_PARALLEL else col)
+                 for name in items}
+         for group, items in layer.items()}
+        for layer in lora["layers"]]}
+
+
 def merge_lora(llama_params: dict, lora: dict) -> dict:
     """A new decoder tree whose targeted weights are ``W + A @ B``, the
     product and the sum in the weight's dtype (lora.py:149); the input

@@ -15,6 +15,18 @@
 - Unlike the JAX step, which returns new arrays, the update is IN PLACE:
   the trainable leaves of ``state.params`` and the moments are updated in
   their own storage, so a step holds no second copy of either.
+
+On a ("data", "model") mesh of ranks (``make_train_step(mesh=)``) every
+rank runs the step on its shard of the parameters (``parallel.tp.Shard``
+leaves hold a rank's block; the moments take the same blocks) and its
+rows of the batch. The loss is already the mean over the whole batch
+(``next_token_loss(data_mesh=)``), so the gradients are summed over
+"data" (one collective over every gradient at once); a leaf split over
+"model" has this rank's block of the whole gradient and a replicated leaf
+the whole of it (the collectives' gradients, ``parallel/mesh.py``). The
+clip's global norm counts each element once: the split leaves' squares
+are summed over "model". Replicated trainables stay the same bytes on
+every rank, which each step checks.
 """
 
 from __future__ import annotations
@@ -23,7 +35,19 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 
+from a3vlm_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    all_reduce,
+    broadcast_from_first,
+    broadcast_object,
+    is_parallel,
+    use_mesh,
+)
+from a3vlm_tpu_torch.parallel.tp import Shard
 from a3vlm_tpu_torch.quant import tree_map
 
 Schedule = Callable[[int], float]
@@ -31,17 +55,31 @@ Schedule = Callable[[int], float]
 
 def tree_leaves(tree: Any) -> list:
     """Leaves of a tree of dicts and lists, dict keys in sorted order (the
-    order JAX flattens them in); ``None`` holes are skipped."""
+    order JAX flattens them in); ``None`` holes are skipped. A ``Shard``'s
+    leaf is its block."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
+    if isinstance(tree, Shard):
+        return [tree.local]
     return [] if tree is None else [tree]
+
+
+def split_flags(tree: Any) -> list[bool]:
+    """For each of ``tree_leaves(tree)``: whether it is a block of a leaf
+    split over "model"."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in split_flags(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in split_flags(v)]
+    return [] if tree is None else [isinstance(tree, Shard)]
 
 
 def tree_unflatten(like: Any, leaves: list) -> Any:
     """Inverse of ``tree_leaves``: ``like``'s structure with its non-None
-    leaves replaced, in order, by ``leaves``."""
+    leaves replaced, in order, by ``leaves`` (a ``Shard`` keeps its place
+    and takes the new block)."""
     it = iter(leaves)
 
     def build(node):
@@ -50,6 +88,8 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
             return {k: out[k] for k in node}
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
+        if isinstance(node, Shard):
+            return node.with_local(next(it))
         return None if node is None else next(it)
 
     return build(like)
@@ -76,9 +116,19 @@ def combine_params(trainable: Any, frozen: Any) -> Any:
     return frozen if trainable is None else trainable
 
 
-def global_norm(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+def global_norm(leaves: list[torch.Tensor], split: Optional[list] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares (optax.global_norm).
+    On ``mesh``, the leaves flagged in ``split`` are blocks of leaves split
+    over "model": their squares are summed over "model", the others'
+    (replicated, the same on every rank) counted once."""
+    if mesh is None or mesh.mp_size == 1:
+        return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    rep = sum((torch.sum(g * g) for g, s in zip(leaves, split) if not s),
+              zero)
+    own = sum((torch.sum(g * g) for g, s in zip(leaves, split) if s), zero)
+    return torch.sqrt(rep + all_reduce(own, mesh, MODEL_AXIS))
 
 
 @dataclass
@@ -111,17 +161,24 @@ class AdamW:
         return lr(count) if callable(lr) else lr
 
     def init(self, params: Any) -> AdamWState:
-        return AdamWState(0, tree_map(torch.zeros_like, params),
-                          tree_map(torch.zeros_like, params))
+        """Zero moments of each leaf (of each block, for a ``Shard``)."""
+        def zeros():
+            return tree_unflatten(params, [torch.zeros_like(p) for p in
+                                           tree_leaves(params)])
+
+        return AdamWState(0, zeros(), zeros())
 
     @torch.no_grad()
-    def update(self, grads: Any, state: AdamWState, params: Any
+    def update(self, grads: Any, state: AdamWState, params: Any,
+               g_norm: Optional[torch.Tensor] = None
                ) -> tuple[AdamWState, torch.Tensor]:
         """One update of ``params`` (and of ``state``'s moments) in place;
         returns the state with the count advanced and the gradients'
-        global norm before clipping."""
+        global norm before clipping (``g_norm``, where the caller took it:
+        a mesh's)."""
         g_leaves = tree_leaves(grads)
-        g_norm = global_norm(g_leaves)
+        if g_norm is None:
+            g_norm = global_norm(g_leaves)
         clip = ~(g_norm < self.max_grad_norm)
         count = state.count + 1
         f32 = dict(dtype=torch.float32, device=g_norm.device)
@@ -207,25 +264,112 @@ def accumulated_value_and_grad(loss_fn: Callable, trainable: Any,
             tree_unflatten(trainable, [g / accum_steps for g in grad_sum]))
 
 
+def _flat_map(grads: Any, fn: Callable, which: list[bool]) -> Any:
+    """``grads`` with the leaves flagged in ``which`` replaced by ``fn``
+    of their concatenation (one call a dtype), cut back to their
+    shapes."""
+    leaves = tree_leaves(grads)
+    out = list(leaves)
+    for dtype in dict.fromkeys(g.dtype for g in leaves):
+        idx = [i for i, g in enumerate(leaves)
+               if which[i] and g.dtype == dtype]
+        if not idx:
+            continue
+        flat = fn(torch.cat([leaves[i].reshape(-1) for i in idx]))
+        for i, piece in zip(idx, flat.split([leaves[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view_as(leaves[i])
+    return tree_unflatten(grads, out)
+
+
+def sync_grads(grads: Any, mesh: Mesh) -> Any:
+    """The gradients on a mesh, ready for the update: summed over "data"
+    (one collective a dtype for every leaf), then the replicated leaves
+    replaced by the first model rank's. Those are the same sums on every
+    model rank, but a BLAS product need not give the same bits in two
+    processes; taken from one rank, every rank's replicated trainables
+    stay the same bytes."""
+    if mesh.dp_size > 1:
+        grads = _flat_map(grads, lambda f: all_reduce(f, mesh, DATA_AXIS),
+                          [True] * len(tree_leaves(grads)))
+    if mesh.mp_size > 1:
+        grads = _flat_map(grads, lambda f: broadcast_from_first(f, mesh),
+                          [not s for s in split_flags(grads)])
+    return grads
+
+
+def _leaf_digests(tree: Any) -> list[int]:
+    """A checksum of each replicated leaf's bytes (each element's bits as
+    an integer, summed with its position): equal bytes give equal
+    digests."""
+    sums = []
+    for p, split in zip(tree_leaves(tree), split_flags(tree)):
+        if split:
+            continue
+        bits = p.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[p.element_size()]).long()
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+        sums.append((bits * pos).sum() + bits.sum())
+    return torch.stack(sums).tolist() if sums else []
+
+
+def replica_digest(tree: Any) -> int:
+    """One checksum of the bytes of the replicated leaves of ``tree``."""
+    return sum(_leaf_digests(tree))
+
+
+def check_replicas(tree: Any, mesh: Mesh) -> None:
+    """Raises unless the replicated leaves of ``tree`` are the same bytes
+    on every rank of ``mesh``."""
+    if not is_parallel(mesh):
+        return
+    mine = _leaf_digests(tree)
+    every = [None] * mesh.world_size
+    dist.all_gather_object(every, mine, group=mesh.control_group)
+    for r, theirs in enumerate(every):
+        if theirs != every[0]:
+            i = next(i for i, (a, b) in enumerate(zip(theirs, every[0]))
+                     if a != b)
+            raise RuntimeError(
+                f"replicated trainables differ across ranks: rank {r}'s "
+                f"replicated leaf {i} is not rank 0's")
+
+
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     accum_steps: int = 1,
-                    trainable_mask: Optional[Any] = None) -> Callable:
+                    trainable_mask: Optional[Any] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})``
     (step.py:124). ``loss_fn(params, batch)`` returns a scalar; batch
     entries carry a leading [accum_steps] axis when accum_steps > 1. With
     ``trainable_mask`` (True = trainable) only that partition is
     differentiated and updated; ``TrainState.create`` must be given the
-    same mask. The grad norm is taken before clipping."""
+    same mask. The grad norm is taken before clipping. On ``mesh`` (of
+    more than one rank) the loss runs inside ``use_mesh(mesh)`` on every
+    rank with the whole batch (``loss_fn`` takes this rank's rows and
+    returns the whole batch's mean), the gradients are summed over "data"
+    and the norm is the mesh's (the module's notes)."""
+    mesh = mesh if is_parallel(mesh) else None
 
     def step(state: TrainState, batch: dict):
         if trainable_mask is not None:
             trainable, frozen = partition_params(state.params, trainable_mask)
         else:
             trainable, frozen = state.params, None
-        loss, grads = accumulated_value_and_grad(loss_fn, trainable, frozen,
-                                                 batch, accum_steps)
+        with use_mesh(mesh):
+            loss, grads = accumulated_value_and_grad(
+                loss_fn, trainable, frozen, batch, accum_steps)
+        g_norm = None
+        if mesh is not None:
+            grads = sync_grads(grads, mesh)
+            # rank 0's norm on every rank: the clip scales every leaf alike
+            g_norm = torch.tensor(broadcast_object(float(global_norm(
+                tree_leaves(grads), split_flags(grads), mesh)), mesh),
+                dtype=torch.float32, device=loss.device)
         opt_state, grad_norm = optimizer.update(grads, state.opt_state,
-                                                trainable)
+                                                trainable, g_norm)
+        if mesh is not None:
+            check_replicas(trainable, mesh)
         return (TrainState(state.params, opt_state, state.step + 1),
                 {"loss": loss, "grad_norm": grad_norm})
 

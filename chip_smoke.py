@@ -258,6 +258,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    every rank's backend, launches by kernel, fallbacks (0 required) and
    ids (every rank's equal to rank 0's).
 
+15. training on several ranks, after phase 14 (b): the training CLI
+   (``main_finetune.train``) on phase 8's 2-layer full-width checkpoint
+   (towers from the seed; its linears divided by the square root of their
+   input width, so the loss is ~10 and not ~300, where bf16 rounding alone
+   moves it by ~1%), QLoRA rank 16, accumulation 2, remat, 3 updates
+   of a global batch of 2 over 12 dialog items of phase 8's images: on one
+   rank, then on two ranks of this card (``--devices cuda:0,cuda:0``,
+   gloo) at (a) data 2 x model 1 and (b) data 1 x model 2 (the all-column
+   int4 tree, ``tp_align`` 256). Each mesh run's first loss is one rank's
+   within a relative 2e-3, its later losses and grad norms within 2e-2;
+   every rank launches K1, K2, K9a, K9b and K10 with no fallback, and its
+   replicated trainables are the same bytes as rank 0's (the CLI checks
+   each update; each rank's digest printed). Each run prints every
+   update's ms, rank 0's host time in the collectives (the
+   ``collective:*`` spans of ``parallel/mesh.py`` in a ``torch.profiler``
+   trace) and each rank's peak memory. (c) (b)'s checkpoint resumed on one
+   rank (``--resume``): every restored trainable and moment equals the
+   saved file's (``torch.equal``). Phase 3's ``check_mptrain`` rows hold
+   K1's tile at a model-2 rank's training shapes (M 4096: 5120 x 2560,
+   5120 x 6912, 13824 x 2560) and ``check_flash_bwd`` K2 with lse, K9a and
+   K9b at its 20 heads.
+
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``--ids-out PATH`` writes every run's generated ids; ``--ids-ref PATH``
 holds this run's ids against another run's (a parent commit's, say, with
@@ -267,9 +289,10 @@ and the kernel-vs-plain logit error of that step.
 
 The line before the last is the kernel table as JSON (``launches`` sums
 the serving, continuous-batching, latency, training, quantized-mode,
-fine-tuning-loop, families, phase-12, gate and phase-14 runs (rank 0's),
-``launches_by_path`` splits them as ``serve``, ``cb``, ``latency``,
-``train``, ``quant``, ``ckpt``, ``fam``, ``p12``, ``gate`` and ``mp``; ``bound_ms`` is the larger of the bytes
+fine-tuning-loop, families, phase-12, gate, phase-14 and phase-15 runs
+(rank 0's), ``launches_by_path`` splits them as ``serve``, ``cb``,
+``latency``, ``train``, ``quant``, ``ckpt``, ``fam``, ``p12``, ``gate``,
+``mp`` and ``mptrain``; ``bound_ms`` is the larger of the bytes
 the call must move over 3.35 TB/s and its operations over 989 TFLOP/s, or
 over 1979 TOP/s for the int8 tensor-core kernel; ``library_ms`` one
 PyTorch library call on the same inputs, timed here and used nowhere in
@@ -809,6 +832,36 @@ def check_int4(gen, results):
                         x2, qw.q, qw.scale, qw.group), reps=3)
             del copies
 
+# A rank's decoder linears of the 13B at model 2 in training (the
+# all-column int4 tree, phase 15): (K, N) of wq/wk/wv/wo, w1/w3 and w2 (K
+# 13824 padded to 14336), at the QLoRA step's M (2 x 2048).
+MPTRAIN_LINEARS = ((5120, 2560), (5120, 6912), (13824, 2560))
+
+
+def check_mptrain(results):
+    """K1's tile at a model-2 rank's training shapes, on weights and x of
+    a generator of their own."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    M = 4096
+    for K, N in MPTRAIN_LINEARS:
+        qw = _quantize_leaf_int4(random_weight(K, N, g))
+        kpad = qw.q.shape[0] * 2
+        x = randn(M, K, gen=g)
+        x2 = F.pad(x, (0, kpad - K)).contiguous()
+        got = int4_matmul(x, qw)
+        err = compare(f"int4 mptrain M={M} K={K} N={N}", got,
+                      int4_matmul(x, qw, impl="plain"))
+        record(results, "int4_matmul",
+               f"M={M} K={K}(pad {kpad}) N={N} mp2 train", err,
+               timed_ms(lambda: int4_matmul_2d(x2, qw.q, qw.scale, qw.group),
+                        reps=3),
+               timed_ms(lambda: int4_matmul_2d_plain(x2, qw.q, qw.scale,
+                                                     qw.group), reps=3),
+               int4_bytes(qw, M, got), 2 * M * K * N,
+               timed_ms(lambda: x @ _dequantize_leaf(qw, torch.bfloat16),
+                        reps=3))
+
+
 # Decoder linears of the 13B model: (K, N) of wq/wk/wv/wo, w1/w3, w2, head.
 LINEAR_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000))
 GEMV_MS = (1, 4, 8, 32)        # decode batches and verify spans
@@ -1104,7 +1157,9 @@ def sdpa_backward_ms(q, k, v, do, mask, reps=3) -> float:
 
 
 TRAIN_FLASH_SHAPES = ((2, 40, 40, 2048, 2048), (2, 40, 8, 2048, 2048),
-                      (2, 40, 40, 512, 2048), (1, 40, 40, 2048, 2048))
+                      (2, 40, 40, 512, 2048), (1, 40, 40, 2048, 2048),
+                      # a rank's heads of the 13B at model 2 (phase 15)
+                      (2, 20, 20, 2048, 2048))
 
 
 def check_flash_bwd(gen, results, shapes=TRAIN_FLASH_SHAPES, D=128):
@@ -1963,11 +2018,15 @@ def write_eval_tasks(root, card: str, shape=(480, 640)) -> str:
     return str(task)
 
 
-def write_decoder_checkpoint(root):
+def write_decoder_checkpoint(root, fan_in_scale: bool = False):
     """A full-width decoder cut to 2 layers (bf16, weights from a seed) as
     a consolidated checkpoint under ``root / "ckpt"``, written with
     ``torch.save`` beside its ``meta.json`` and ``config.json``. Returns
-    the directory and the state dict (on the card)."""
+    the directory and the state dict (on the card). The weights are
+    standard normal; with ``fan_in_scale`` every linear's are divided by
+    the square root of its input width (the same draws), as an init
+    scales them, so the logits and the loss stay in a trained model's
+    range."""
     from a3vlm_tpu_torch.config import ModelArgs
 
     args = ModelArgs(n_layers=2, vocab_size=32000)
@@ -1982,8 +2041,13 @@ def write_decoder_checkpoint(root):
             shapes[f"layers.{i}.feed_forward.{w}.weight"] = shape
         for n in ("attention_norm", "ffn_norm"):
             shapes[f"layers.{i}.{n}.weight"] = (D,)
-    sd = {f"llma.{k}": torch.randn(*shape, generator=gen, device="cuda").to(
-        torch.bfloat16) for k, shape in shapes.items()}
+    def draw(k, shape):
+        w = torch.randn(*shape, generator=gen, device="cuda")
+        if fan_in_scale and len(shape) == 2 and "tok_embeddings" not in k:
+            w = w * shape[1] ** -0.5
+        return w.to(torch.bfloat16)
+
+    sd = {f"llma.{k}": draw(k, shape) for k, shape in shapes.items()}
     ckpt = root / "ckpt"
     ckpt.mkdir()
     torch.save({"model": {k: v.cpu() for k, v in sd.items()}},
@@ -4838,6 +4902,190 @@ def run_phase14_ckpt(card: str) -> dict:
     return launches
 
 
+P15_STEPS = 3
+P15_KERNELS = ("int4_matmul", "flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "vit_attention")
+# the first update against one rank's: the same weights and batch, bf16
+# sums in another order (the row products' partials summed over ranks in
+# float32, then rounded once); the later ones after updates that differ by
+# as much, and grad norms, which sum every element's square
+P15_FIRST_REL_TOL = 2e-3
+P15_LATER_REL_TOL = 2e-2
+
+
+def _p15_rank_report() -> dict:
+    """A rank's kernel launches and fallbacks, after the CLI's run (its
+    ``rank_report``)."""
+    return {"launches": {n: KERNELS[n][2].launches for n in KERNELS},
+            "fallbacks": qmm.fallback_count()}
+
+
+def _p15_collective_ms(prof) -> dict:
+    """ms of rank 0's host in each collective (``collective:*`` spans of
+    ``parallel/mesh.py``) over a profile."""
+    out = {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("collective:"):
+            out[evt.key.split(":", 1)[1]] = evt.cpu_time_total / 1e3
+    return out
+
+
+def _p15_same_leaves(live, stored, path="") -> int:
+    """torch.equal of every stored leaf (``None``: not stored) and the
+    live tree's leaf at its place; returns how many were compared."""
+    if stored is None:
+        return 0
+    if isinstance(stored, dict):
+        return sum(_p15_same_leaves(live[k], v, f"{path}/{k}")
+                   for k, v in stored.items())
+    if isinstance(stored, (list, tuple)):
+        return sum(_p15_same_leaves(a, b, f"{path}/{i}")
+                   for i, (a, b) in enumerate(zip(live, stored)))
+    if not torch.equal(live, stored.to(live.device, live.dtype)):
+        raise AssertionError(f"phase 15 (c): restored {path} differs from "
+                             "the saved leaf")
+    return 1
+
+
+def run_phase15(card: str) -> dict:
+    """Phase 15, after phase 14 (b): the training CLI on two ranks of this
+    card (gloo), phase 8's 2-layer full-width checkpoint (towers from the
+    seed; the linears at an init's scale), QLoRA rank 16, accumulation 2,
+    remat, 3 updates of a global batch of 2: one rank, then (a) data 2 x model 1 and (b) data 1 x model
+    2 (the all-column int4 tree), each held against one rank's losses and
+    grad norms, with every rank's launches and no fallback; (c) (b)'s
+    checkpoint resumed on one rank equals the saved files leaf for leaf.
+    Returns rank 0's launch counts of (a) and (b)."""
+    from a3vlm_tpu_torch import main_finetune
+    from a3vlm_tpu_torch.checkpoint.bridge import params_from_host
+
+    totals = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        task = write_eval_tasks(root, card)
+        with open(task) as f:
+            images = sorted({d["image"] for d in json.load(f)})
+        n = P15_STEPS * 2 * 2
+        (root / "dialog.json").write_text(json.dumps([
+            {"image": images[i % 2], "conversations": [
+                {"from": "human", "value": EVAL_QUESTIONS[i % 4]},
+                {"from": "gpt", "value": "<rb>revolute</rb>"
+                 f"[0.{i:02d},0.50,0.30,0.20,0.00]"}]} for i in range(n)]))
+        (root / "data.yaml").write_text(
+            f"META:\n - path: {root / 'dialog.json'}\n   type: image_text\n")
+        # phase 8's checkpoint at an init's scale: its unit-variance
+        # weights give a loss of ~300, which bf16 rounding moves by ~1%
+        ckpt, sd = write_decoder_checkpoint(root, fan_in_scale=True)
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = ["--tokenizer_path", str(ckpt), "--data_config",
+                str(root / "data.yaml"), "--dialog", "--pretrained_path",
+                str(ckpt), "--quant", "--lora_rank", "16",
+                "--only_save_trainable", "--checkpointing", "--accum_iter",
+                "2", "--epochs", "1", "--lr", "1e-4", "--min_lr", "1e-4",
+                "--warmup_epochs", "0", "--print_freq", "1", "--device",
+                "cuda"]
+        runs = {"one rank": ["--batch_size", "2"],
+                "(a) data 2 x model 1": [
+                    "--batch_size", "1", "--num_devices", "2", "--devices",
+                    ",".join(P14_DEVICES)],
+                "(b) data 1 x model 2": [
+                    "--batch_size", "2", "--model_parallel_size", "2",
+                    "--devices", ",".join(P14_DEVICES)]}
+        ref = None
+        for i, (label, extra) in enumerate(runs.items()):
+            out = root / f"run{i}"
+            reset_launches()
+            qmm.reset_fallbacks()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU]) as prof:
+                reports = main_finetune.train(
+                    argv + extra + ["--output_dir", str(out)],
+                    tokenizer=_PieceTable(32000),
+                    rank_report=_p15_rank_report)[1]
+            secs = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            steps = reports[0]["steps"]
+            step_ms = [s["seconds"] * 1e3 for s in steps]
+            coll = _p15_collective_ms(prof)
+            share = sum(coll.values()) / sum(step_ms) if coll else 0.0
+            print(f"[{card}] phase 15 {label}: {secs:.1f} s with the ranks' "
+                  f"start and the loads; steps "
+                  + ", ".join(f"{ms:.1f} ms (loss {s['loss']:.6f}, grad_norm "
+                              f"{s['grad_norm']:.6f})"
+                              for ms, s in zip(step_ms, steps))
+                  + f"; rank 0's host in collectives {sum(coll.values()):.1f}"
+                  f" ms ({share:.1%} of the steps' wall; "
+                  + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+                      coll.items())) + ")")
+            if len(steps) != P15_STEPS or not all(
+                    math.isfinite(s["loss"]) for s in steps):
+                raise AssertionError(f"phase 15 {label}: steps {steps}")
+            for rep in reports:
+                launched = {k: c for k, c in rep["launches"].items() if c}
+                print(f"[{card}] phase 15 {label}: rank {rep['rank']} "
+                      f"updates " + ", ".join(
+                          f"{s['seconds'] * 1e3:.1f}" for s in rep["steps"])
+                      + f" ms, peak {rep['peak_gib']:.2f} GiB, fallbacks "
+                      f"{rep['fallbacks']}, replicated trainables' digest "
+                      f"{rep['replicas']}, launches {launched}")
+                require_counts(rep["launches"], P15_KERNELS,
+                               f"phase 15 {label} rank {rep['rank']}")
+                if rep["fallbacks"]:
+                    raise AssertionError(f"phase 15 {label}: rank "
+                                         f"{rep['rank']} took "
+                                         f"{rep['fallbacks']} fallbacks")
+            if ref is None:
+                ref = steps
+                continue
+            for n_step, (got, want) in enumerate(zip(steps, ref)):
+                for key in ("loss", "grad_norm"):
+                    rel = abs(got[key] - want[key]) / abs(want[key])
+                    tol = (P15_FIRST_REL_TOL if n_step == 0 and key == "loss"
+                           else P15_LATER_REL_TOL)
+                    if rel > tol:
+                        raise AssertionError(
+                            f"phase 15 {label}: step {n_step} {key} "
+                            f"{got[key]} against one rank's {want[key]} "
+                            f"(rel {rel:.3e} > {tol})")
+            print(f"[{card}] phase 15 {label}: losses and grad norms within "
+                  f"{P15_FIRST_REL_TOL} (first loss) / {P15_LATER_REL_TOL} "
+                  f"of one rank's; replicated trainables the same bytes on "
+                  f"every rank")
+            for k, c in reports[0]["launches"].items():
+                totals[k] += c
+        # (c) (b)'s checkpoint resumed on one rank: its tree is the files'
+        saved = root / "run2" / "epoch_0"
+        t0 = time.perf_counter()
+        state, _ = main_finetune.train(
+            argv + ["--batch_size", "2", "--resume", str(saved),
+                    "--output_dir", str(root / "resumed")],
+            tokenizer=_PieceTable(32000))
+        stored = params_from_host(torch.load(saved / "model.pt",
+                                             weights_only=True),
+                                  device="cuda")
+        opt = torch.load(saved / "optimizer.pt", weights_only=True)
+        n_leaves = _p15_same_leaves(state.params, stored)
+        for key in ("mu", "nu"):
+            n_leaves += _p15_same_leaves(getattr(state.opt_state, key),
+                                         params_from_host(opt[key],
+                                                          device="cuda"))
+        if not state.opt_state.count == opt["count"] == P15_STEPS:
+            raise AssertionError("phase 15 (c): the update count differs")
+        print(f"[{card}] phase 15 (c) (b)'s epoch_0 resumed on one rank in "
+              f"{time.perf_counter() - t0:.1f} s: {n_leaves} leaves "
+              f"(trainables and both moments) equal to the saved ones "
+              f"(torch.equal), update count {state.opt_state.count}")
+        del state, stored, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def print_rows(card: str, results: list) -> None:
     """Prints phase 3's rows: error, kernel, plain, bound and library ms,
     and for the tensor-core kernels their rate and share of the bound."""
@@ -4928,6 +5176,7 @@ def main(argv=None) -> int:
         check_vit(gen, results)
         check_families(results)
         check_falcon(results)
+        check_mptrain(results)
     print_rows(card, results)
     if FAILURES:
         raise AssertionError("kernel checks failed:\n" + "\n".join(FAILURES))
@@ -5003,6 +5252,10 @@ def main(argv=None) -> int:
         p14[n] += c
     t14 += time.perf_counter() - t
     print(f"[{card}] phase 14: {t14:.1f} s")
+    # 15. training on two ranks of the card through the CLI
+    t15 = time.perf_counter()
+    p15 = run_phase15(card)
+    print(f"[{card}] phase 15: {time.perf_counter() - t15:.1f} s")
 
     table = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -5016,7 +5269,8 @@ def main(argv=None) -> int:
                    "fam": fam.get(name, 0),
                    "p12": p12.get(name, 0),
                    "gate": p13.get(name, 0),
-                   "mp": p14.get(name, 0)}
+                   "mp": p14.get(name, 0),
+                   "mptrain": p15.get(name, 0)}
         first = mine[0]  # the row of the main path's own shape
         table.append({
             "name": name, "route": "cuda", "source": source,

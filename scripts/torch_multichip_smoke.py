@@ -1,7 +1,7 @@
 """Smoke run of the port's serving on several cards: four NVIDIA GPUs of one
 host joined by NVLink, one rank a card, NCCL between them.
 
-    python3 scripts/torch_multichip_smoke.py [--phases k,a,cli,b,c]
+    python3 scripts/torch_multichip_smoke.py [--phases k,a,cli,b,c,t]
 
 (k) the kernels at the per-rank shapes of (a)-(c), on the first card,
     each against its plain version, timed with its bound, plain and
@@ -24,6 +24,20 @@ host joined by NVLink, one rank a card, NCCL between them.
     ids, with the bf16 and the int8 cache. Before it, the 16-layer cut of
     chip_smoke's phase 12 (a) (the same weights, all-column int4) at mp 4,
     held against the same model on one card.
+
+(t) training: chip_smoke's phase 5 QLoRA step (the 13B at full width,
+    rank 16, remat, a batch of 2 x 2048 tokens, 4 updates, the same seeds)
+    at data 2 x model 2 and at data 1 x model 4, every rank building the
+    model on its card and keeping its shard (``tp_align`` of the mesh: the
+    all-column int4 tree), held against the same 4 updates on one card
+    (losses within a relative 2e-3 on the first update, 2e-2 later); the
+    2 x 2 state saved (rank 0 writes the gathered leaves) and restored at
+    1 x 4 over its own trained state, every restored trainable and moment
+    equal to the file's. Each
+    update's ms, rank 0's host time in the collectives (``torch.profiler``
+    spans) and each rank's peak memory, launches and fallbacks. (k) adds
+    the rows of K1's tile at a model-4 rank's training shapes and K2 /
+    K9a / K9b at its 10 heads.
 
 Printed for each: prefill ms, a decode step's wall ms, each rank's device
 ms of one decode step and the collectives' share of it (``torch.profiler``
@@ -426,6 +440,195 @@ RANK_LINEARS = (
 )
 
 
+# ---------------------------------------------------------------- (t)
+
+T_STEPS = 4
+T_FIRST_REL_TOL = cs.P15_FIRST_REL_TOL
+T_LATER_REL_TOL = cs.P15_LATER_REL_TOL
+
+
+def phase5_setup(device: str, mp: int):
+    """chip_smoke's phase 5 on ``device``: the 13B built from seed 0, int4
+    (packed for ``mp`` model ranks), rank-16 adapters, the mask, bf16 over
+    float32 masters, and its batch, from the same generators."""
+    from a3vlm_tpu_torch.config import Ens5Config
+    from a3vlm_tpu_torch.main_finetune import qlora_trainable_mask
+    from a3vlm_tpu_torch.meta import MetaModel
+    from a3vlm_tpu_torch.models import ens5
+    from a3vlm_tpu_torch.train.lora import init_lora_params
+    from a3vlm_tpu_torch.utils.tensor_type import mixed_precision_policy
+
+    model = MetaModel("llama_ens5", with_visual=True, max_seq_len=2048,
+                      dtype=torch.bfloat16, tokenizer=cs._PieceTable(32000),
+                      model_cfg=Ens5Config(), seed=0, device=device)
+    model.quantize(bits=4, tp_align=mp * 128 if mp > 1 else 0)
+    gen = torch.Generator(device=device).manual_seed(17)
+    lora = init_lora_params(gen, model.params["llama"], rank=16)
+    mask = qlora_trainable_mask(model, lora, quant=True)
+    model.params = mixed_precision_policy(model.params, mask, torch.bfloat16)
+    mean = torch.tensor(ens5.CLIP_MEAN, device=device)
+    std = torch.tensor(ens5.CLIP_STD, device=device)
+    pixels = torch.rand(2, 448, 448, 3, generator=gen, device=device)
+    text = 2048 - model.cfg.image_words
+    examples = torch.randint(3, 32000, (2, text), generator=gen,
+                             device=device)
+    examples[:, 0] = 1
+    labels = examples.clone()
+    labels[:, :64] = 0
+    batch = {"examples": examples, "labels": labels,
+             "image": ((pixels - mean) / std).to(torch.bfloat16)}
+    return model, lora, mask, batch
+
+
+def train_steps(model, lora, mask, batch, mesh=None, restore=None,
+                save=None):
+    """``T_STEPS`` updates of the phase-5 step (on ``mesh``'s shard where
+    given), then a save to ``save`` or, over the trained state, a restore
+    of ``restore``. Returns each update's (loss, grad norm, ms) and, for
+    ``restore``, how many restored leaves equal the files'."""
+    from a3vlm_tpu_torch.checkpoint.bridge import params_from_host
+    from a3vlm_tpu_torch.checkpoint.manager import CheckpointManager
+    from a3vlm_tpu_torch.main_finetune import (make_loss_fn,
+                                               train_partition_specs)
+    from a3vlm_tpu_torch.parallel.mesh import shard_params
+    from a3vlm_tpu_torch.train.step import (TrainState, make_optimizer,
+                                            make_train_step,
+                                            partition_params)
+
+    params = {**model.params, "lora": lora}
+    if mesh is not None:
+        params = shard_params(params, mesh, train_partition_specs(
+            model, lora, mesh.mp_size))
+        model.params = {k: v for k, v in params.items() if k != "lora"}
+        model.mesh = mesh
+    opt = make_optimizer(1e-3, max_grad_norm=8.0, weight_decay=0.0)
+    step = make_train_step(make_loss_fn(model, torch.bfloat16, remat=True),
+                           opt, accum_steps=1, trainable_mask=mask,
+                           mesh=mesh)
+    state = TrainState.create(params, opt, mask)
+    out = {"steps": []}
+    torch.cuda.synchronize()
+    for _ in range(T_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out["steps"].append((loss, norm, (time.perf_counter() - t0) * 1e3))
+    if save is not None:
+        CheckpointManager(str(save), mesh=mesh).save(
+            0, params=state.params, opt_state=state.opt_state,
+            step=state.step, trainable_mask=mask)
+    if restore is not None:
+        mgr = CheckpointManager(restore.parent, mesh=mesh)
+        state.params = mgr.restore_params(str(restore), state.params)
+        state.opt_state = mgr.restore_train_state(
+            str(restore), state.opt_state)["opt_state"]
+        gathered = {"params": mgr._whole(partition_params(state.params,
+                                                          mask)[0]),
+                    "mu": mgr._whole(state.opt_state.mu),
+                    "nu": mgr._whole(state.opt_state.nu)}
+        if mesh is None or mesh.rank == 0:
+            stored = params_from_host(torch.load(
+                restore / "model.pt", weights_only=True), device=model.device)
+            opt_file = torch.load(restore / "optimizer.pt",
+                                  weights_only=True)
+            n = cs._p15_same_leaves(gathered["params"], stored)
+            for k in ("mu", "nu"):
+                n += cs._p15_same_leaves(gathered[k], params_from_host(
+                    opt_file[k], device=model.device))
+            out["restored_leaves"] = n
+    return out
+
+
+def _train_rank(mesh, mp, save, restore):
+    """A rank of (t): its model from the seeds on its card, the updates
+    (or the restore) on ``mesh`` (``mp`` model ranks), its launches, its
+    host time in the collectives and the NCCL kernels' device time."""
+    model, lora, mask, batch = phase5_setup(str(mesh.device), mp)
+    cs.reset_launches()
+    qmm.reset_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = train_steps(model, lora, mask, batch, mesh, restore=restore,
+                          save=save)
+    nccl = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and any(c in e.key.lower() for c in COLLECTIVES)]
+    out.update(rank=mesh.rank, launches=cs.launch_counts(),
+               fallbacks=qmm.fallback_count(),
+               collective_ms=cs._p15_collective_ms(prof),
+               nccl_ms=sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in nccl) / 1e3,
+               nccl_kernels=sum(e.count for e in nccl),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def run_t(card: str, root: Path) -> None:
+    """Phase 5's QLoRA step at data 2 x model 2 and 1 x 4 against one
+    card; the 2 x 2 checkpoint restored at 1 x 4 after its updates."""
+    from a3vlm_tpu_torch.parallel.launch import run_spmd
+
+    t0 = time.perf_counter()
+    model, lora, mask, batch = phase5_setup("cuda:0", 1)
+    ref = train_steps(model, lora, mask, batch)
+    del model, lora, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{card}] (t) one card: {time.perf_counter() - t0:.1f} s with "
+          "the build; updates " + ", ".join(
+              f"{ms:.1f} ms (loss {loss:.6f}, grad_norm {norm:.6f})"
+              for loss, norm, ms in ref["steps"]))
+    ckpt = root / "t_ckpt"
+    for mp, save, restore in ((2, ckpt, None), (4, None, ckpt / "epoch_0")):
+        label = f"(t) data {4 // mp} x model {mp}"
+        t0 = time.perf_counter()
+        outs = run_spmd(_train_rank, DEVICES, mp, save, restore,
+                        model_parallel_size=mp)
+        secs = time.perf_counter() - t0
+        for o in outs:
+            launched = {k: c for k, c in o["launches"].items() if c}
+            print(f"[{card}] {label}: rank {o['rank']} updates "
+                  + ", ".join(f"{ms:.1f}" for _, _, ms in o["steps"])
+                  + f" ms, peak {o['peak_gib']:.2f} GiB, fallbacks "
+                  f"{o['fallbacks']}, host in collectives "
+                  f"{sum(o['collective_ms'].values()):.1f} ms "
+                  f"({o['collective_ms']}), NCCL kernels "
+                  f"{o['nccl_kernels']} for {o['nccl_ms']:.1f} ms of device "
+                  f"time, launches {launched}")
+            if o["fallbacks"]:
+                raise AssertionError(f"{label}: rank {o['rank']} fell back")
+        if restore is not None:
+            print(f"[{card}] {label}: then the 2 x 2 save restored over "
+                  f"its state: {outs[0]['restored_leaves']} leaves "
+                  "(trainables, both moments) equal to the files "
+                  "(torch.equal)")
+        steps = outs[0]["steps"]
+        wall = sum(ms for _, _, ms in steps)
+        coll = sum(outs[0]["collective_ms"].values())
+        print(f"[{card}] {label}: {secs:.1f} s with the ranks' start and "
+              "builds; updates " + ", ".join(
+                  f"{ms:.1f} ms (loss {loss:.6f}, grad_norm {norm:.6f})"
+                  for loss, norm, ms in steps)
+              + f"; rank 0's host in collectives {coll:.1f} ms "
+              f"({coll / wall:.1%} of the updates' wall)")
+        for o in outs:
+            cs.require_counts(o["launches"], cs.P15_KERNELS,
+                              f"{label} rank {o['rank']}")
+        for i, (got, want) in enumerate(zip(steps, ref["steps"])):
+            for j, what in ((0, "loss"), (1, "grad_norm")):
+                rel = abs(got[j] - want[j]) / abs(want[j])
+                tol = T_FIRST_REL_TOL if (i, j) == (0, 0) else \
+                    T_LATER_REL_TOL
+                print(f"[{card}] {label} update {i} {what}: "
+                      f"{got[j]:.6f} vs one card {want[j]:.6f} (rel "
+                      f"{rel:.3e}, limit {tol})")
+                if rel > tol:
+                    raise AssertionError(f"{label}: update {i} {what}")
+
+
 def run_k(card: str) -> None:
     """The kernels at the per-rank shapes, on cuda:0, each against its
     plain version, timed as chip_smoke's phase 3 times its rows: K1 (a
@@ -470,6 +673,24 @@ def run_k(card: str) -> None:
                         x2, q, sc, qw.group), copies)
             del copies, qw
             torch.cuda.empty_cache()
+        # training at model 4: a rank's linears (M 2 x 2048) and heads
+        for K, N in ((5120, 1280), (5120, 3456), (13824, 1280)):
+            qw = _quantize_leaf_int4(cs.random_weight(K, N, gen))
+            x = cs.randn(4096, K, gen=gen)
+            x2 = cs.padded(x, qw)
+            got = int4_matmul(x, qw)
+            err = cs.compare(f"int4 mp4 train K={K} N={N}", got,
+                             int4_matmul(x, qw, impl="plain"))
+            cs.record(results, "int4_matmul",
+                      f"M=4096 K={K} N={N} mp4 train", err,
+                      cs.timed_ms(lambda: int4_matmul_2d(
+                          x2, qw.q, qw.scale, qw.group), reps=3),
+                      cs.timed_ms(lambda: int4_matmul_2d_plain(
+                          x2, qw.q, qw.scale, qw.group), reps=3),
+                      cs.int4_bytes(qw, 4096, got), 2 * 4096 * K * N,
+                      cs.timed_ms(lambda: x @ _dequantize_leaf(
+                          qw, torch.bfloat16), reps=3))
+        cs.check_flash_bwd(gen, results, ((2, 10, 10, 2048, 2048),))
         cs.check_flash(gen, results, ((4, 10, 10, 1487, 1487),))
         cs.check_flash(gen, results, ((4, 58, 2, 32, 32),), D=64)
         cs.check_latency_kernels(gen, results, ((4, 10, 1, 1544),), ())
@@ -484,7 +705,7 @@ def run_k(card: str) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="k,a,cli,b,c")
+    parser.add_argument("--phases", default="k,a,cli,b,c,t")
     phases = parser.parse_args(argv).phases.split(",")
     if torch.cuda.device_count() < 4:
         raise RuntimeError(f"needs four cards; {torch.cuda.device_count()} "
@@ -505,7 +726,8 @@ def main(argv=None) -> int:
                          ("a", lambda: run_a(card, task)),
                          ("cli", lambda: run_cli(card, task, root)),
                          ("b", lambda: run_b(card, task)),
-                         ("c", lambda: run_c(card))):
+                         ("c", lambda: run_c(card)),
+                         ("t", lambda: run_t(card, root))):
             if name not in phases:
                 continue
             t = time.perf_counter()

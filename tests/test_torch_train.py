@@ -41,6 +41,7 @@ from a3vlm_tpu_torch.main_finetune import make_loss_fn, qlora_trainable_mask
 from a3vlm_tpu_torch.meta import MetaModel
 from a3vlm_tpu_torch.models import ens5 as tens5
 from a3vlm_tpu_torch.ops.quant_matmul import qmat
+from a3vlm_tpu_torch.parallel.tp import Shard
 from a3vlm_tpu_torch.quant import LoraWeight, QuantizedWeight
 from a3vlm_tpu_torch.quant import _quantize_leaf_int4
 from a3vlm_tpu_torch.train import lr_sched
@@ -422,8 +423,21 @@ def test_finetune_cli_qlora_runs(tmp_path, tiny_tokenizer_dir):
     # only, finalized
     assert (tmp_path / "out" / "epoch_0" / "_DONE").exists()
 
+    # two ranks at model 2 train: the int4 base packed for them (the ffn
+    # padded to 256, w1's columns split), the adapters trained on each
+    mp2 = main_finetune.main(argv + [
+        "--model_parallel_size", "2", "--num_devices", "2", "--devices",
+        "cpu,cpu", "--output_dir", str(tmp_path / "mp2")])
+    assert mp2.step == state.step
+    w1 = mp2.params["llama"]["layers"][0]["feed_forward"]["w1"]["weight"]
+    assert isinstance(w1, Shard) and isinstance(w1.local, QuantizedWeight)
+    assert w1.local.q.shape[-1] == 128
+    b1 = mp2.params["lora"]["layers"][0]["feed_forward"]["w1"]["b"]
+    assert float(b1.local.abs().max()) > 0
+    assert (tmp_path / "mp2" / "epoch_0" / "_DONE").exists()
+    # what is not ported still says so
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_finetune.main(argv + ["--model_parallel_size", "2"])
+        main_finetune.main(argv + ["--profile_dir", str(tmp_path / "prof")])
 
     # an int8 base trains the same way (the later flag wins)
     state8 = main_finetune.main(argv + ["--quant_bits", "8"])
