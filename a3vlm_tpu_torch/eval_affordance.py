@@ -330,12 +330,23 @@ def get_args_parser() -> argparse.ArgumentParser:
                         help="int8-activation decode matmuls on the int4 "
                         "base (ops/quant_matmul.W4A8_DECODE). NOT "
                         "bit-exact: activations round to per-row int8. "
-                        "Requires --quant with --quant_bits 4")
+                        "Accuracy at depth not shown: on a random 7B / 13B "
+                        "that exact changes of rounding move 5-10%, it "
+                        "moved the logits 22% / 29%, 0.20 / 0.24 of int4's "
+                        "own error (scripts/torch_w4a8_accuracy.py); real "
+                        "weights unmeasured. Requires --quant with "
+                        "--quant_bits 4")
     parser.add_argument("--w8a8_prefill", action="store_true",
                         help="int8-activation prefill matmuls on the int4 "
                         "base (ops/quant_matmul.W8A8_PREFILL): the weights "
                         "requantized to int8 per tile. NOT bit-exact. "
-                        "Requires --quant with --quant_bits 4")
+                        "Accuracy at depth not shown: on a random 7B / 13B "
+                        "that exact changes of rounding move 5-10%, it "
+                        "moved the prefill logits 30% / 45% (0.27 / 0.37 "
+                        "of int4's own error) and the later steps' 17% / "
+                        "28% (scripts/torch_w8a8_prefill_accuracy.py); "
+                        "real weights unmeasured. Requires --quant with "
+                        "--quant_bits 4")
     parser.add_argument("--tower_bits", type=int, default=None, choices=[8],
                         help="W8A8 int8 vision towers (per-channel weights, "
                         "per-row activations). Opt-in serving mode beyond "

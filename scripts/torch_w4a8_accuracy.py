@@ -4,28 +4,37 @@ quantizer), counterpart of scripts/w4a8_accuracy.py.
 
 One matmul's error is bounded by the kernel tests; this script measures
 how the per-row int8 rounding of the activations compounds through a
-full-depth 32-layer 7B decode stack. Constant fabricated weights make every
-logit equal, so the decoder here is 7B-shaped with RANDOM content: int4
-codes, group scales U[3e-3, 6e-3] (a dequantized weight std of about 0.02,
-like a trained checkpoint's), bf16 embeddings N(0, 1) x 0.02, unit norms,
-an int4 head. The same token stream is teacher-forced through both arms: a
-32-id prompt (M = batch x 32 rows, the exact tiled kernel under either
-flag), then 64 decode steps with ``W4A8_DECODE`` off, then on (the flag is
-read at every call).
+full-depth decode stack (the 7B's 32 layers, or with ``--shape 13b`` the
+13B decoder of ``Ens5Config``: dim 5120, 40 layers). The same token stream
+is teacher-forced through every arm: a 32-id prompt (M = batch x 32 rows,
+the exact tiled kernel under either flag), then 64 decode steps with
+``W4A8_DECODE`` off, then on (the flag is read at every call).
 
-The codes are the JAX script's draw: the packed bytes uniform, which
-makes each nibble uniform over [-8, 7] with a mean of -0.5. Every weight
-then carries a bias of about -2.2e-3 (a ninth of its spread), and
-through the depth the hidden state collapses onto one direction whatever
-the input. Such a model gives every position the same logits up to a
-per-row sign (``distinct_argmax`` 1 or 2, ``offset_to_std`` far above 1),
-so its argmax agreement says little, and a change of rounding can flip
-that sign at a position, each such step costing ~100% relative RMS.
+Two draws of random content (constant fabricated weights make every
+logit equal):
 
-On the card the W4A8 arm is also held against its plain twin
-(``plain_twin``: the same W4A8 math through the plain versions, on the
-same weights and stream), which shows what the kernels add at depth
-beyond the mode's own rounding.
+- ``--draw jax`` (the default, ``random_llama_int4``): the JAX script's
+  draw, the parity run with it. Its codes are uniform over the packed
+  bytes, so each nibble has a mean of -0.5 and every weight a bias of
+  about a ninth of its spread; through the depth the hidden state
+  collapses onto one direction whatever the input (``distinct_argmax`` 1
+  or 2, ``offset_to_std`` far above 1), and a change of rounding can flip
+  a row's sign at a step (~100% relative RMS there). On the card the W4A8
+  arm is also held against its plain twin (``plain_twin``: the same W4A8
+  math through the plain versions), which shows what the kernels add at
+  depth beyond the mode's own rounding.
+- ``--draw depth_scaled`` (``depth_scaled_llama``): the JAX script's
+  recipe with dense bf16 linears N(0, 0.02^2), ``wo`` and ``w2`` scaled
+  by 1/sqrt(2 L), quantized to int4 by the port's own
+  ``quant.quantize_params`` (the quantizer behind ``MetaModel.quantize``).
+  The dense tree is kept, so a third arm, the dense bf16 run, measures
+  int4's own error: the JAX script's decision rule (ship the mode if its
+  argmax agreement is ~100% and its logit error stays in the int4
+  noise floor) made concrete as ``noise_floor_rule``. ``fitness``
+  checks on the exact arm that the draw is an instrument: not collapsed
+  (many distinct greedy ids, row means small against their spread) and
+  not chaotic (three exact changes of rounding, ``control_arms``, move
+  the logits little).
 
 Reports per-step logit relative RMS (mean, max and its step, median), the
 max abs logit difference, the exact logits' std, the mean top-1/top-2
@@ -36,13 +45,15 @@ exact logits depend on the input (``distinct_argmax``: the distinct greedy
 ids over all positions; ``offset_to_std``: a row's mean logit over its
 spread, averaged).
 
-    python scripts/torch_w4a8_accuracy.py [--steps 64] [--batch 4]
-        [--prompt 32] [--seed 0] [--controls]
+    python scripts/torch_w4a8_accuracy.py [--shape 7b|13b]
+        [--draw jax|depth_scaled]
+        [--steps 64] [--batch 4] [--prompt 32] [--seed 0] [--controls]
         [--device cuda]
 
-Prints one JSON line of the metrics. The weights are made on the device
-from a ``torch.Generator``; no dense 7B is ever held (3.5 GB of packed
-int4 and 0.26 GB of embeddings).
+Prints one JSON line of the metrics; on the depth-scaled draw exits 1
+unless the draw is fit and the mode passes the rule. The weights are made
+on the device from a ``torch.Generator`` (the 7B's depth-scaled draw:
+13.5 GB dense and 3.5 GB packed; the JAX draw holds no dense tree).
 """
 
 from __future__ import annotations
@@ -61,7 +72,24 @@ import torch  # noqa: E402
 from a3vlm_tpu_torch.config import ModelArgs  # noqa: E402
 from a3vlm_tpu_torch.models import llama  # noqa: E402
 from a3vlm_tpu_torch.ops import quant_matmul as qm  # noqa: E402
-from a3vlm_tpu_torch.quant import QuantizedWeight, int4_geometry  # noqa: E402
+from a3vlm_tpu_torch.quant import (  # noqa: E402
+    QuantizedWeight,
+    int4_geometry,
+    quantize_params,
+    tree_map,
+)
+
+# the depth-scaled draw is an instrument when its exact arm gives distinct
+# greedy ids at half the positions or more and row means at most their
+# spread (not collapsed), and each exact change of rounding
+# (``control_arms``) stays within this mean rel RMS and agreement, every
+# flip at a near-tie (not chaotic)
+FIT_MAX_OFFSET_TO_STD = 1.0
+FIT_MAX_CONTROL_REL_RMS = 0.03
+FIT_MIN_CONTROL_AGREEMENT = 0.95
+# the noise-floor rule: a mode's mean rel RMS against exact int4 at most
+# this share of exact int4's own against the dense arm
+RULE_MAX_RATIO = 0.25
 
 
 def seven_b_args(**kw) -> ModelArgs:
@@ -72,6 +100,17 @@ def seven_b_args(**kw) -> ModelArgs:
     )
     base.update(kw)
     return ModelArgs(**base)
+
+
+def thirteen_b_args(**kw) -> ModelArgs:
+    """The 13B decoder of ``Ens5Config`` (dim 5120, 40 layers, 40 heads,
+    ffn 13824) over a 32000-id vocabulary."""
+    base = dict(vocab_size=32000, max_batch_size=16, max_seq_len=256)
+    base.update(kw)
+    return ModelArgs(**base)
+
+
+SHAPES = {"7b": seven_b_args, "13b": thirteen_b_args}
 
 
 def random_llama_int4(args: ModelArgs, seed: int = 0,
@@ -122,6 +161,53 @@ def random_llama_int4(args: ModelArgs, seed: int = 0,
         "norm": {"weight": ones(D)},
         "output": {"weight": qw(D, V)},
     }
+
+
+def depth_scaled_llama(args: ModelArgs, seed: int = 0,
+                       device: str | torch.device = "cuda",
+                       dtype: torch.dtype = torch.bfloat16):
+    """Decoder params of ``args``' shape with random content, made on
+    ``device`` from a generator seeded with ``seed``: ``random_llama_int4``'s
+    recipe with every linear dense, N(0, 1) x 0.02 in ``dtype``, ``wo`` and
+    ``w2`` also scaled by 1/sqrt(2 L); embeddings N(0, 1) x 0.02,
+    unit norms, layers as a per-layer list. Returns ``(dense, int4)``: the
+    dense tree, and its int4 form by ``quantize_params(bits=4)`` (an int4
+    head; the embeddings and norms are the dense tree's tensors)."""
+    D, V, L = args.dim, args.vocab_size, args.n_layers
+    H, Hkv, hd, F = args.n_heads, args.kv_heads, args.head_dim, \
+        args.ffn_hidden_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res = (2 * L) ** -0.5
+
+    def w(in_dim, out_dim, scale=1.0):
+        x = torch.randn((in_dim, out_dim), generator=gen, device=device)
+        return (x * (0.02 * scale)).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    dense = {
+        "tok_embeddings": {"weight": w(V, D)},
+        "layers": [{
+            "attention": {
+                "wq": {"weight": w(D, H * hd)},
+                "wk": {"weight": w(D, Hkv * hd)},
+                "wv": {"weight": w(D, Hkv * hd)},
+                "wo": {"weight": w(H * hd, D, res)},
+            },
+            "feed_forward": {
+                "w1": {"weight": w(D, F)},
+                "w2": {"weight": w(F, D, res)},
+                "w3": {"weight": w(D, F)},
+            },
+            "attention_norm": {"weight": ones(D)},
+            "ffn_norm": {"weight": ones(D)},
+        } for _ in range(L)],
+        "norm": {"weight": ones(D)},
+        "output": {"weight": w(D, V)},
+    }
+    # quantize a copy of the containers: the dense leaves stay in ``dense``
+    return dense, quantize_params(tree_map(lambda t: t, dense), bits=4)
 
 
 def teacher_forced_ids(seed: int, batch: int, prompt: int, steps: int,
@@ -179,17 +265,28 @@ def near_ties(exact: np.ndarray, got: np.ndarray) -> list[dict]:
     return out
 
 
+def step_rel_rms(exact: np.ndarray, got: np.ndarray) -> np.ndarray:
+    """Per-step relative RMS of ``got`` against ``exact`` [..., B, V] over
+    each step's [B, V] slab (leading axes the steps; a 2-D slab is one
+    step)."""
+    e = exact.reshape(-1, exact.shape[-2] * exact.shape[-1])
+    g = got.reshape(e.shape)
+    return np.linalg.norm(g - e, axis=1) / np.linalg.norm(e, axis=1)
+
+
+def agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """The share of positions whose greedy ids agree."""
+    return float((a.argmax(-1) == b.argmax(-1)).mean())
+
+
 def metrics(exact: np.ndarray, got: np.ndarray) -> dict:
     """w4a8_accuracy.py:148-165's numbers of two [steps, B, V] logit
     arrays: per-step relative RMS over the [B, V] slab (mean, max, the
     step of the max; and the median), max abs difference, the exact logits' std, their
     mean top-1/top-2 margin, greedy argmax agreement; and ``near_ties``."""
-    steps = exact.shape[0]
     diff = got - exact
-    # per-step relative RMS over the [B, V] logit slab
-    norm = np.linalg.norm(exact.reshape(steps, -1), axis=1)
-    rel = np.linalg.norm(diff.reshape(steps, -1), axis=1) / norm
-    agree = (got.argmax(-1) == exact.argmax(-1)).mean()
+    rel = step_rel_rms(exact, got)
+    agree = agreement(got, exact)
     # margin context: how far apart are top1/top2 in the exact logits?
     srt = np.sort(exact, axis=-1)
     margin = (srt[..., -1] - srt[..., -2]).mean()
@@ -221,10 +318,11 @@ def content_dependence(exact: np.ndarray) -> dict:
 
 
 def run_arms(params, args: ModelArgs, prompt: torch.Tensor,
-             stream: torch.Tensor, run=None) -> dict:
+             stream: torch.Tensor, run=None, dense=None) -> dict:
     """The teacher-forced run with ``W4A8_DECODE`` off (False) and on
-    (True), each arm's logits as float32 numpy; the flag is restored
-    after."""
+    (True), each arm's logits as float32 numpy, and with ``dense`` (the
+    dense tree of ``params``) a third arm ``"dense"``, run with the flag
+    off; the flag is restored after."""
     run = run or make_run(args, prompt.shape[1], stream.shape[1])
     saved = qm.W4A8_DECODE
     outs = {}
@@ -232,9 +330,64 @@ def run_arms(params, args: ModelArgs, prompt: torch.Tensor,
         for w4a8 in (False, True):
             qm.W4A8_DECODE = w4a8
             outs[w4a8] = run(params, prompt, stream).cpu().numpy()
+        if dense is not None:
+            qm.W4A8_DECODE = False
+            outs["dense"] = run(dense, prompt, stream).cpu().numpy()
     finally:
         qm.W4A8_DECODE = saved
     return outs
+
+
+def noise_floor_rule(dense: np.ndarray, exact: np.ndarray,
+                     mode: np.ndarray) -> dict:
+    """The JAX scripts' decision rule made concrete, on the logits
+    [..., B, V] of the dense, exact int4 and mode arms: ``e_int4`` the
+    mean per-step rel RMS of exact int4 against dense, ``e_mode`` the same
+    of the mode against exact int4, both argmax agreements, and each
+    disagreement of the mode with exact int4 (``near_ties``). The mode
+    passes when ``e_mode <= RULE_MAX_RATIO * e_int4``, it agrees with
+    exact int4 at least as often as exact int4 with dense, and every
+    disagreement is a near-tie."""
+    e_int4 = float(step_rel_rms(dense, exact).mean())
+    e_mode = float(step_rel_rms(exact, mode).mean())
+    agree_int4 = agreement(exact, dense)
+    agree_mode = agreement(mode, exact)
+    flips = near_ties(exact, mode)
+    checks = {"ratio": e_mode <= RULE_MAX_RATIO * e_int4,
+              "agreement": agree_mode >= agree_int4,
+              "near_ties": all(t["near_tie"] for t in flips)}
+    return {"e_int4": e_int4, "e_mode": e_mode, "ratio": e_mode / e_int4,
+            "agreement_int4": agree_int4, "agreement_mode": agree_mode,
+            "disagreements": flips, "checks": checks,
+            "pass": all(checks.values())}
+
+
+def fitness(exact: np.ndarray, controls: dict) -> dict:
+    """Whether a draw is an instrument, on its exact arm's logits
+    [..., B, V] and ``control_arms``' logits: not collapsed
+    (``content_dependence`` gives distinct greedy ids at half the
+    positions or more, and ``offset_to_std`` at most
+    ``FIT_MAX_OFFSET_TO_STD``) and not chaotic (each control's mean rel
+    RMS against the exact arm at most ``FIT_MAX_CONTROL_REL_RMS``, its
+    agreement at least ``FIT_MIN_CONTROL_AGREEMENT``, every disagreement
+    a near-tie)."""
+    cd = content_dependence(exact)
+    positions = exact.size // exact.shape[-1]
+    checks = {"distinct_argmax": 2 * cd["distinct_argmax"] >= positions,
+              "offset_to_std": cd["offset_to_std"] <= FIT_MAX_OFFSET_TO_STD}
+    ctl = {}
+    for name, x in controls.items():
+        ties = near_ties(exact, x)
+        ctl[name] = {"rel_rms_mean": float(step_rel_rms(exact, x).mean()),
+                     "argmax_agreement": agreement(x, exact),
+                     "disagreements": len(ties),
+                     "past_near_tie": sum(not t["near_tie"] for t in ties)}
+        checks[name] = (ctl[name]["rel_rms_mean"] <= FIT_MAX_CONTROL_REL_RMS
+                        and ctl[name]["argmax_agreement"]
+                        >= FIT_MIN_CONTROL_AGREEMENT
+                        and not ctl[name]["past_near_tie"])
+    return {**cd, "positions": positions, "controls": ctl, "checks": checks,
+            "pass": all(checks.values())}
 
 
 def plain_twin(params, args: ModelArgs, prompt: torch.Tensor,
@@ -287,27 +440,52 @@ def brief(m: dict) -> dict:
             "past_near_tie": sum(not t["near_tie"] for t in ties)}
 
 
+def depth_scaled_gate(dense, params, args: ModelArgs,
+                      prompt: torch.Tensor, stream: torch.Tensor) -> dict:
+    """The W4A8 gate on a depth-scaled draw: the exact, W4A8 and dense
+    arms and ``control_arms``; ``fitness`` of the draw (whether the
+    rule's figures measure the mode), ``noise_floor_rule`` and the W4A8
+    arm's ``metrics`` against the exact arm. ``"pass"``: the draw is fit
+    and the mode passes the rule."""
+    outs = run_arms(params, args, prompt, stream, dense=dense)
+    fit = fitness(outs[False], control_arms(params, args, prompt, stream))
+    rule = noise_floor_rule(outs["dense"], outs[False], outs[True])
+    return {"fitness": fit, "rule": rule,
+            "w4a8_decode": metrics(outs[False], outs[True]),
+            "pass": fit["pass"] and rule["pass"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="7b")
+    ap.add_argument("--draw", choices=("jax", "depth_scaled"),
+                    default="jax")
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--controls", action="store_true",
-                    help="also run the exact path under three exact "
-                    "changes of rounding (control_arms), each held against "
-                    "the exact arm like the W4A8 arm")
+                    help="jax draw: also run the exact path under three "
+                    "exact changes of rounding (control_arms), each held "
+                    "against the exact arm like the W4A8 arm")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     if a.device != "cpu" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu")
-    margs = seven_b_args(max_batch_size=a.batch,
-                         max_seq_len=a.prompt + a.steps + 8)
-    print("building random-content 7B int4 params on the device...",
-          flush=True)
-    params = random_llama_int4(margs, seed=a.seed, device=a.device)
+    margs = SHAPES[a.shape](max_batch_size=a.batch,
+                            max_seq_len=a.prompt + a.steps + 8)
     prompt, stream = (torch.as_tensor(t, device=a.device) for t in
                       teacher_forced_ids(a.seed, a.batch, a.prompt, a.steps))
+    print(f"building the {a.shape} ({a.draw} draw) on the device...",
+          flush=True)
+    if a.draw == "depth_scaled":
+        dense, params = depth_scaled_llama(margs, a.seed, a.device)
+        out = depth_scaled_gate(dense, params, margs, prompt, stream)
+        out = {k: brief(v) if isinstance(v, dict) and "disagreements" in v
+               else v for k, v in out.items()}
+        print(json.dumps(out))
+        return 0 if out["pass"] else 1
+    params = random_llama_int4(margs, seed=a.seed, device=a.device)
     outs = run_arms(params, margs, prompt, stream)
     out = {"w4a8_decode": metrics(outs[False], outs[True])}
     if a.device != "cpu":

@@ -129,7 +129,9 @@ def _batch():
 def test_forward_train_logits_match(dense):
     jm, tm = dense["jm"], dense["tm"]
     examples, _ = _batch()
-    want = jfalcon.forward_train(jm.params, jm.args, jnp.asarray(examples))
+    # jitted: one compile in place of one for every op
+    want = jax.jit(jfalcon.forward_train, static_argnums=1)(
+        jm.params, jm.args, jnp.asarray(examples))
     with torch.inference_mode():
         got = tfalcon.forward_train(tm.params, tm.args,
                                     torch.tensor(examples))
@@ -148,7 +150,7 @@ def test_loss_and_gradients_match(dense):
         logits = jfalcon.forward_train(p, jm.args, jnp.asarray(examples))
         return jloss(logits, jnp.asarray(labels), vocab_size=jm.true_vocab)
 
-    jgrads = jax.grad(jax_loss)(jm.params)
+    jgrads = jax.jit(jax.grad(jax_loss))(jm.params)
     params = params_from_numpy(dense["tree"], device="cpu")
     tree_map(lambda t: t.requires_grad_(True), params)
     tm_grad = MetaModel("falcon", max_seq_len=128, params=params,

@@ -183,7 +183,8 @@ def _prefill_decode(s):
     jcache = jllama.KVCache.create(jm.args, 2, max_seq_len=S + 1,
                                    dtype=jnp.float32, layered=True)
     jp = jllama.unstack_layers(jm._decoder_params())
-    want, jcache, _ = jllama.prefill(
+    # jitted: one compile in place of one for every op
+    want, jcache, _ = jax.jit(jllama.prefill, static_argnums=1)(
         jp, jm.args, jcache, jnp.asarray(tokens),
         image_tokens=None if jimg is None else jnp.asarray(jimg))
     tcache = tllama.KVCache.create(tm.args, 2, max_seq_len=S + 1,
@@ -193,7 +194,8 @@ def _prefill_decode(s):
                                         torch.tensor(tokens), timg)
     assert n == S
     nxt = np.array([[5], [6]])
-    want_d, _ = jllama.decode_step(jp, jm.args, jcache, jnp.asarray(nxt), S)
+    want_d, _ = jax.jit(jllama.decode_step, static_argnums=1)(
+        jp, jm.args, jcache, jnp.asarray(nxt), S)
     with torch.inference_mode():
         got_d, _ = tllama.decode_step(tm._decoder_params(), tm.args, tcache,
                                       torch.tensor(nxt), S)

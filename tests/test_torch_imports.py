@@ -18,7 +18,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_SCRIPTS = ("torch_end_task_gate", "torch_gate_train_sweep",
                 "torch_w4a8_accuracy", "torch_w8a8_prefill_accuracy",
                 "torch_w8a8_tower_accuracy", "torch_spec_acceptance",
-                "torch_e2e_smoke")
+                "torch_e2e_smoke", "torch_depth_sweep")
 PORT_FILES = sorted((ROOT / "a3vlm_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [ROOT / "scripts" / f"{m}.py"
                                for m in PORT_SCRIPTS]

@@ -24,7 +24,7 @@ import torch
 from a3vlm_tpu.ops import decode_attention as jda
 from a3vlm_tpu.ops import flash_attention as jfa
 from a3vlm_tpu.ops import quant_matmul as jqm
-from a3vlm_tpu.ops.attention import sdpa_reference as j_sdpa
+from a3vlm_tpu.ops.attention import sdpa_reference
 from a3vlm_tpu.ops.vit_attention import vit_attention as j_vit_attention
 from a3vlm_tpu.quant import QuantizedWeight as JQuantizedWeight
 from a3vlm_tpu_torch.ops import decode_attention as dec
@@ -64,6 +64,10 @@ from a3vlm_tpu_torch.ops.vit_attention import (
     vit_attention,
     vit_attention_plain,
 )
+
+# the JAX package's plain attention jitted (the mask, a string or None,
+# static): one compile a shape in place of one for every op
+j_sdpa = jax.jit(sdpa_reference, static_argnums=3)
 
 torch.set_num_threads(1)
 
@@ -169,12 +173,12 @@ def test_flash_backward_matches_jax_grad(hq, hkv, sq, skv):
         return lambda q, k, v: jnp.sum(attn(q, k, v) * w)
 
     with pltpu.force_tpu_interpret_mode():
-        pallas = jax.grad(j_loss(lambda q, k, v: jfa.flash_attention(
-            q, k, v, True, 128, 128)), argnums=(0, 1, 2))(
+        pallas = jax.jit(jax.grad(j_loss(lambda q, k, v: jfa.flash_attention(
+            q, k, v, True, 128, 128)), argnums=(0, 1, 2)))(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref = jax.grad(j_loss(lambda q, k, v: j_sdpa(q, k, v, "causal")),
-                   argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
-                                      jnp.asarray(v))
+    ref = jax.jit(jax.grad(j_loss(lambda q, k, v: j_sdpa(q, k, v, "causal")),
+                           argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
 
     bhsd = [torch.tensor(x).transpose(1, 2).contiguous() for x in (q, k, v)]
     tw = torch.tensor(w).transpose(1, 2).contiguous()
@@ -298,8 +302,8 @@ def test_flash_bwd_dq_plain_tile_edges(hq, hkv, Sq, Skv, D, causal, sq_a,
     do = _normal((1, hq, Sq, D), 63)
     do[:, :, sq:] = 0.0
     mask = "causal" if causal else None
-    grads = jax.grad(lambda x, y, z: jnp.sum(
-        j_sdpa(x, y, z, mask) * _bshd(do, sq)), argnums=(0, 1, 2))(
+    grads = jax.jit(jax.grad(lambda x, y, z: jnp.sum(
+        j_sdpa(x, y, z, mask) * _bshd(do, sq)), argnums=(0, 1, 2)))(
         _bshd(q, sq), _bshd(k, skv), _bshd(v, skv))
     want_dq, want_dk, want_dv = (np.asarray(g).transpose(0, 2, 1, 3)
                                  for g in grads)

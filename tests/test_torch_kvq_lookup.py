@@ -29,6 +29,7 @@ from a3vlm_tpu_torch import constrained as tconstrained
 from a3vlm_tpu_torch.checkpoint.bridge import (
     kv_cache_from_numpy,
     params_from_numpy,
+    params_to_numpy,
 )
 from a3vlm_tpu_torch.config import tiny_ens5_config
 from a3vlm_tpu_torch.lookup_decode import (
@@ -37,6 +38,7 @@ from a3vlm_tpu_torch.lookup_decode import (
     lookup_generate,
 )
 from a3vlm_tpu_torch.meta import MetaModel
+from a3vlm_tpu_torch.models import ens5 as tens5
 from a3vlm_tpu_torch.models import llama as tllama
 from a3vlm_tpu_torch.ops import decode_attention as tda
 from a3vlm_tpu_torch.ops.norms import rms_norm
@@ -67,8 +69,12 @@ class _Recording:
 def setup(tiny_tokenizer):
     vocab = -(-tiny_tokenizer.n_words // 128) * 128
     jcfg = jens5.tiny_ens5_config(vocab_size=vocab)
-    jparams = jens5.init_ens5_params(jax.random.PRNGKey(11), jcfg)
-    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    # the port's init, carried to JAX (the JAX package's eager init of the
+    # tiny towers takes ~40 s on one CPU thread)
+    tree = params_to_numpy(tens5.init_ens5_params(
+        tiny_ens5_config(vocab), torch.float32, "cpu",
+        torch.Generator().manual_seed(11)))
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     image = np.random.default_rng(0).normal(
         size=(1, jcfg.image_size, jcfg.image_size, 3)).astype(np.float32)
     jrec, trec = _Recording(tiny_tokenizer), _Recording(tiny_tokenizer)
@@ -129,8 +135,9 @@ def test_prefill_chunked_matches_one_shot_and_jax(setup):
     tp = setup["tmodel"].params["llama"]
     jcache = jllama.KVCache.create(jargs, 1, S + 1, dtype=jnp.float32,
                                    layered=True)
-    want, jcache, _ = jllama.prefill_chunked(jp, jargs, jcache,
-                                             jnp.asarray(tokens), jimg, 16)
+    # jitted: one compile in place of one for every op
+    want, jcache, _ = jax.jit(jllama.prefill_chunked, static_argnums=(1, 5))(
+        jp, jargs, jcache, jnp.asarray(tokens), jimg, 16)
     with torch.inference_mode():
         c1 = tllama.KVCache.create(targs, 1, S + 1, dtype=torch.float32,
                                    device="cpu")

@@ -209,10 +209,22 @@ def test_int4_packing_byte_identical(in_dim, out_dim):
     np.testing.assert_array_equal(hi_t.numpy(), np.asarray(hi_j))
 
 
+def _init_tree(cfg, seed):
+    """The JAX init's tree of ``cfg`` (its shapes, dtypes and layout, by
+    ``eval_shape``) filled from a seeded numpy generator: the JAX
+    package's eager init of the tiny towers takes ~40 s on one CPU
+    thread."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: jens5.init_ens5_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(
+        lambda x: (0.05 * rng.standard_normal(x.shape)).astype(x.dtype),
+        shapes)
+
+
 def test_quantize_params_matches_blocklist_and_filter():
     cfg = jens5.tiny_ens5_config()
-    params = jax.tree_util.tree_map(
-        np.asarray, jens5.init_ens5_params(jax.random.PRNGKey(0), cfg))
+    params = _init_tree(cfg, 0)
     jq = jquant.quantize_params(params["llama"], bits=4)
     tq = tquant.quantize_params(
         params_from_numpy({"llama": params["llama"]},
@@ -267,7 +279,7 @@ def test_bridge_layouts():
     leaves keep their bytes, a k_chunks > 1 leaf is repacked to the plain
     split-half layout with the same dense weight."""
     cfg = jens5.tiny_ens5_config()
-    jparams = jens5.init_ens5_params(jax.random.PRNGKey(1), cfg)
+    jparams = _init_tree(cfg, 1)
     jparams["llama"] = jquant.quantize_params(jparams["llama"], bits=4)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     p = params_from_numpy(tree, device="cpu")

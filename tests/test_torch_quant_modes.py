@@ -450,9 +450,13 @@ def test_quantize_tower_params_matches_jax():
     """Same leaves, byte-identical q and scale; then the towers' features
     through both packages' W8A8 path."""
     jcfg = jens5.tiny_ens5_config()
-    jparams = jens5.init_ens5_params(jax.random.PRNGKey(3), jcfg)
-    tree = jax.tree_util.tree_map(np.asarray, jparams)
-    jq = jens5.quantize_tower_params(jparams)
+    # the port's init, carried to JAX (the JAX package's eager init of the
+    # tiny towers takes ~40 s on one CPU thread)
+    tree = params_to_numpy(tens5.init_ens5_params(
+        tiny_ens5_config(), torch.float32, "cpu",
+        torch.Generator().manual_seed(3)))
+    jq = jens5.quantize_tower_params(
+        jax.tree_util.tree_map(jnp.asarray, tree))
     tq = tens5.quantize_tower_params(params_from_numpy(tree, device="cpu"))
     assert tens5.W8A8_TOWER_KEYS == jens5.W8A8_TOWER_KEYS
 
@@ -473,7 +477,9 @@ def test_quantize_tower_params_matches_jax():
     assert n >= 4 * 4  # four linears per ViT block stack, pw1/pw2 per stage
     assert isinstance(tq["qformer_proj"]["linear"]["weight"], torch.Tensor)
     images = _rand((1, jcfg.image_size, jcfg.image_size, 3), 82)
-    want = jens5.build_image_tokens(jq, jcfg, jnp.asarray(images))
+    # jitted: one compile in place of one for every op of the towers
+    want = jax.jit(jens5.build_image_tokens, static_argnums=1)(
+        jq, jcfg, jnp.asarray(images))
     got = tens5.build_image_tokens(tq, tiny_ens5_config(), _t(images))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)

@@ -22,9 +22,13 @@ from a3vlm_tpu.models import ens5 as jens5
 from a3vlm_tpu.models import llama as jllama
 from a3vlm_tpu.ops import quant_matmul as jqm
 from a3vlm_tpu_torch import quant as tquant
-from a3vlm_tpu_torch.checkpoint.bridge import params_from_numpy
+from a3vlm_tpu_torch.checkpoint.bridge import (
+    params_from_numpy,
+    params_to_numpy,
+)
 from a3vlm_tpu_torch.config import tiny_ens5_config
 from a3vlm_tpu_torch.meta import MetaModel
+from a3vlm_tpu_torch.models import ens5 as tens5
 from a3vlm_tpu_torch.models import llama as tllama
 from a3vlm_tpu_torch.ops import quant_matmul as tqm
 
@@ -71,11 +75,14 @@ class _Recording:
 def setup(tiny_tokenizer):
     vocab = -(-tiny_tokenizer.n_words // 128) * 128
     jcfg = jens5.tiny_ens5_config(vocab_size=vocab)
-    jparams = jens5.init_ens5_params(jax.random.PRNGKey(11), jcfg)
+    tcfg = tiny_ens5_config(vocab)
+    # the port's init, carried to JAX (the JAX package's eager init of the
+    # tiny towers takes ~40 s on one CPU thread)
+    tree = params_to_numpy(tens5.init_ens5_params(
+        tcfg, torch.float32, "cpu", torch.Generator().manual_seed(11)))
     return {
-        "tok": tiny_tokenizer, "jcfg": jcfg, "tcfg": tiny_ens5_config(vocab),
-        "jparams": jparams,
-        "tree": jax.tree_util.tree_map(np.asarray, jparams),
+        "tok": tiny_tokenizer, "jcfg": jcfg, "tcfg": tcfg,
+        "jparams": jax.tree_util.tree_map(jnp.asarray, tree), "tree": tree,
         "images": _rand((2, jcfg.image_size, jcfg.image_size, 3), 12),
     }
 
@@ -113,6 +120,12 @@ def test_slice_matches_jax_in_mode(setup, mode, monkeypatch, one_device):
     decode step too, and identical greedy ids over 10 new tokens."""
     jax.clear_caches()
     _set_mode(monkeypatch, mode)
+    # the JAX side's tower quantizer and decode step jitted: one compile
+    # each in place of one for every op (the prefill stays eager: jitted,
+    # XLA's fusions move the A8 modes' rounding ties)
+    monkeypatch.setattr(jens5, "quantize_tower_params",
+                        jax.jit(jens5.quantize_tower_params))
+    j_decode = jax.jit(jllama.decode_step, static_argnums=1)
     tok = setup["tok"]
     jcfg, tcfg = setup["jcfg"], setup["tcfg"]
     jrec, trec = _Recording(tok), _Recording(tok)
@@ -159,8 +172,7 @@ def test_slice_matches_jax_in_mode(setup, mode, monkeypatch, one_device):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                    rtol=0)
         nxt = np.array([[5], [6]])
-        want_d, _ = jllama.decode_step(jp, jcfg.llama, jcache,
-                                       jnp.asarray(nxt), S)
+        want_d, _ = j_decode(jp, jcfg.llama, jcache, jnp.asarray(nxt), S)
         got_d, _ = tllama.decode_step(tp, tcfg.llama, tcache,
                                       torch.tensor(nxt), S)
         np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),

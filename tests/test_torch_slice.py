@@ -20,7 +20,10 @@ from a3vlm_tpu.meta import MetaModel as JMetaModel
 from a3vlm_tpu.models import ens5 as jens5
 from a3vlm_tpu.models import llama as jllama
 from a3vlm_tpu.quant import quantize_params as j_quantize_params
-from a3vlm_tpu_torch.checkpoint.bridge import params_from_numpy
+from a3vlm_tpu_torch.checkpoint.bridge import (
+    params_from_numpy,
+    params_to_numpy,
+)
 from a3vlm_tpu_torch.config import tiny_ens5_config
 from a3vlm_tpu_torch.meta import MetaModel
 from a3vlm_tpu_torch.models import ens5 as tens5
@@ -49,20 +52,25 @@ class _Recording:
 def setup(tiny_tokenizer):
     vocab = -(-tiny_tokenizer.n_words // 128) * 128
     jcfg = jens5.tiny_ens5_config(vocab_size=vocab)
-    jparams = jens5.init_ens5_params(jax.random.PRNGKey(7), jcfg)
-    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    tcfg = tiny_ens5_config(vocab)
+    # the port's init, carried to JAX (the JAX package's eager init of the
+    # tiny towers takes ~40 s on one CPU thread)
+    tree = params_to_numpy(tens5.init_ens5_params(
+        tcfg, torch.float32, "cpu", torch.Generator().manual_seed(7)))
     rng = np.random.default_rng(0)
     images = rng.normal(size=(2, jcfg.image_size, jcfg.image_size, 3)).astype(
         np.float32)
     return {
-        "tok": tiny_tokenizer, "jcfg": jcfg, "tcfg": tiny_ens5_config(vocab),
-        "jparams": jparams, "tree": tree, "images": images,
+        "tok": tiny_tokenizer, "jcfg": jcfg, "tcfg": tcfg,
+        "jparams": jax.tree_util.tree_map(jnp.asarray, tree), "tree": tree,
+        "images": images,
     }
 
 
 def test_image_tokens_match(setup):
-    want = jens5.build_image_tokens(setup["jparams"], setup["jcfg"],
-                                    jnp.asarray(setup["images"]))
+    # jitted: one compile in place of one for every op of the towers
+    want = jax.jit(jens5.build_image_tokens, static_argnums=1)(
+        setup["jparams"], setup["jcfg"], jnp.asarray(setup["images"]))
     tparams = params_from_numpy(setup["tree"], device="cpu")
     got = tens5.build_image_tokens(tparams, setup["tcfg"],
                                    torch.tensor(setup["images"]))
@@ -85,8 +93,9 @@ def test_int4_prefill_logits_match(setup):
     S = 9 + jcfg.image_words
     jcache = jllama.KVCache.create(jcfg.llama, 2, max_seq_len=S + 1,
                                    dtype=jnp.float32, layered=True)
-    want, jcache, _ = jens5.prefill(jp, jcfg, jcache, jnp.asarray(tokens),
-                                    image=jnp.asarray(images))
+    # jitted, as in test_image_tokens_match
+    want, jcache, _ = jax.jit(jens5.prefill, static_argnums=1)(
+        jp, jcfg, jcache, jnp.asarray(tokens), image=jnp.asarray(images))
     tcache = tllama.KVCache.create(tcfg.llama, 2, max_seq_len=S + 1,
                                    dtype=torch.float32, device="cpu")
     got, tcache, n = tens5.prefill(tp, tcfg, tcache, torch.tensor(tokens),
@@ -100,7 +109,8 @@ def test_int4_prefill_logits_match(setup):
                                    rtol=0)
     # one decode step over the written cache
     nxt = np.array([[5], [6]])
-    want_d, _ = jens5.decode_step(jp, jcfg, jcache, jnp.asarray(nxt), S)
+    want_d, _ = jax.jit(jens5.decode_step, static_argnums=1)(
+        jp, jcfg, jcache, jnp.asarray(nxt), S)
     got_d, _ = tens5.decode_step(tp, tcfg, tcache, torch.tensor(nxt), S)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=ATOL,
                                rtol=0)
