@@ -32,7 +32,6 @@ eager steps:
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Iterable, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -45,6 +44,7 @@ from a3vlm_tpu_torch.ops.decode_attention import kv_cache_dtype
 from a3vlm_tpu_torch.ops.sampling import sample_token
 from a3vlm_tpu_torch.parallel import tp
 from a3vlm_tpu_torch.parallel.mesh import DATA_AXIS, on_mesh
+from a3vlm_tpu_torch.utils import trace
 
 
 class GenOps(NamedTuple):
@@ -101,6 +101,23 @@ def _prefill_bucket(min_prompt: int) -> int:
     return p
 
 
+def row_steps(prompt_lens: Sequence[int], stop_pos: Sequence[int], P: int,
+              steps: int, max_gen_len: int) -> dict:
+    """What the vanilla loop's ``steps`` decode steps fed each row, summed
+    over the rows: the step at position q (q = P, P + 1, ...) feeds row i
+    its id at q; ``row_steps_forced`` a prompt id (q < the row's length
+    n), ``row_steps_asked`` a generated id of index q - n < ``max_gen_len``
+    before the row's stop (q < ``stop_pos[i]``, where its returned ids
+    end), ``row_steps_spare`` any other. They sum to rows x ``steps``."""
+    end = P + steps
+    forced = asked = 0
+    for n, stop in zip(prompt_lens, stop_pos):
+        forced += max(min(n, end) - P, 0)
+        asked += max(min(n + max_gen_len, stop, end) - max(n, P), 0)
+    return {"row_steps_forced": forced, "row_steps_asked": asked,
+            "row_steps_spare": len(prompt_lens) * steps - forced - asked}
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the device, so host clocks bracket its work."""
     if device.type == "cuda":
@@ -129,7 +146,9 @@ class Generator:
         self.prefill_chunk = prefill_chunk
         self.ops = ops
         self.mesh = mesh
-        # wall times of the last call's phases (ms), synchronized on CUDA
+        # the numbers of the last call's spans and counters
+        # (``trace.Record.stats``): host ms of its phases, synchronized on
+        # CUDA, and its step counts
         self.last_stats: dict = {}
         # set by the lookup path (draft_k > 0): emitted tokens and verify
         # rounds of the LAST request
@@ -234,14 +253,32 @@ class Generator:
                                                     image_tokens, max_gen_len)
         stop_tokens = tuple(dict.fromkeys(tuple(s) for s in stop_tokens))
         fsm_next, fsm_host = self._fsm_next(fsm)
-        if draft_k and bsz == 1 and self.ops is LLAMA_GEN_OPS:
-            return [self._generate_lookup(
-                prompt_tokens[0], image_tokens, max_gen_len, stop_tokens,
-                draft_k, impl, fsm_next, fsm_host, temperature, top_p, seed,
-                lookup_max_n)]
+        with trace.call("generate") as rec:
+            first = len(rec.spans)
+            if draft_k and bsz == 1 and self.ops is LLAMA_GEN_OPS:
+                out = [self._generate_lookup(
+                    prompt_tokens[0], image_tokens, max_gen_len, stop_tokens,
+                    draft_k, impl, fsm_next, fsm_host, temperature, top_p,
+                    seed, lookup_max_n)]
+            else:
+                out = self._generate(prompt_tokens, image_tokens, max_seq_len,
+                                     max_gen_len, temperature, top_p,
+                                     stop_tokens, seed, impl, fsm_next)
+        self.last_stats = rec.stats(first)
+        return out
 
-        min_prompt = min(len(t) for t in prompt_tokens)
-        max_prompt = max(len(t) for t in prompt_tokens)
+    def _generate(self, prompt_tokens, image_tokens, max_seq_len, max_gen_len,
+                  temperature, top_p, stop_tokens, seed, impl,
+                  fsm_next) -> list[list[int]]:
+        """The vanilla loop (the module's docstring), in the open call's
+        spans: ``prefill``, ``decode`` and in it one ``decode.issue``
+        (attribute ``forced``: the step feeds some row a prompt id) and one
+        ``decode.wait`` (the host blocked on the stop flags) an iteration;
+        counters ``decode_steps`` and ``row_steps``'s three."""
+        args, device = self.args, self.device
+        bsz = len(prompt_tokens)
+        prompt_lens = [len(t) for t in prompt_tokens]
+        min_prompt, max_prompt = min(prompt_lens), max(prompt_lens)
         total_len = min(max_seq_len, max_gen_len + max_prompt)
 
         tokens = torch.zeros((bsz, total_len), dtype=torch.int64)
@@ -258,71 +295,89 @@ class Generator:
             args, self._batch_rows(bsz), total_len + W,
             kv_cache_dtype(self.kv_cache_bits, device), device)
         uniforms = self._uniforms(seed, total_len - P, bsz, temperature)
-        t0 = time.perf_counter()
-        logits, cache, _ = self._prefill(cache, tokens[:, :P], image_tokens,
-                                         impl)
-        synchronize(device)
-        t1 = time.perf_counter()
+        with trace.span("prefill"):
+            logits, cache, _ = self._prefill(cache, tokens[:, :P],
+                                             image_tokens, impl)
+            synchronize(device)
 
-        V = logits.shape[-1]
-        limit = self.vocab_limit if self.vocab_limit is not None else V
-        greedy_nofsm = temperature <= 0.0 and fsm_next is None
-        pad_mask = torch.arange(V, device=device) >= limit
-        stopped = torch.zeros(bsz, dtype=torch.bool, device=device)
-        stop_pos = torch.full((bsz,), P + 1, dtype=torch.int64, device=device)
-        fstate = torch.zeros(bsz, dtype=torch.int64, device=device)
-        steps = 0
-        for cur_pos in range(P, total_len):
-            if greedy_nofsm:
-                next_tok = torch.argmax(logits[:, :limit], dim=-1)
-            else:
-                # -1e30, not -inf: the softmax input stays finite
-                logits = logits.masked_fill(pad_mask, -1e30)
-                if fsm_next is not None:
-                    # tokens that would kill the answer DFA (or EOS outside
-                    # an accepting state) can never be chosen
-                    logits = torch.where(fsm_next[fstate] >= 0, logits,
-                                         torch.full_like(logits, -1e30))
-                next_tok = sample_token(
-                    logits, temperature, top_p,
-                    uniform=None if uniforms is None
-                    else uniforms[cur_pos - P])
-            prompt_here = in_prompt[:, cur_pos]
-            next_tok = torch.where(prompt_here, tokens[:, cur_pos],
-                                   next_tok.long())
-            tokens[:, cur_pos] = next_tok
-            stop_pos = torch.where(stopped, stop_pos,
-                                   torch.full_like(stop_pos, cur_pos + 1))
-            for st in stops:
-                L = st.numel()
-                if cur_pos + 1 - L < 0:
-                    continue
-                window = tokens[:, cur_pos + 1 - L: cur_pos + 1]
-                new_stop = ((window == st[None]).all(dim=1) & ~prompt_here
-                            & ~stopped)
-                stop_pos = torch.where(new_stop,
-                                       torch.full_like(stop_pos,
-                                                       cur_pos + 1 - L),
-                                       stop_pos)
-                stopped = stopped | new_stop
-            if fsm_next is not None:
-                # the DFA moves on GENERATED tokens only: neither prompt
-                # forcing nor sampling after a stop moves the grammar
-                nf = fsm_next[fstate, next_tok].long().clamp_min(0)
-                fstate = torch.where(prompt_here | stopped, fstate, nf)
-            if cur_pos + 1 >= total_len or bool(stopped.all()):
-                break
-            logits, cache = self._decode(cache, next_tok[:, None],
-                                         cur_pos + W, impl)
-            steps += 1
-        synchronize(device)
-        t2 = time.perf_counter()
-        self.last_stats = {"prefill_ms": (t1 - t0) * 1e3,
-                           "decode_ms": (t2 - t1) * 1e3,
-                           "decode_steps": steps}
+        with trace.span("decode"):
+            V = logits.shape[-1]
+            limit = self.vocab_limit if self.vocab_limit is not None else V
+            greedy_nofsm = temperature <= 0.0 and fsm_next is None
+            pad_mask = torch.arange(V, device=device) >= limit
+            stopped = torch.zeros(bsz, dtype=torch.bool, device=device)
+            stop_pos = torch.full((bsz,), P + 1, dtype=torch.int64,
+                                  device=device)
+            fstate = torch.zeros(bsz, dtype=torch.int64, device=device)
+            steps = 0
+            # an iteration: issue (the step that feeds the id chosen at
+            # cur_pos - 1, then the choice at cur_pos and its
+            # bookkeeping), then wait (the host reads whether every row
+            # has stopped)
+            cur_pos = P
+            while cur_pos < total_len:
+                with trace.span("decode.issue", forced=cur_pos <= max_prompt):
+                    if cur_pos > P:
+                        logits, cache = self._decode(
+                            cache, next_tok[:, None], cur_pos - 1 + W, impl)
+                        steps += 1
+                    if greedy_nofsm:
+                        next_tok = torch.argmax(logits[:, :limit], dim=-1)
+                    else:
+                        # -1e30, not -inf: the softmax input stays finite
+                        logits = logits.masked_fill(pad_mask, -1e30)
+                        if fsm_next is not None:
+                            # tokens that would kill the answer DFA (or EOS
+                            # outside an accepting state) can never be
+                            # chosen
+                            logits = torch.where(
+                                fsm_next[fstate] >= 0, logits,
+                                torch.full_like(logits, -1e30))
+                        next_tok = sample_token(
+                            logits, temperature, top_p,
+                            uniform=None if uniforms is None
+                            else uniforms[cur_pos - P])
+                    prompt_here = in_prompt[:, cur_pos]
+                    next_tok = torch.where(prompt_here, tokens[:, cur_pos],
+                                           next_tok.long())
+                    tokens[:, cur_pos] = next_tok
+                    stop_pos = torch.where(
+                        stopped, stop_pos,
+                        torch.full_like(stop_pos, cur_pos + 1))
+                    for st in stops:
+                        L = st.numel()
+                        if cur_pos + 1 - L < 0:
+                            continue
+                        window = tokens[:, cur_pos + 1 - L: cur_pos + 1]
+                        new_stop = ((window == st[None]).all(dim=1)
+                                    & ~prompt_here & ~stopped)
+                        stop_pos = torch.where(
+                            new_stop,
+                            torch.full_like(stop_pos, cur_pos + 1 - L),
+                            stop_pos)
+                        stopped = stopped | new_stop
+                    if fsm_next is not None:
+                        # the DFA moves on GENERATED tokens only: neither
+                        # prompt forcing nor sampling after a stop moves
+                        # the grammar
+                        nf = fsm_next[fstate, next_tok].long().clamp_min(0)
+                        fstate = torch.where(prompt_here | stopped, fstate,
+                                             nf)
+                if cur_pos + 1 >= total_len:
+                    break
+                with trace.span("decode.wait"):
+                    done = bool(stopped.all())
+                if done:
+                    break
+                cur_pos += 1
+            synchronize(device)
+        trace.count("decode_steps", steps)
 
         out_tokens = tokens.cpu()
         stop_pos = stop_pos.cpu()
+        for key, n in row_steps(prompt_lens, stop_pos.tolist(), P, steps,
+                                max_gen_len).items():
+            trace.count(key, n)
         return [out_tokens[i, len(prompt_tokens[i]): int(stop_pos[i])].tolist()
                 for i in range(bsz)]
 
@@ -367,38 +422,36 @@ class Generator:
         if uniforms is not None:
             uniforms = torch.cat([uniforms[key_offset:, 0],
                                   uniforms.new_zeros(draft_k)])
-        t0 = time.perf_counter()
-        logits, cache, _ = self._prefill(
-            cache, torch.tensor([t], device=device), image_tokens, impl)
-        V = logits.shape[-1]
-        if self.vocab_limit is not None and self.vocab_limit < V:
-            logits = logits.masked_fill(
-                torch.arange(V, device=device) >= self.vocab_limit, -1e30)
-        if fsm_next is not None:
-            logits = torch.where(fsm_next[0][None] >= 0, logits,
-                                 torch.full_like(logits, -1e30))
-        first = int(sample_token(
-            logits, temperature, top_p,
-            uniform=None if uniforms is None else uniforms[:1])[0])
-        synchronize(device)
-        t1 = time.perf_counter()
-        fsm_state0 = 0
-        if fsm_next is not None:
-            fsm_state0 = max(int(fsm_host[0, first]), 0)
-        singles = [st[0] for st in stop_tokens if len(st) == 1]
-        out, count, rounds = lookup_generate(
-            self.params, args, cache, t, len(t) + W, first, gen_len=gen_len,
-            draft_k=draft_k, vocab_limit=self.vocab_limit,
-            stop_token=singles[0] if singles else -1, fsm_next=fsm_next,
-            fsm_state0=fsm_state0, temperature=temperature, top_p=top_p,
-            sample_uniforms=uniforms, max_n=lookup_max_n, impl=impl,
-            fsm_host=fsm_host,
-        )
-        synchronize(device)
-        t2 = time.perf_counter()
-        self.last_stats = {"prefill_ms": (t1 - t0) * 1e3,
-                           "decode_ms": (t2 - t1) * 1e3,
-                           "decode_steps": rounds}
+        with trace.span("prefill"):
+            logits, cache, _ = self._prefill(
+                cache, torch.tensor([t], device=device), image_tokens, impl)
+            V = logits.shape[-1]
+            if self.vocab_limit is not None and self.vocab_limit < V:
+                logits = logits.masked_fill(
+                    torch.arange(V, device=device) >= self.vocab_limit, -1e30)
+            if fsm_next is not None:
+                logits = torch.where(fsm_next[0][None] >= 0, logits,
+                                     torch.full_like(logits, -1e30))
+            first = int(sample_token(
+                logits, temperature, top_p,
+                uniform=None if uniforms is None else uniforms[:1])[0])
+            synchronize(device)
+        with trace.span("decode"):
+            fsm_state0 = 0
+            if fsm_next is not None:
+                fsm_state0 = max(int(fsm_host[0, first]), 0)
+            singles = [st[0] for st in stop_tokens if len(st) == 1]
+            out, count, rounds = lookup_generate(
+                self.params, args, cache, t, len(t) + W, first,
+                gen_len=gen_len, draft_k=draft_k,
+                vocab_limit=self.vocab_limit,
+                stop_token=singles[0] if singles else -1, fsm_next=fsm_next,
+                fsm_state0=fsm_state0, temperature=temperature, top_p=top_p,
+                sample_uniforms=uniforms, max_n=lookup_max_n, impl=impl,
+                fsm_host=fsm_host,
+            )
+            synchronize(device)
+        trace.count("decode_steps", rounds)
         self.last_spec_stats = {
             "emitted": count,
             "verify_rounds": rounds,

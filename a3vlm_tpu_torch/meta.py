@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import time
 from pathlib import Path
 from typing import Iterable, List, Optional, Sequence
 
@@ -48,6 +47,7 @@ from a3vlm_tpu_torch.parallel.mesh import (
 )
 from a3vlm_tpu_torch.quant import quantize_params, tree_map
 from a3vlm_tpu_torch.train.losses import next_token_loss
+from a3vlm_tpu_torch.utils import trace
 
 # the families of the port: the module of each and its random init
 _FAMILY = {"llama": llama_mod, "llama_ens5": ens5_mod,
@@ -149,8 +149,11 @@ class MetaModel:
         self._generator: Optional[Generator] = None
         self._kv_cache_bits: Optional[int] = None
         self._prefill_chunk: Optional[int] = None
-        # wall times (ms) of the last generate call, synchronized on CUDA
+        # the numbers (ms on the host unless named otherwise, synchronised
+        # where a phase ends; step and row-step counts) and the spans of
+        # the last generate call (``utils/trace.py``)
         self.last_stats: dict = {}
+        self.last_trace: Optional[trace.Record] = None
         # emitted tokens and verify rounds of the last draft_k request
         self.last_spec_stats: Optional[dict] = None
 
@@ -561,16 +564,19 @@ class MetaModel:
 
     @on_mesh
     def _timed(self, images, depth_images, impl: str, run):
-        """The path both entries share: the towers timed on the device,
-        then ``run(generator, image_tokens)``; sets ``last_stats`` (towers,
-        prefill and decode) and ``last_spec_stats`` of this call."""
+        """The path both entries share, one call of the span recorder
+        (``utils/trace.py``): the ``towers`` span, synchronised, then
+        ``run(generator, image_tokens)``; sets ``last_stats`` (the
+        record's numbers), ``last_trace`` (the record) and
+        ``last_spec_stats`` of this call."""
         gen = self._get_generator()
-        t0 = time.perf_counter()
-        image_tokens = self.encode_images(images, depth_images, impl)
-        synchronize(self.device)
-        towers_ms = (time.perf_counter() - t0) * 1e3
-        out = run(gen, image_tokens)
-        self.last_stats = {"towers_ms": towers_ms, **gen.last_stats}
+        with trace.call("generate") as rec:
+            with trace.span("towers"):
+                image_tokens = self.encode_images(images, depth_images, impl)
+                synchronize(self.device)
+            out = run(gen, image_tokens)
+        self.last_stats = rec.stats()
+        self.last_trace = rec
         self.last_spec_stats = gen.last_spec_stats
         return out
 

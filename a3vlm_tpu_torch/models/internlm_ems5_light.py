@@ -36,6 +36,7 @@ from a3vlm_tpu_torch.models._init import trunc_normal
 from a3vlm_tpu_torch.ops.norms import layer_norm
 from a3vlm_tpu_torch.ops.resize import resize
 from a3vlm_tpu_torch.quant import tree_map
+from a3vlm_tpu_torch.utils import trace
 
 INTERNLM2_7B = ModelArgs(
     dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, vocab_size=92544,
@@ -159,19 +160,23 @@ def encode_image_features(params: dict, cfg: InternlmEns5Config,
     """Towers only: image [B, 1024, 1024, 3] CLIP-normalized -> the
     ensemble [5B, 257, 4608], per-image interleaved. The towers are frozen
     and run without recording a gradient (the JAX ``stop_gradient``)."""
-    dino_in, cn_in = _two_scale_crops(image, cfg)
+    dev = image.device
+    with trace.span("towers.crops", device=dev):
+        dino_in, cn_in = _two_scale_crops(image, cfg)
 
-    cn = cnx.convnext_forward(params["convnext"], cfg.convnext, cn_in)
-    cn = cn.reshape(cn.shape[0], -1, cn.shape[-1])
-    cn = torch.cat([cn.mean(dim=1, keepdim=True), cn], dim=1)
+    with trace.span("towers.convnext", device=dev):
+        cn = cnx.convnext_forward(params["convnext"], cfg.convnext, cn_in)
+        cn = cn.reshape(cn.shape[0], -1, cn.shape[-1])
+        cn = torch.cat([cn.mean(dim=1, keepdim=True), cn], dim=1)
 
     def const(vals):
         return torch.tensor(vals, device=image.device).to(image.dtype)
 
-    clip_mean, clip_std = const(ens5.CLIP_MEAN), const(ens5.CLIP_STD)
-    d_mean, d_std = const(ens5.DINOV2_MEAN), const(ens5.DINOV2_STD)
-    dino_in = dino_in * (clip_std / d_std) + (clip_mean - d_mean) / d_std
-    dino = vit.vit_forward(params["dinov2"], cfg.dinov2, dino_in, impl)
+    with trace.span("towers.dinov2", device=dev):
+        clip_mean, clip_std = const(ens5.CLIP_MEAN), const(ens5.CLIP_STD)
+        d_mean, d_std = const(ens5.DINOV2_MEAN), const(ens5.DINOV2_STD)
+        dino_in = dino_in * (clip_std / d_std) + (clip_mean - d_mean) / d_std
+        dino = vit.vit_forward(params["dinov2"], cfg.dinov2, dino_in, impl)
     return torch.cat([cn, dino], dim=-1)
 
 

@@ -35,6 +35,8 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from a3vlm_tpu_torch.utils import trace
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -260,14 +262,16 @@ def _via_host(mesh: Mesh, x: torch.Tensor) -> bool:
 
 
 def _span(fn):
-    """Each call a ``torch.profiler`` span named ``collective:<name>`` (the
-    collective's host time, copies through host memory and waits for the
-    card included), so a trace can take the collectives' share."""
+    """Each call a span of the port's recorder (``utils/trace.py``) named
+    ``collective:<name>`` (the collective's host time, copies through host
+    memory and waits for the card included): in the open call's record,
+    and in a ``torch.profiler`` trace, so a trace can take the
+    collectives' share."""
     name = f"collective:{fn.__name__}"
 
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        with torch.profiler.record_function(name):
+        with trace.span(name):
             return fn(*args, **kwargs)
 
     return run

@@ -312,7 +312,9 @@ def test_generate_sets_fresh_last_stats(setup):
                     max_gen_len=3)
     stats = tmodel.last_stats
     assert set(stats) == {"towers_ms", "prefill_ms", "decode_ms",
-                          "decode_steps"}
+                          "decode_steps", "decode_issue_ms", "decode_wait_ms",
+                          "row_steps_forced", "row_steps_asked",
+                          "row_steps_spare"}
     assert stats["towers_ms"] > 0 and stats["decode_steps"] >= 1
     tmodel.generate([PROMPT], max_gen_len=2)
     assert tmodel.last_stats is not stats

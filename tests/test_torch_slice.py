@@ -149,5 +149,7 @@ def test_metamodel_generate_greedy_identical(setup):
         stop_tokens=[(tok.eos_id,)],
     )
     assert ids == trec.decoded
-    assert set(tmodel.last_stats) == {"towers_ms", "prefill_ms", "decode_ms",
-                                      "decode_steps"}
+    assert set(tmodel.last_stats) == {
+        "towers_ms", "prefill_ms", "decode_ms", "decode_steps",
+        "decode_issue_ms", "decode_wait_ms", "row_steps_forced",
+        "row_steps_asked", "row_steps_spare"}
